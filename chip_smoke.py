@@ -1,0 +1,376 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero):
+
+1. device: the card's name and power limit;
+2. build: compiles the CUDA kernel sources of ``src/repro_torch/kernels/csrc``;
+3. kernels: each hand-written kernel against its plain PyTorch version on
+   CUDA tensors, at the serving path's shapes and at the other options of the
+   TPU kernel it replaces, with times of the kernel, the plain version and
+   one PyTorch library call, beside the least time the card could take;
+4. reference: a full-width, 2-layer fp32 gemma-2b on the card (kernels)
+   against the same weights on the CPU (plain versions): logits and greedy
+   tokens;
+5. serve: full-width gemma-2b (18 layers, bf16, random weights from a fixed
+   seed) serving batch 4 x prompt 1024 + 32 new tokens through
+   ``ServeEngine.generate``, with the kernels' launch counts of that run.
+
+The line before the last is the ``kernels`` JSON summary; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: 80 GB HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor core / fp32 CUDA core
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX kernel tests' tolerances
+ARCH = "gemma-2b"
+SERVE_BATCH, PROMPT_LEN, MAX_NEW = 4, 1024, 32
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync() -> None:
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, reps: int = 30, flush_bytes: int = 256 << 20) -> float:
+    """Median device time of ``fn()`` in ms (CUDA events), with the 50 MB L2
+    flushed before each call so inputs come from device memory."""
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=DEVICE, dtype=torch.float32).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_flash(gen) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    cases = [  # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
+        (SERVE_BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, torch.bfloat16, {}),  # gemma-2b prefill
+        (SERVE_BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, torch.float32, {}),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(causal=False)),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(window=64)),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(softcap=30.0)),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(window=32, softcap=50.0)),
+        (2, 4, 2, 256, 256, 64, torch.bfloat16, {}),
+        (1, 8, 2, 128, 256, 128, torch.float32, {}),  # GQA, cross lengths
+        (1, 8, 2, 128, 256, 128, torch.bfloat16, dict(window=100)),
+        (1, 2, 2, 100, 100, 32, torch.float32, {}),  # ragged Sq/Sk
+        (1, 8, 1, 100, 173, 256, torch.bfloat16, dict(softcap=50.0)),
+        (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8)),  # smoke head_dim
+    ]
+    main = None
+    for B, Hq, Hkv, Sq, Sk, D, dtype, kw in cases:
+        # model layout (B, S, H, D) viewed as (B, H, S, D), as ops.attention passes it
+        q = randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
+        k = randn(gen, (B, Sk, Hkv, D), dtype).transpose(1, 2)
+        v = randn(gen, (B, Sk, Hkv, D), dtype).transpose(1, 2)
+        out = flash_attention(q, k, v, **kw)
+        expect = ref.mha_reference(q, k, v, **kw)
+        sync()
+        err = (out.float() - expect.float()).abs().max().item()
+        ok = torch.allclose(out.float(), expect.float(), atol=TOL[dtype], rtol=TOL[dtype])
+        log(f"  flash_attention B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} "
+            f"{str(dtype)[6:]} {kw or 'causal'}: max_abs_err={err:.3g} (tol {TOL[dtype]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
+        if main is None:
+            main = dict(q=q, k=k, v=v, err=err, dtype=dtype)
+
+    q, k, v, dtype = main["q"], main["k"], main["v"], main["dtype"]
+    B, Hq, S, D = q.shape
+    ms = time_ms(lambda: flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: ref.mha_reference(q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    pairs = B * Hq * S * (S + 1) // 2  # causal (q, k) pairs this input needs
+    flops = 4.0 * D * pairs  # q.k and p.v, 2 flops per multiply-add
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()  # q, k, v read; o written
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    log(f"  flash_attention at the prefill shape (B={B}, Hq={Hq}, Hkv={k.shape[1]}, S={S}, D={D}, "
+        f"bf16, causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library (scaled_dot_product_attention) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:40",
+                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_rmsnorm(gen, d_model: int) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    rows_main = SERVE_BATCH * PROMPT_LEN
+    cases = [  # (rows, d, dtype)
+        (rows_main, d_model, torch.bfloat16),  # gemma-2b prefill
+        (rows_main, d_model, torch.float32),
+        (SERVE_BATCH, d_model, torch.bfloat16),  # gemma-2b decode step
+        (rows_main - 1, d_model, torch.bfloat16),  # ragged last block of rows
+        (1000, 896, torch.float32),  # widths that are not powers of two
+        (333, 3584, torch.bfloat16),
+        (64, 768, torch.float32),
+        (17, 8192, torch.bfloat16),
+    ]
+    main = None
+    for rows, d, dtype in cases:
+        x = randn(gen, (rows, d), dtype)
+        s = randn(gen, (d,), dtype)
+        out = rmsnorm(x, s)
+        expect = ref.rmsnorm_reference(x, s)
+        sync()
+        err = (out.float() - expect.float()).abs().max().item()
+        ok = torch.allclose(out.float(), expect.float(), atol=TOL[dtype], rtol=TOL[dtype])
+        log(f"  rmsnorm rows={rows} d={d} {str(dtype)[6:]}: max_abs_err={err:.3g} "
+            f"(tol {TOL[dtype]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rmsnorm disagrees with its plain version: {err}")
+        if main is None:
+            main = dict(x=x, s=s, err=err, dtype=dtype)
+
+    x, s, dtype = main["x"], main["s"], main["dtype"]
+    ms = time_ms(lambda: rmsnorm(x, s))
+    plain_ms = time_ms(lambda: ref.rmsnorm_reference(x, s))
+    library_ms = time_ms(lambda: F.rms_norm(x, (x.shape[-1],), weight=s, eps=1e-6))
+    nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
+    flops = 4.0 * x.numel()  # square, sum, scale by r, scale by s
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    log(f"  rmsnorm at the prefill shape ({x.shape[0]}, {x.shape[1]}) bf16: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library (rms_norm) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB)")
+    return dict(name="rmsnorm", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+                replaces="src/repro/kernels/rmsnorm.py:17",
+                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# the model on the card against the same model on the CPU
+# ---------------------------------------------------------------------------
+
+def check_reference(cfg) -> None:
+    from repro_torch.models import get_api
+    from repro_torch.serve.engine import ServeEngine
+
+    small = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
+    cpu_api, gpu_api = get_api(small, device="cpu"), get_api(small, device=DEVICE)
+    cpu_model = cpu_api.init(seed=1)
+    gpu_model = gpu_api.init(seed=1)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    tokens = np.random.default_rng(1).integers(0, small.vocab_size, size=(2, 128))
+    tol = 1e-3  # fp32 on both sides; sums over d=2048..16384 taken in another order on the card
+    logits = {}
+    with torch.inference_mode():
+        for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
+            toks = torch.from_numpy(tokens).to(api.device)
+            full, _ = model(toks, mode="train")  # flash attention + RMSNorm on the card
+            _, cache = api.prefill(model, {"tokens": toks[:, :127]}, api.init_cache(2, 128),
+                                   last_only=True)
+            step, _ = api.decode(model, toks[:, 127:], cache)
+            logits[name] = (full.cpu(), step.cpu())
+    for i, what in enumerate(("full-sequence", "decode-step")):
+        err = (logits["card"][i] - logits["cpu"][i]).abs().max().item()
+        log(f"  2-layer full-width fp32 {what} logits, card vs CPU: max_abs_err={err:.3g} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"{what} logits on the card disagree with the CPU: {err}")
+    out = {}
+    for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
+        out[name] = ServeEngine(api, model, batch=2, s_max=140).generate(
+            {"tokens": tokens}, max_new_tokens=8)
+    log(f"  greedy tokens card {out['card'].tolist()} / CPU {out['cpu'].tolist()}")
+    if not np.array_equal(out["cpu"], out["card"]):
+        raise AssertionError("greedy tokens on the card differ from the CPU")
+
+
+# ---------------------------------------------------------------------------
+# serving, full width
+# ---------------------------------------------------------------------------
+
+def serve(cfg) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.models import get_api
+    from repro_torch.serve.engine import ServeEngine
+
+    api = get_api(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    model = api.init(seed=0)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B params "
+        f"in {str(cfg.pdtype)[6:]}, initialised in {time.perf_counter() - t0:.1f} s")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int64)
+    eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=PROMPT_LEN + MAX_NEW)
+    eng.generate({"tokens": tokens[:, :64]}, max_new_tokens=2)  # warm-up (Triton JIT, cuBLAS)
+
+    flash_attention.launches = 0
+    rmsnorm.launches = 0
+    t0 = time.perf_counter()
+    out = eng.generate({"tokens": tokens}, max_new_tokens=MAX_NEW)
+    total_s = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches, "rmsnorm": rmsnorm.launches}
+
+    t = eng.timing
+    prefill_ms = t["prefill_s"] * 1e3
+    decode_ms = t["decode_s"] * 1e3 / t["decode_steps"]
+    tok_s = SERVE_BATCH * MAX_NEW / total_s
+    log(f"  generated {out.shape}: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms/token, "
+        f"{tok_s:.1f} tok/s over {total_s:.3f} s")
+    log(f"  launches in that run: {launches}")
+    passes = 1 + (MAX_NEW - 1)  # one prefill, then one decode step per further token
+    expect = {"flash_attention": cfg.num_layers,  # prefill only: decode is plain torch
+              "rmsnorm": (2 * cfg.num_layers + 1) * passes}
+    if launches != expect:
+        raise AssertionError(f"kernel launches {launches} != {expect} implied by the path")
+    if out.shape != (SERVE_BATCH, MAX_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"generated ids out of range: shape {out.shape}, "
+                             f"[{out.min()}, {out.max()}]")
+    with torch.inference_mode():
+        cache = api.init_cache(SERVE_BATCH, PROMPT_LEN)
+        logits, _ = api.prefill(model, {"tokens": torch.from_numpy(tokens).to(DEVICE)}, cache,
+                                last_only=True)
+    if logits.shape != (SERVE_BATCH, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits not finite or of shape {tuple(logits.shape)}")
+    if not np.array_equal(logits[:, -1].argmax(-1).cpu().numpy(), out[:, 0]):
+        raise AssertionError("a second prefill picks other first tokens")
+    kv = eng.comm_profile()["kv_bytes_per_token"]
+    expect_kv = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * cfg.cdtype.itemsize
+    if kv != expect_kv:
+        raise AssertionError(f"kv_bytes_per_token {kv} != {expect_kv}")
+    log(f"  kv_bytes_per_token {kv:.0f}")
+    profile_phases(api, model, torch.from_numpy(tokens).to(DEVICE), decode_ms)
+    return launches
+
+
+def profile_phases(api, model, tokens, decode_ms: float, steps: int = 8) -> None:
+    """torch.profiler over one prefill and ``steps`` decode steps (outside the
+    counted run): device-busy time, kernels launched, and the top kernels by
+    device time.  The idle share of a decode step is taken against the
+    unprofiled decode time of the counted run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels_of(prof):
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    with torch.inference_mode():
+        cache = api.init_cache(tokens.shape[0], tokens.shape[1] + steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pre:
+            logits, cache = api.prefill(model, {"tokens": tokens}, cache, last_only=True)
+            tok = logits[:, -1].argmax(dim=-1)
+            sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as dec:
+            for _ in range(steps):
+                logits, cache = api.decode(model, tok[:, None], cache)
+                tok = logits[:, -1].argmax(dim=-1)
+            sync()
+    for what, prof, n in (("prefill", pre, 1), ("decode step", dec, steps)):
+        kern = kernels_of(prof)
+        if not kern:
+            log(f"  profile {what}: no device events (not measured)")
+            continue
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+        by_name = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        extra = (f", idle share {1 - busy / decode_ms:.3f} of the unprofiled {decode_ms:.3f} ms"
+                 if what == "decode step" else "")
+        log(f"  profile {what}: {len(kern) / n:.0f} kernels, device busy {busy:.3f} ms{extra}")
+        for name, ms in top:
+            log(f"    {ms:8.3f} ms  {name[:100]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch import configs
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    log("build:")
+    t0 = time.perf_counter()
+    times = build.build_all()
+    log(f"  built {sorted(times)} in {time.perf_counter() - t0:.1f} s")
+    for line in build.build_log("flash_attention").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"    {line.strip()}")
+
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    log("kernels:")
+    kernels = [check_flash(gen), check_rmsnorm(gen, cfg.d_model)]
+    log("reference:")
+    check_reference(cfg)
+    torch.cuda.empty_cache()
+    log("serve:")
+    torch.cuda.reset_peak_memory_stats()
+    launches = serve(cfg)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,39 @@
+"""Public kernel entry points: layout adaptation in front of the kernels.
+
+Layouts at this boundary follow the *model* convention (B, S, H, D); the
+kernels use (B, H, S, D), taken here as a transposed view of the same
+memory (no copy: the CUDA kernel reads strides).  Each op dispatches on the
+tensor's device inside its kernel wrapper: a CUDA tensor goes to the
+hand-written kernel or the call raises, a CPU tensor goes to the plain
+version.  There is no flag to force either path.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .flash_attention import flash_attention as _flash
+from .rmsnorm import rmsnorm as _rmsnorm
+
+
+def attention(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Flash attention with model-layout inputs; returns (B, Sq, Hq, D)."""
+    out = _flash(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, softcap=softcap, scale=scale,
+    )
+    return out.transpose(1, 2)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    return _rmsnorm(x, scale, eps=eps)

@@ -1,0 +1,118 @@
+"""Architecture registry (PyTorch twin of ``repro.models.registry``).
+
+The reduced smoke variants of the 10 architectures, and a
+uniform :class:`ModelAPI` (init / prefill / decode / init_cache) for the
+decoder-only dense family.  Entry points run on ``cuda`` unless the caller
+passes another device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+from .. import configs as _configs
+from .config import MLAConfig, MambaConfig, ModelConfig, RWKVConfig
+from . import transformer
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests (same values as JAX)."""
+    full = _configs.get_config(name)
+    kw: Dict[str, Any] = dict(
+        num_layers=4,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        d_ff=128,
+        vocab_size=512,
+        param_dtype="float32",
+        compute_dtype="float32",
+    )
+    if full.attn_kind == "mla":
+        kw["mla"] = MLAConfig(
+            q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+            qk_rope_head_dim=8, v_head_dim=16,
+        )
+    if full.num_kv_heads == 1:
+        kw["num_kv_heads"] = 1
+    if full.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            full.moe,
+            num_experts=4,
+            top_k=2,
+            d_expert=64,
+            first_dense=min(full.moe.first_dense, 1),
+            capacity_factor=2.0,
+        )
+        if full.moe.first_dense:
+            kw["num_layers"] = 5  # 1 dense + 4 moe
+    if full.block_pattern is not None:
+        kw["num_layers"] = len(full.block_pattern)
+    if full.mamba is not None:
+        kw["mamba"] = MambaConfig(d_state=4, d_conv=4, expand=2)
+    if full.rwkv is not None:
+        kw["rwkv"] = RWKVConfig(head_dim=16, decay_lora=8, tokenshift_lora=8)
+        kw["num_heads"] = 4
+        kw["num_kv_heads"] = 4
+    if full.local_global:
+        kw["num_layers"] = 4
+        kw["sliding_window"] = 8
+    if full.is_encoder_decoder:
+        kw["num_layers"] = 2
+        return full.replace(
+            encoder_layers=2, encoder_seq=16, max_target_positions=64, **kw
+        )
+    if full.family == "vlm":
+        kw["vision_tokens"] = 8
+        kw["vision_dim"] = 32
+    return full.replace(**kw)
+
+
+@dataclasses.dataclass
+class ModelAPI:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable  # (seed) -> model with random weights
+    prefill: Callable  # (model, batch, cache, last_only) -> (logits, cache)
+    decode: Callable  # (model, tokens, cache) -> (logits, cache)
+    init_cache: Callable  # (batch, s_max) -> cache
+
+
+def get_api(cfg: ModelConfig, device="cuda") -> ModelAPI:
+    """The model API of a decoder-only dense arch on ``device``."""
+    transformer.check_supported(cfg)
+    device = torch.device(device)
+
+    def init(seed: int = 0):
+        """Random weights from ``torch.Generator(seed)`` on ``device``, with
+        the JAX initialiser's distributions."""
+        model = transformer.DecoderLM(cfg, device)
+        model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+        return model
+
+    def prefill(model, batch, cache, last_only=False):
+        return model(batch["tokens"], cache=cache, mode="prefill", last_only=last_only)
+
+    def decode_step(model, tokens, cache):
+        return model(tokens, cache=cache, mode="decode")
+
+    def make_cache(batch, s_max):
+        return transformer.init_cache(cfg, batch, s_max, device)
+
+    return ModelAPI(cfg, device, init, prefill, decode_step, make_cache)
+
+
+def make_smoke_batch(cfg: ModelConfig, rng=None, batch: int = 2, seq: int = 16,
+                     device="cuda") -> Dict[str, torch.Tensor]:
+    """The same token draws as the JAX ``make_smoke_batch``, as int64 tensors."""
+    rng = rng or np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(batch, seq)).astype(np.int64)
+    tgts = np.roll(toks, -1, axis=1)
+    return {
+        "tokens": torch.from_numpy(toks).to(device),
+        "targets": torch.from_numpy(tgts).to(device),
+    }

@@ -1,0 +1,85 @@
+"""Batched serving engine: prefill + greedy KV-cache decode (PyTorch twin of
+``repro.serve.engine``)."""
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+class ServeEngine:
+    """Inference engine over one ModelAPI, on the API's device (``cuda``
+    unless the API was built for another).
+
+    ``generate`` runs greedy decoding: one prefill over the prompts that
+    computes only the last position's logits (``last_only``; the JAX engine
+    computes the whole sequence's and reads the last, which gives the same
+    tokens), then one decode step per further token against the KV cache,
+    which the model updates in place.  ``comm_profile`` exports the engine's
+    communication footprint, which calibrates the cluster simulator's
+    serving archetype.
+    """
+
+    def __init__(self, api, model, batch: int, s_max: int):
+        self.api = api
+        self.model = model
+        self.batch = batch
+        self.s_max = s_max
+        self.timing: Dict[str, float] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self.api.device
+
+    def comm_profile(self) -> Dict[str, float]:
+        """Per-request communication profile, measured off the engine's own
+        cache tensors: ``kv_bytes_per_token`` is the byte growth of
+        ``api.init_cache`` per context slot.  Its analytic twin is
+        ``repro.dist.demand.kv_bytes_per_token`` (the tests pin the two)."""
+        def nbytes(s_max: int) -> int:
+            cache = self.api.init_cache(1, s_max)
+            return sum(t.nbytes for kv in cache["layers"] for t in kv)
+
+        s0, s1 = 8, 16
+        per_token = (nbytes(s1) - nbytes(s0)) / (s1 - s0)
+        cfg = self.api.cfg
+        return {
+            "kv_bytes_per_token": float(per_token),
+            "fixed_state_bytes": float(nbytes(s0) - per_token * s0),
+            "dtype_bytes": float(cfg.cdtype.itemsize),
+            "num_layers": float(cfg.num_layers),
+            "batch_slots": float(self.batch),
+        }
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def generate(self, batch_inputs: Dict[str, np.ndarray], max_new_tokens: int) -> np.ndarray:
+        """Greedy generation from ``batch_inputs["tokens"]`` (B, S0); returns
+        (B, max_new_tokens) token ids.  Wall times of the prefill and of the
+        decode steps (ended by a device synchronise) go to ``self.timing``."""
+        tokens = torch.as_tensor(np.asarray(batch_inputs["tokens"]), dtype=torch.long)
+        B, S0 = tokens.shape
+        if S0 + max_new_tokens > self.s_max:
+            raise ValueError(f"prompt {S0} + {max_new_tokens} new tokens exceed s_max {self.s_max}")
+        tokens = tokens.to(self.device)
+        t0 = time.perf_counter()
+        cache = self.api.init_cache(B, self.s_max)
+        logits, cache = self.api.prefill(self.model, {"tokens": tokens}, cache, last_only=True)
+        tok = logits[:, -1].argmax(dim=-1)
+        out = [tok]
+        self._sync()
+        t1 = time.perf_counter()
+        for _ in range(max_new_tokens - 1):
+            logits, cache = self.api.decode(self.model, tok[:, None], cache)
+            tok = logits[:, -1].argmax(dim=-1)
+            out.append(tok)
+        self._sync()
+        t2 = time.perf_counter()
+        self.timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+                       "decode_steps": float(max_new_tokens - 1)}
+        return torch.stack(out, dim=1).cpu().numpy()

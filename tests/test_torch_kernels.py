@@ -1,0 +1,115 @@
+"""The port's plain kernel versions against the JAX oracles
+(``repro.kernels.ref``) and the Pallas kernels in interpret mode, and the
+CPU dispatch of ``repro_torch.kernels.ops``.
+
+Inputs are drawn with numpy from a fixed seed and fed to both stacks.
+Tolerances are those of ``tests/test_kernels.py``: 2e-5 in float32 (both
+sides reduce in fp32, in another order) and 2e-2 in bfloat16 (both round
+the fp32 result to bf16, so they may differ by one bf16 step).  The
+kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import flash_attention as pallas_flash  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import rmsnorm as pallas_rmsnorm  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, ref, rmsnorm  # noqa: E402
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D)
+    (1, 1, 1, 128, 128, 64),
+    (2, 4, 2, 256, 256, 64),
+    (1, 8, 1, 128, 256, 128),  # MQA, cross lengths
+    (1, 2, 2, 100, 100, 32),  # non-divisible seq
+    (1, 8, 1, 128, 128, 256),  # gemma-2b: MQA, head_dim 256
+]
+FLASH_VARIANTS = [
+    dict(causal=False),
+    dict(causal=True, window=64),
+    dict(causal=True, softcap=30.0),
+    dict(causal=True, window=32, softcap=50.0),
+]
+
+
+def _pair(rng, shape, dtype):
+    """The same numbers as a JAX array and a torch tensor of ``dtype``."""
+    x = rng.normal(size=shape).astype(np.float32)
+    return jnp.asarray(x).astype(dtype), torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _close(t_out, j_out, tol):
+    np.testing.assert_allclose(
+        t_out.float().numpy(), np.asarray(j_out, np.float32), atol=tol, rtol=tol
+    )
+
+
+def _qkv(rng, B, Hq, Hkv, Sq, Sk, D, dtype):
+    return [_pair(rng, s, dtype) for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_plain_matches_jax_oracle(rng, dtype, shape):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, *shape, dtype)
+    _close(ref.mha_reference(tq, tk, tv), jref.mha_reference(jq, jk, jv), TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_plain_matches_pallas_interpret(rng, shape):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, *shape, "float32")
+    want = pallas_flash(jq, jk, jv, causal=True, interpret=True, block_q=64, block_k=64)
+    _close(flash_attention(tq, tk, tv, causal=True), want, TOL["float32"])
+
+
+@pytest.mark.parametrize("kw", FLASH_VARIANTS)
+def test_flash_variants_match_oracle_and_pallas(rng, kw):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, 4, 2, 256, 256, 64, "float32")
+    got = flash_attention(tq, tk, tv, **kw)
+    _close(got, jref.mha_reference(jq, jk, jv, **kw), 2e-5)
+    _close(got, pallas_flash(jq, jk, jv, interpret=True, block_q=64, block_k=64, **kw), 2e-5)
+
+
+RMS_SHAPES = [(8, 256), (3, 5, 512), (64, 128), (7, 896), (5, 3584)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+def test_rmsnorm_plain_matches_oracle_and_pallas(rng, dtype, shape):
+    jx, tx = _pair(rng, shape, dtype)
+    js, ts = _pair(rng, shape[-1:], dtype)
+    got = rmsnorm(tx, ts)
+    _close(got, jref.rmsnorm_reference(jx, js), TOL[dtype])
+    _close(got, pallas_rmsnorm(jx, js, interpret=True, block_rows=16), TOL[dtype])
+
+
+def test_ops_cpu_tensors_take_the_plain_path(rng):
+    """ops.* take model layout (B, S, H, D), agree with the oracle, and on
+    CPU tensors launch no kernel."""
+    flash_attention.launches = rmsnorm.launches = 0
+    (jq, tq), (jk, tk) = _pair(rng, (2, 64, 4, 32), "float32"), _pair(rng, (2, 64, 2, 32), "float32")
+    got = ops.attention(tq, tk, tk, window=16)
+    want = jnp.swapaxes(jref.mha_reference(*(jnp.swapaxes(a, 1, 2) for a in (jq, jk, jk)),
+                                           window=16), 1, 2)
+    assert got.shape == (2, 64, 4, 32)
+    _close(got, want, 2e-5)
+
+    (jx, tx), (js, ts) = _pair(rng, (4, 16, 128), "float32"), _pair(rng, (128,), "float32")
+    _close(ops.rmsnorm(tx, ts), jref.rmsnorm_reference(jx, js), 2e-5)
+    assert flash_attention.launches == 0 and rmsnorm.launches == 0
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16))  # 4 % 3 heads
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError):
+        rmsnorm(torch.zeros(2, 8), torch.zeros(4))
+    with pytest.raises(ValueError):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))

@@ -1,0 +1,157 @@
+"""The port's model against the JAX model: the weight bridge carries
+``api.init(PRNGKey(0))`` params into the port, and train-mode, prefill and
+decode logits agree with ``repro.models`` ``apply_lm`` at atol 1e-4 (both
+stacks in float32 on the CPU; sums over d_model and d_ff are taken in
+another order, and the port's attention keeps its probabilities in fp32)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.ckpt.manager import _flatten as ckpt_flatten  # noqa: E402
+from repro.models import get_api as jget_api  # noqa: E402
+from repro.models import make_smoke_batch as jbatch  # noqa: E402
+from repro.models import smoke_config as jsmoke  # noqa: E402
+from repro.models import transformer as jtransformer  # noqa: E402
+from repro_torch.models import get_api, make_smoke_batch, smoke_config  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+
+DENSE = ["gemma-2b", "olmo-1b", "gemma2-9b", "qwen2.5-14b"]
+NOT_PORTED = ["deepseek-v3-671b", "grok-1-314b", "internvl2-1b",
+              "jamba-1.5-large-398b", "rwkv6-1.6b", "whisper-small"]
+ATOL = 1e-4
+
+
+def _bridged(arch):
+    """(JAX cfg, JAX params, port cfg, port model on the CPU) with one set of weights."""
+    jcfg = jsmoke(arch)
+    jparams = jget_api(jcfg).init(jax.random.PRNGKey(0))
+    cfg = smoke_config(arch)
+    model = transformer.DecoderLM(cfg, torch.device("cpu"))
+    sd = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    model.load_state_dict(sd, strict=True)
+    return jcfg, jparams, cfg, model
+
+
+def _jax_apply(jcfg, mode):
+    """JAX apply_lm jitted once per (cfg, mode), so decode loops compile once."""
+    return jax.jit(lambda params, toks, cache: jtransformer.apply_lm(
+        params, toks, jcfg, cache=cache, mode=mode))
+
+
+def _close(t, j):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b"])
+def test_bridge_takes_pytree_and_checkpoint_layouts(arch):
+    jcfg, jparams, cfg, model = _bridged(arch)
+    flat = ckpt_flatten(jparams)
+    sd = params_from_jax(flat, cfg)
+    assert set(sd) == set(model.state_dict())
+    for name, t in model.state_dict().items():
+        assert sd[name].dtype == cfg.pdtype
+        torch.testing.assert_close(sd[name], t, atol=0, rtol=0)
+    # layer i of the port is unit i of the stacked JAX params
+    wq = np.asarray(jparams["units"]["l0"]["mix"]["wq"])
+    for i in range(cfg.num_layers):
+        np.testing.assert_array_equal(model.layers[i].mix.wq.detach().numpy(), wq[i])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_logits_match_jax(arch):
+    jcfg, jparams, cfg, model = _bridged(arch)
+    jb = jbatch(jcfg, batch=2, seq=16)
+    tb = make_smoke_batch(cfg, batch=2, seq=16, device="cpu")
+    np.testing.assert_array_equal(tb["tokens"].numpy(), np.asarray(jb["tokens"]))
+
+    jlogits, _, _ = jtransformer.apply_lm(jparams, jb["tokens"], jcfg)
+    with torch.no_grad():
+        logits, _ = transformer.apply_lm(model, tb["tokens"])
+    assert logits.dtype == torch.float32 and logits.shape == (2, 16, cfg.vocab_size)
+    _close(logits, jlogits)
+
+    # prefill on the first 12 tokens, then decode the next 4 one at a time
+    s_max, s0 = 20, 12
+    jcache = jtransformer.init_cache(jcfg, 2, s_max)
+    cache = transformer.init_cache(cfg, 2, s_max, "cpu")
+    jl, _, jcache = jtransformer.apply_lm(jparams, jb["tokens"][:, :s0], jcfg,
+                                          cache=jcache, mode="prefill")
+    jdecode = _jax_apply(jcfg, "decode")
+    with torch.no_grad():
+        tl, cache = transformer.apply_lm(model, tb["tokens"][:, :s0], cache, mode="prefill")
+        _close(tl, jl)
+        last, _ = transformer.apply_lm(
+            model, tb["tokens"][:, :s0], transformer.init_cache(cfg, 2, s_max, "cpu"),
+            mode="prefill", last_only=True)
+        _close(last, jl[:, -1:])
+        for t in range(s0, 16):
+            jl, _, jcache = jdecode(jparams, jb["tokens"][:, t:t + 1], jcache)
+            tl, cache = transformer.apply_lm(model, tb["tokens"][:, t:t + 1], cache,
+                                                mode="decode")
+            _close(tl, jl)
+    assert cache["pos"] == int(jcache["pos"]) == 16
+    # the KV cache holds what JAX's holds (unit u, element j -> layer u*len(unit)+j)
+    unit = transformer.layer_plan(cfg).unit
+    for i, (k, v) in enumerate(cache["layers"]):
+        jk, jv = jcache["units"][f"l{i % len(unit)}"]
+        _close(k, jk[i // len(unit)])
+        _close(v, jv[i // len(unit)])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_cache_shapes_match_init_cache(arch):
+    cfg = smoke_config(arch)
+    jcache = jtransformer.init_cache(jsmoke(arch), 3, 24)
+    cache = transformer.init_cache(cfg, 3, 24, "cpu")
+    plan = transformer.layer_plan(cfg)
+    assert len(cache["layers"]) == cfg.num_layers == plan.n_units * len(plan.unit)
+    for i, kv in enumerate(cache["layers"]):
+        jkv = jcache["units"][f"l{i % len(plan.unit)}"]
+        for t, j in zip(kv, jkv):
+            assert tuple(t.shape) == tuple(j.shape[1:])
+            assert t.dtype == getattr(torch, str(j.dtype))
+
+
+def test_decode_past_a_window_masks_old_slots():
+    """gemma2-9b smoke has a sliding window of 8: decoding 12 tokens past a
+    prompt of 8 must match JAX, which masks slots older than the window."""
+    jcfg, jparams, cfg, model = _bridged("gemma2-9b")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, 20))
+    jcache = jtransformer.init_cache(jcfg, 1, 24)
+    cache = transformer.init_cache(cfg, 1, 24, "cpu")
+    _, _, jcache = jtransformer.apply_lm(jparams, jnp.asarray(toks[:, :8]), jcfg,
+                                         cache=jcache, mode="prefill")
+    jdecode = _jax_apply(jcfg, "decode")
+    with torch.no_grad():
+        _, cache = transformer.apply_lm(model, torch.from_numpy(toks[:, :8]), cache,
+                                           mode="prefill")
+        for t in range(8, 20):
+            jl, _, jcache = jdecode(jparams, jnp.asarray(toks[:, t:t + 1]), jcache)
+            tl, cache = transformer.apply_lm(model, torch.from_numpy(toks[:, t:t + 1]),
+                                                cache, mode="decode")
+            _close(tl, jl)
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_families_not_ported_raise(arch):
+    with pytest.raises(NotImplementedError, match=arch):
+        get_api(smoke_config(arch), device="cpu")
+
+
+def test_torch_init_distributions():
+    """The port's own initialiser: weights normal/sqrt(in), embeddings
+    0.02-normal, norm scales one; the same seed gives the same weights."""
+    cfg = smoke_config("gemma-2b").replace(d_model=256, d_ff=512, vocab_size=4096)
+    api = get_api(cfg, device="cpu")
+    a, b = api.init(seed=5), api.init(seed=5)
+    for (name, p), q in zip(a.state_dict().items(), b.state_dict().values()):
+        torch.testing.assert_close(p, q, atol=0, rtol=0, msg=name)
+    assert abs(a.embed.tok.std().item() - 0.02) < 1e-3
+    wi = a.layers[0].ffn.wi
+    assert abs(wi.std().item() * cfg.d_model ** 0.5 - 1.0) < 0.02
+    assert torch.equal(a.layers[0].ln1.scale, torch.ones(cfg.d_model))
+    assert not torch.equal(a.layers[0].ffn.wi, a.layers[1].ffn.wi)

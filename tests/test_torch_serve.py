@@ -1,0 +1,67 @@
+"""The port's serving engine against the JAX engine: identical greedy
+tokens from identical weights, the same KV bytes per token as the
+simulator's analytic formula, and the CLI on the CPU."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.dist.demand import kv_bytes_per_token  # noqa: E402
+from repro.models import get_api as jget_api  # noqa: E402
+from repro.models import smoke_config as jsmoke  # noqa: E402
+from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import get_api, smoke_config  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
+
+DENSE = ["gemma-2b", "olmo-1b", "gemma2-9b", "qwen2.5-14b"]
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b"])
+def test_greedy_tokens_equal_jax(arch):
+    jcfg = jsmoke(arch)
+    japi = jget_api(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(0))
+    prompts = np.random.default_rng(1).integers(0, jcfg.vocab_size, size=(2, 16)).astype(np.int32)
+    want = JServeEngine(japi, jparams, batch=2, s_max=26).generate(
+        {"tokens": prompts}, max_new_tokens=8)
+
+    cfg = smoke_config(arch)
+    api = get_api(cfg, device="cpu")
+    model = api.init()
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg))
+    eng = ServeEngine(api, model, batch=2, s_max=26)
+    got = eng.generate({"tokens": prompts}, max_new_tokens=8)
+    assert got.shape == (2, 8)
+    np.testing.assert_array_equal(got, want)
+    assert eng.timing["decode_steps"] == 7
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_kv_bytes_match_the_simulator_formula(arch):
+    cfg = smoke_config(arch)
+    prof = ServeEngine(get_api(cfg, device="cpu"), None, batch=2, s_max=32).comm_profile()
+    assert prof["kv_bytes_per_token"] == kv_bytes_per_token(jsmoke(arch)) > 0
+    assert prof["fixed_state_bytes"] == 0.0
+    full = ServeEngine(get_api(cfg.replace(compute_dtype="bfloat16"), device="cpu"), None,
+                       batch=1, s_max=8).comm_profile()
+    assert full["kv_bytes_per_token"] == kv_bytes_per_token(
+        jsmoke(arch).replace(compute_dtype="bfloat16"))
+
+
+def test_generate_refuses_to_overrun_the_cache():
+    cfg = smoke_config("gemma-2b")
+    api = get_api(cfg, device="cpu")
+    eng = ServeEngine(api, api.init(), batch=1, s_max=10)
+    with pytest.raises(ValueError, match="s_max"):
+        eng.generate({"tokens": np.zeros((1, 8), np.int64)}, max_new_tokens=4)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b"])
+def test_cli_runs_on_the_cpu(arch, capsys):
+    serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                    "--prompt-len", "8", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "generated (2, 4)" in out and "tok/s" in out
