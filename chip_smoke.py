@@ -6,16 +6,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: the card's name and power limit;
 2. build: compiles the CUDA kernel sources of ``src/repro_torch/kernels/csrc``;
-3. kernels: each hand-written kernel against its plain PyTorch version on
-   CUDA tensors, at the serving path's shapes and at the other options of the
-   TPU kernel it replaces, with times of the kernel, the plain version and
-   one PyTorch library call, beside the least time the card could take;
-4. reference: a full-width, 2-layer fp32 gemma-2b on the card (kernels)
-   against the same weights on the CPU (plain versions): logits and greedy
-   tokens;
-5. serve: full-width gemma-2b (18 layers, bf16, random weights from a fixed
-   seed) serving batch 4 x prompt 1024 + 32 new tokens through
-   ``ServeEngine.generate``, with the kernels' launch counts of that run.
+3. kernels: each hand-written kernel (flash attention, RMSNorm, WKV6)
+   against its plain PyTorch version on CUDA tensors, at the serving paths'
+   shapes and at the other options of the TPU kernel it replaces, with times
+   of the kernel, the plain version and one PyTorch library call where there
+   is one, beside the least time the card could take;
+4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b on the
+   card (kernels) against the same weights on the CPU (plain versions):
+   logits and greedy tokens;
+5. serve: full-width gemma-2b (18 layers) and then rwkv6-1.6b (24 layers),
+   bf16, random weights from a fixed seed, each serving batch 4 x prompt
+   1024 + 32 new tokens through ``ServeEngine.generate``, with the kernels'
+   launch counts of each run (flash attention and RMSNorm on gemma-2b's
+   path, WKV6 on rwkv6's).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -37,7 +40,8 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: 80 GB HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor core / fp32 CUDA core
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX kernel tests' tolerances
-ARCH = "gemma-2b"
+WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # 1e-4 at log_w = -50, as in JAX
+ARCHS = ("gemma-2b", "rwkv6-1.6b")
 SERVE_BATCH, PROMPT_LEN, MAX_NEW = 4, 1024, 32
 
 
@@ -188,6 +192,75 @@ def check_rmsnorm(gen, d_model: int) -> dict:
                 bound_by=bound_by, library_ms=library_ms)
 
 
+def check_wkv6(gen, cfg) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6
+
+    K = cfg.rwkv.head_dim
+    H = cfg.d_model // K
+    zero = dict(s0=False)
+    cases = [  # (B, H, T, K, dtype, options)
+        (SERVE_BATCH, H, PROMPT_LEN, K, torch.bfloat16, {}),  # rwkv6-1.6b prefill
+        (SERVE_BATCH, H, PROMPT_LEN, K, torch.float32, {}),
+        (SERVE_BATCH, H, 1, K, torch.bfloat16, {}),  # a decode step
+        (SERVE_BATCH, H, 1, K, torch.float32, zero),
+        (2, 3, 50, K, torch.float32, {}),  # ragged T
+        (2, 3, 96, 32, torch.bfloat16, {}),
+        (2, 3, 50, 16, torch.float32, {}),  # the smoke head size
+        (2, 4, 64, 16, torch.bfloat16, zero),
+        (1, 2, 32, K, torch.float32, dict(log_w=-50.0, s0=False)),  # extreme decay
+        (2, 3, 40, 16, torch.float32, dict(log_w=-50.0)),
+    ]
+    main = None
+    for B, Hh, T, Kk, dtype, kw in cases:
+        # model layout (B, T, H, K) viewed as (B, H, T, K), as ops.wkv6 passes it;
+        # log_w = -exp(N(0, 1)) as tests/test_kernels.py draws it
+        r, k, v = (randn(gen, (B, T, Hh, Kk), dtype).transpose(1, 2) for _ in range(3))
+        if "log_w" in kw:
+            lw = torch.full((B, T, Hh, Kk), kw["log_w"], device=DEVICE).transpose(1, 2)
+        else:
+            lw = -torch.exp(randn(gen, (B, T, Hh, Kk), torch.float32)).transpose(1, 2)
+        u = randn(gen, (Hh, Kk), torch.float32)
+        s0 = (randn(gen, (B, Hh, Kk, Kk), torch.float32) if kw.get("s0", True)
+              else torch.zeros((B, Hh, Kk, Kk), device=DEVICE))
+        y, sf = wkv6(r, k, v, lw, u, s0)
+        want_y, want_s = ref.wkv6_reference(r, k, v, lw, u, s0)
+        sync()
+        tol = 1e-4 if "log_w" in kw else WKV_TOL[dtype]
+        s_tol = min(tol, WKV_TOL[torch.float32])  # the state is fp32 in every case
+        err = (y.float() - want_y.float()).abs().max().item()
+        s_err = (sf - want_s).abs().max().item()
+        ok = (torch.isfinite(y.float()).all().item()
+              and torch.allclose(y.float(), want_y.float(), atol=tol, rtol=tol)
+              and torch.allclose(sf, want_s, atol=s_tol, rtol=s_tol))
+        log(f"  wkv6 B={B} H={Hh} T={T} K=V={Kk} {str(dtype)[6:]} "
+            f"{'s0=0' if not kw.get('s0', True) else 's0 random'}"
+            f"{' log_w=-50' if 'log_w' in kw else ''}: max_abs_err y={err:.3g} (tol {tol}), "
+            f"state={s_err:.3g} (tol {s_tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"wkv6 disagrees with its plain version: y {err}, state {s_err}")
+        if main is None:
+            main = dict(args=(r, k, v, lw, u, s0), err=err, dtype=dtype)
+
+    r, k, v, lw, u, s0 = main["args"]
+    B, Hh, T, Kk = r.shape
+    ms = time_ms(lambda: wkv6(r, k, v, lw, u, s0))
+    plain_ms = time_ms(lambda: ref.wkv6_reference(r, k, v, lw, u, s0), reps=5)
+    # bytes: r, k, v, log_w, u and s0 read once; y and the final state written once
+    nbytes = ((r.numel() + k.numel() + v.numel()) * r.element_size() + lw.numel() * 4
+              + u.numel() * 4 + 2 * s0.numel() * 4 + v.numel() * r.element_size())
+    flops = 4.0 * B * Hh * T * Kk * Kk  # k v^T, u-bonus, r.(S + ...), decay: ~4 per (k, v)
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # the recurrence is fp32
+    log(f"  wkv6 at the prefill shape (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library: none (no single PyTorch call computes WKV6), "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP fp32, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return dict(name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
+                replaces="src/repro/kernels/rwkv6_wkv.py:37",
+                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # the model on the card against the same model on the CPU
 # ---------------------------------------------------------------------------
@@ -207,14 +280,15 @@ def check_reference(cfg) -> None:
     with torch.inference_mode():
         for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
             toks = torch.from_numpy(tokens).to(api.device)
-            full, _ = model(toks, mode="train")  # flash attention + RMSNorm on the card
+            full, _ = model(toks, mode="train")  # the path's kernels on the card
             _, cache = api.prefill(model, {"tokens": toks[:, :127]}, api.init_cache(2, 128),
                                    last_only=True)
             step, _ = api.decode(model, toks[:, 127:], cache)
             logits[name] = (full.cpu(), step.cpu())
     for i, what in enumerate(("full-sequence", "decode-step")):
         err = (logits["card"][i] - logits["cpu"][i]).abs().max().item()
-        log(f"  2-layer full-width fp32 {what} logits, card vs CPU: max_abs_err={err:.3g} (tol {tol})")
+        log(f"  {cfg.name} 2-layer full-width fp32 {what} logits, card vs CPU: "
+            f"max_abs_err={err:.3g} (tol {tol})")
         if not err <= tol:
             raise AssertionError(f"{what} logits on the card disagree with the CPU: {err}")
     out = {}
@@ -230,9 +304,20 @@ def check_reference(cfg) -> None:
 # serving, full width
 # ---------------------------------------------------------------------------
 
+def expected_launches(cfg) -> dict:
+    """Kernel launches one generate call implies: one prefill, then one
+    decode step per further token."""
+    passes = 1 + (MAX_NEW - 1)
+    if cfg.family == "ssm":  # rwkv: one WKV6 per layer per pass; LayerNorm is plain torch
+        return {"flash_attention": 0, "rmsnorm": 0, "wkv6": cfg.num_layers * passes}
+    return {"flash_attention": cfg.num_layers,  # prefill only: decode is plain torch
+            "rmsnorm": (2 * cfg.num_layers + 1) * passes, "wkv6": 0}
+
+
 def serve(cfg) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.models import get_api
     from repro_torch.serve.engine import ServeEngine
 
@@ -248,12 +333,12 @@ def serve(cfg) -> dict:
     eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=PROMPT_LEN + MAX_NEW)
     eng.generate({"tokens": tokens[:, :64]}, max_new_tokens=2)  # warm-up (Triton JIT, cuBLAS)
 
-    flash_attention.launches = 0
-    rmsnorm.launches = 0
+    flash_attention.launches = rmsnorm.launches = wkv6.launches = 0
     t0 = time.perf_counter()
     out = eng.generate({"tokens": tokens}, max_new_tokens=MAX_NEW)
     total_s = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches, "rmsnorm": rmsnorm.launches}
+    launches = {"flash_attention": flash_attention.launches, "rmsnorm": rmsnorm.launches,
+                "wkv6": wkv6.launches}
 
     t = eng.timing
     prefill_ms = t["prefill_s"] * 1e3
@@ -262,9 +347,7 @@ def serve(cfg) -> dict:
     log(f"  generated {out.shape}: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms/token, "
         f"{tok_s:.1f} tok/s over {total_s:.3f} s")
     log(f"  launches in that run: {launches}")
-    passes = 1 + (MAX_NEW - 1)  # one prefill, then one decode step per further token
-    expect = {"flash_attention": cfg.num_layers,  # prefill only: decode is plain torch
-              "rmsnorm": (2 * cfg.num_layers + 1) * passes}
+    expect = expected_launches(cfg)
     if launches != expect:
         raise AssertionError(f"kernel launches {launches} != {expect} implied by the path")
     if out.shape != (SERVE_BATCH, MAX_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size:
@@ -278,11 +361,20 @@ def serve(cfg) -> dict:
         raise AssertionError(f"prefill logits not finite or of shape {tuple(logits.shape)}")
     if not np.array_equal(logits[:, -1].argmax(-1).cpu().numpy(), out[:, 0]):
         raise AssertionError("a second prefill picks other first tokens")
-    kv = eng.comm_profile()["kv_bytes_per_token"]
-    expect_kv = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * cfg.cdtype.itemsize
-    if kv != expect_kv:
-        raise AssertionError(f"kv_bytes_per_token {kv} != {expect_kv}")
-    log(f"  kv_bytes_per_token {kv:.0f}")
+    prof = eng.comm_profile()
+    kv, fixed = prof["kv_bytes_per_token"], prof["fixed_state_bytes"]
+    if cfg.family == "ssm":  # a recurrent state: x_prev twice in cdtype, the fp32 wkv state
+        K = cfg.rwkv.head_dim
+        expect_kv = 0.0
+        expect_fixed = cfg.num_layers * (2 * cfg.d_model * cfg.cdtype.itemsize
+                                         + (cfg.d_model // K) * K * K * 4)
+    else:
+        expect_kv = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * cfg.cdtype.itemsize
+        expect_fixed = 0.0
+    if (kv, fixed) != (expect_kv, expect_fixed):
+        raise AssertionError(f"comm_profile kv_bytes_per_token {kv}, fixed_state_bytes {fixed} "
+                             f"!= {expect_kv}, {expect_fixed}")
+    log(f"  kv_bytes_per_token {kv:.0f}, fixed_state_bytes {fixed:.0f}")
     profile_phases(api, model, torch.from_numpy(tokens).to(DEVICE), decode_ms)
     return launches
 
@@ -337,38 +429,44 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"device: {device_name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     log("build:")
     t0 = time.perf_counter()
     times = build.build_all()
     log(f"  built {sorted(times)} in {time.perf_counter() - t0:.1f} s")
-    for line in build.build_log("flash_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    {line.strip()}")
+    for source in sorted(times):
+        for line in build.build_log(source).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {source}: {line.strip()}")
 
-    cfg = configs.get_config(ARCH)
+    gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     log("kernels:")
-    kernels = [check_flash(gen), check_rmsnorm(gen, cfg.d_model)]
+    kernels = [check_flash(gen), check_rmsnorm(gen, gemma.d_model), check_wkv6(gen, rwkv)]
     log("reference:")
-    check_reference(cfg)
-    torch.cuda.empty_cache()
+    for cfg in (gemma, rwkv):
+        check_reference(cfg)
+        torch.cuda.empty_cache()
     log("serve:")
-    torch.cuda.reset_peak_memory_stats()
-    launches = serve(cfg)
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    runs = {}
+    for cfg in (gemma, rwkv):
+        torch.cuda.reset_peak_memory_stats()
+        runs[cfg.name] = serve(cfg)
+        log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+    driven_by = {"flash_attention": gemma.name, "rmsnorm": gemma.name, "wkv6": rwkv.name}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = runs[driven_by[k["name"]]][k["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -2,19 +2,20 @@
 
 Layouts at this boundary follow the *model* convention (B, S, H, D); the
 kernels use (B, H, S, D), taken here as a transposed view of the same
-memory (no copy: the CUDA kernel reads strides).  Each op dispatches on the
+memory (no copy: the CUDA kernels read strides).  Each op dispatches on the
 tensor's device inside its kernel wrapper: a CUDA tensor goes to the
 hand-written kernel or the call raises, a CPU tensor goes to the plain
 version.  There is no flag to force either path.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .flash_attention import flash_attention as _flash
 from .rmsnorm import rmsnorm as _rmsnorm
+from .wkv6 import wkv6 as _wkv6
 
 
 def attention(
@@ -37,3 +38,19 @@ def attention(
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     return _rmsnorm(x, scale, eps=eps)
+
+
+def wkv6(
+    r: torch.Tensor,  # (B, S, H, K)
+    k: torch.Tensor,  # (B, S, H, K)
+    v: torch.Tensor,  # (B, S, H, V)
+    log_w: torch.Tensor,  # (B, S, H, K) fp32
+    u: torch.Tensor,  # (H, K) fp32
+    s0: torch.Tensor,  # (B, H, K, V) fp32
+    *,
+    s_out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV6 with model-layout inputs; returns (y (B,S,H,V), s_final).  With
+    ``s_out`` (which may be ``s0``) the final state is written there."""
+    y, s_final = _wkv6(*(a.transpose(1, 2) for a in (r, k, v, log_w)), u, s0, s_out=s_out)
+    return y.transpose(1, 2), s_final

@@ -2,13 +2,14 @@
 
 Line for line the math of ``repro.kernels.ref``: they materialise the full
 score matrix and reduce in fp32, so the tests hold the kernels against the
-most obviously correct implementation.  On a CPU tensor the kernel wrappers
-run these; on the card ``chip_smoke.py`` compares each kernel with them.
+most obviously correct implementation (WKV6 steps through the sequence
+one token at a time).  On a CPU tensor the kernel wrappers run these; on
+the card ``chip_smoke.py`` compares each kernel with them.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,3 +52,29 @@ def rmsnorm_reference(
     xf = x.float()
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * r * scale.float()).to(x.dtype)
+
+
+def wkv6_reference(
+    r: torch.Tensor,  # (B, H, T, K)
+    k: torch.Tensor,  # (B, H, T, K)
+    v: torch.Tensor,  # (B, H, T, V)
+    log_w: torch.Tensor,  # (B, H, T, K)  (log of per-channel decay, < 0)
+    u: torch.Tensor,  # (H, K)  bonus for the current token
+    s0: torch.Tensor,  # (B, H, K, V)  initial state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential WKV6:  y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ);
+    S_t = diag(w_t) S_{t-1} + k_t v_tᵀ.  Returns (y in r's dtype, S fp32)."""
+    T = r.shape[2]
+    rf, kf, vf = (a.float() for a in (r, k, v))
+    wf = torch.exp(log_w.float())
+    uf = u.float()
+    S = s0.float()
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = rf[:, :, t], kf[:, :, t], vf[:, :, t], wf[:, :, t]
+        kv = kt[..., :, None] * vt[..., None, :]  # (B,H,K,V)
+        att = S + uf[None, :, :, None] * kv
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt, att))
+        S = wt[..., :, None] * S + kv
+    y = torch.stack(ys, dim=2)  # (B, H, T, V)
+    return y.to(r.dtype), S

@@ -11,7 +11,12 @@ stored as f32).  It
   dense family has no prologue);
 * keeps every weight's (in, out) orientation, because the port's layers
   compute ``x @ W`` as JAX does (no transpose, no ``nn.Linear``);
-* casts every leaf to the config's param dtype.
+* gives each leaf the dtype of the port's parameter of that name: the
+  config's param dtype, except where the model keeps a parameter in fp32
+  whatever ``param_dtype`` is (RWKV's decay base ``w0`` and bonus ``u``, as
+  the JAX initialiser does).  A checkpoint stores bf16 as f32, so the
+  leaf's own dtype cannot say which parameters are bf16.  Widening bf16 to
+  f32 and back is exact, so every value arrives bit for bit.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from .transformer import layer_plan
+from .transformer import DecoderLM, layer_plan
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -36,14 +41,19 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 def params_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """State dict of :class:`~repro_torch.models.transformer.DecoderLM` (CPU
-    tensors in ``cfg.pdtype``) from JAX params, nested or "/"-flattened."""
+    tensors in the dtypes of its parameters) from JAX params, nested or
+    "/"-flattened."""
     flat = _flatten(params)
     plan = layer_plan(cfg)
     unit_len = len(plan.unit)
+    dtypes = {name: t.dtype
+              for name, t in DecoderLM(cfg, torch.device("meta")).state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
 
     def put(name: str, arr: np.ndarray) -> None:
-        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(cfg.pdtype)
+        if name not in dtypes:
+            raise KeyError(f"{name}: no parameter of that name in the port's {cfg.name}")
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtypes[name])
 
     for key, arr in flat.items():
         parts = key.split("/")

@@ -2,8 +2,8 @@
 
 The reduced smoke variants of the 10 architectures, and a
 uniform :class:`ModelAPI` (init / prefill / decode / init_cache) for the
-decoder-only dense family.  Entry points run on ``cuda`` unless the caller
-passes another device.
+ported decoder-only families (dense GQA/MQA and rwkv).  Entry points run on
+``cuda`` unless the caller passes another device.
 """
 from __future__ import annotations
 
@@ -83,7 +83,7 @@ class ModelAPI:
 
 
 def get_api(cfg: ModelConfig, device="cuda") -> ModelAPI:
-    """The model API of a decoder-only dense arch on ``device``."""
+    """The model API of a ported decoder-only arch on ``device``."""
     transformer.check_supported(cfg)
     device = torch.device(device)
 

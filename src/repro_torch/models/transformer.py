@@ -6,12 +6,15 @@ a unit); here it is unrolled into one ``nn.ModuleList`` in place of the
 ``i // len(unit)``, element ``i % len(unit)`` (after the prologue).
 
 Families ported so far: dense GQA/MQA decoders, including gemma2's
-local/global alternation (sliding-window layers share the attention path).
-MoE, MLA, hybrid (mamba), ssm (rwkv), audio (whisper) and vlm raise
+local/global alternation (sliding-window layers share the attention path),
+and the rwkv family (``block_pattern`` of ``rwkv`` layers: RWKV-6 time mix
+and channel mix).  MoE, MLA, hybrid (mamba), audio (whisper) and vlm raise
 ``NotImplementedError`` naming the arch.
 
-Caches are a dict ``{"pos": int, "layers": [(k, v), ...]}`` with one
-(B, S_max, Hkv, Dh) pair per layer; prefill and decode write it in place.
+Caches are a dict ``{"pos": int, "layers": [entry, ...]}`` with one entry
+per layer, as JAX's ``_cache_shapes``: an attention layer's (k, v) pair of
+(B, S_max, Hkv, Dh), an rwkv layer's (x_prev (B,1,d), wkv (B,H,K,K) fp32,
+x_prev (B,1,d)).  Prefill and decode write it in place.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch import nn
 
 from .attention import GQAAttention
 from .layers import MLP, Embed, Norm
+from .rwkv import RWKVChannelMix, RWKVTimeMix, rwkv_state_shapes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,11 +82,14 @@ def layer_plan(cfg) -> LayerPlan:
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run yet."""
     missing = []
-    if cfg.family in ("audio", "vlm", "hybrid", "ssm"):
+    if cfg.family in ("audio", "vlm", "hybrid"):
         missing.append(f"family {cfg.family!r}")
+    kinds = {spec.kind for spec in layer_plan(cfg).layers()}
+    if kinds - {"attn", "rwkv"}:
+        missing.append(f"layers {sorted(kinds - {'attn', 'rwkv'})}")
     if cfg.moe is not None:
         missing.append("MoE")
-    if cfg.attn_kind != "gqa":
+    if "attn" in kinds and cfg.attn_kind != "gqa":
         missing.append(f"attention {cfg.attn_kind!r}")
     if missing:
         raise NotImplementedError(
@@ -90,37 +97,54 @@ def check_supported(cfg) -> None:
         )
 
 
+def _cache_shapes(spec: LayerSpec, cfg, batch: int, s_max: int):
+    """(shape, dtype) of each tensor of one layer's cache entry."""
+    dt = cfg.cdtype
+    if spec.kind == "rwkv":
+        s1, s2, s3 = rwkv_state_shapes(cfg, batch)
+        return ((s1, dt), (s2, torch.float32), (s3, dt))
+    kv = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+    return ((kv, dt), (kv, dt))
+
+
 def init_cache(cfg, batch: int, s_max: int, device) -> Dict[str, Any]:
-    """Zero-filled cache: one (k, v) pair per layer, in the compute dtype."""
+    """Zero-filled cache: one entry per layer (see the module docstring)."""
     check_supported(cfg)
-    shape = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
     layers = [
-        (torch.zeros(shape, dtype=cfg.cdtype, device=device),
-         torch.zeros(shape, dtype=cfg.cdtype, device=device))
-        for _ in layer_plan(cfg).layers()
+        tuple(torch.zeros(shape, dtype=dtype, device=device)
+              for shape, dtype in _cache_shapes(spec, cfg, batch, s_max))
+        for spec in layer_plan(cfg).layers()
     ]
     return {"pos": 0, "layers": layers}
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP layer."""
+    """Pre-norm layer: attention + MLP, or RWKV time mix + channel mix."""
 
     def __init__(self, spec: LayerSpec, cfg, device):
         super().__init__()
+        self.kind = spec.kind
         self.window = spec.window
         self.ln1 = Norm(cfg, device)
-        self.mix = GQAAttention(cfg, device)
         self.ln2 = Norm(cfg, device)
-        self.ffn = MLP(cfg, device)
+        if spec.kind == "rwkv":
+            self.mix = RWKVTimeMix(cfg, device)
+            self.ffn = RWKVChannelMix(cfg, device)
+        else:
+            self.mix = GQAAttention(cfg, device)
+            self.ffn = MLP(cfg, device)
 
     def forward(self, x, cache=None, pos=None):
+        if self.kind == "rwkv":
+            x = x + self.mix(self.ln1(x), state=cache[:2] if cache is not None else None)
+            return x + self.ffn(self.ln2(x), cache[2] if cache is not None else None)
         x = x + self.mix(self.ln1(x), window=self.window, cache=cache, pos=pos)
         return x + self.ffn(self.ln2(x))
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder-only LM: embed, a ModuleList of blocks, final norm,
-    (tied) unembedding.  Parameter names follow the JAX pytree
+    """Decoder-only LM: embed, a ModuleList of blocks, final norm,
+    (tied or untied) unembedding.  Parameter names follow the JAX pytree
     (``embed.tok``, ``layers.{i}.mix.wq``, ``final_norm.scale`` ...)."""
 
     def __init__(self, cfg, device):
@@ -171,5 +195,5 @@ class DecoderLM(nn.Module):
 def apply_lm(model: DecoderLM, tokens, cache=None, mode: str = "train",
              last_only: bool = False):
     """Functional entry point in the JAX ``apply_lm`` argument order; returns
-    (logits, new_cache) (the dense family has no auxiliary loss)."""
+    (logits, new_cache) (the ported families have no auxiliary loss)."""
     return model(tokens, cache=cache, mode=mode, last_only=last_only)

@@ -16,10 +16,10 @@ class ServeEngine:
     ``generate`` runs greedy decoding: one prefill over the prompts that
     computes only the last position's logits (``last_only``; the JAX engine
     computes the whole sequence's and reads the last, which gives the same
-    tokens), then one decode step per further token against the KV cache,
-    which the model updates in place.  ``comm_profile`` exports the engine's
-    communication footprint, which calibrates the cluster simulator's
-    serving archetype.
+    tokens), then one decode step per further token against the cache (KV
+    or recurrent state), which the model updates in place.
+    ``comm_profile`` exports the engine's communication footprint, which
+    calibrates the cluster simulator's serving archetype.
     """
 
     def __init__(self, api, model, batch: int, s_max: int):
@@ -35,12 +35,16 @@ class ServeEngine:
 
     def comm_profile(self) -> Dict[str, float]:
         """Per-request communication profile, measured off the engine's own
-        cache tensors: ``kv_bytes_per_token`` is the byte growth of
-        ``api.init_cache`` per context slot.  Its analytic twin is
-        ``repro.dist.demand.kv_bytes_per_token`` (the tests pin the two)."""
+        cache tensors (every tensor of every layer's entry):
+        ``kv_bytes_per_token`` is the byte growth of ``api.init_cache`` per
+        context slot (0 for a recurrent state, which does not grow), and
+        ``fixed_state_bytes`` is what does not grow.  Its analytic twin is
+        ``repro.dist.demand.kv_bytes_per_token`` (the tests pin the two).
+        The JAX engine's fixed bytes also count its int32 ``pos`` leaf; the
+        port keeps ``pos`` as a Python int."""
         def nbytes(s_max: int) -> int:
             cache = self.api.init_cache(1, s_max)
-            return sum(t.nbytes for kv in cache["layers"] for t in kv)
+            return sum(t.nbytes for entry in cache["layers"] for t in entry)
 
         s0, s1 = 8, 16
         per_token = (nbytes(s1) - nbytes(s0)) / (s1 - s0)

@@ -4,13 +4,14 @@ These need a CUDA device, ``nvcc`` and ``triton``; without a card they skip
 with a reason.  Run them on the GPU with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances: 2e-5 in float32 and 2e-2 in bfloat16, as in
-``tests/test_kernels.py``.
+``tests/test_kernels.py``; WKV6 2e-4 in float32 (1e-4 under extreme decay),
+as the JAX tests hold the Pallas kernel, and 2e-2 in bfloat16.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, ops, ref, rmsnorm  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, ref, rmsnorm, wkv6  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -78,3 +79,64 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
         flash_attention(q, q, q)
     with pytest.raises(TypeError):
         rmsnorm(_randn(gen, (4, 64), torch.float16), _randn(gen, (64,), torch.float16))
+
+
+def _wkv6_inputs(gen, B, H, T, K, dtype, log_w=None, s0=True):
+    """As tests/test_kernels.py draws them: log_w = -exp(N(0, 1))."""
+    r, k, v = (_randn(gen, (B, H, T, K), dtype) for _ in range(3))
+    lw = (-torch.exp(_randn(gen, (B, H, T, K), torch.float32)) if log_w is None
+          else torch.full((B, H, T, K), log_w, device="cuda"))
+    u = _randn(gen, (H, K), torch.float32)
+    state = (_randn(gen, (B, H, K, K), torch.float32) if s0
+             else torch.zeros(B, H, K, K, device="cuda"))
+    return r, k, v, lw, u, state
+
+
+@pytest.mark.parametrize("B,H,T,K,dtype,kw", [
+    (4, 32, 1024, 64, torch.bfloat16, {}),  # rwkv6-1.6b prefill
+    (4, 32, 1024, 64, torch.float32, {}),
+    (4, 32, 1, 64, torch.bfloat16, {}),  # a decode step
+    (2, 3, 50, 16, torch.float32, {}),  # ragged T, the smoke head size
+    (2, 3, 96, 32, torch.float32, {}),
+    (2, 4, 64, 16, torch.bfloat16, dict(s0=False)),
+    (1, 2, 32, 64, torch.float32, dict(log_w=-50.0, s0=False)),  # extreme decay
+])
+def test_wkv6_kernel_matches_plain(gen, B, H, T, K, dtype, kw):
+    args = _wkv6_inputs(gen, B, H, T, K, dtype, **kw)
+    before = wkv6.launches
+    y, sf = wkv6(*args)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    want_y, want_s = ref.wkv6_reference(*args)
+    tol = 1e-4 if "log_w" in kw else (2e-4 if dtype == torch.float32 else 2e-2)
+    assert y.dtype == dtype and sf.dtype == torch.float32
+    assert torch.isfinite(y.float()).all()
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    s_tol = min(tol, 2e-4)  # the state is fp32 whatever r's dtype
+    torch.testing.assert_close(sf, want_s, atol=s_tol, rtol=s_tol)
+
+
+def test_wkv6_model_layout_and_state_in_place(gen):
+    """ops.wkv6 reads (B, S, H, K) in place and writes y in that layout and
+    the final state over s0."""
+    r, k, v, lw, u, s0 = _wkv6_inputs(gen, 2, 4, 77, 64, torch.bfloat16)
+    model = [t.transpose(1, 2).contiguous() for t in (r, k, v, lw)]
+    want_y, want_s = ref.wkv6_reference(r, k, v, lw, u, s0)
+    y, sf = ops.wkv6(*model, u, s0, s_out=s0)
+    torch.cuda.synchronize()
+    assert sf is s0 and y.shape == (2, 77, 4, 64) and y.is_contiguous()
+    torch.testing.assert_close(y.float(), want_y.transpose(1, 2).float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(s0, want_s, atol=2e-4, rtol=2e-4)
+
+
+def test_wkv6_raises_on_what_the_kernel_does_not_take(gen):
+    r, k, v, lw, u, s0 = _wkv6_inputs(gen, 1, 2, 8, 128, torch.float32)
+    with pytest.raises(ValueError):
+        wkv6(r, k, v, lw, u, s0)  # K = 128 has no kernel
+    r, k, v, lw, u, s0 = _wkv6_inputs(gen, 1, 2, 8, 64, torch.float32)
+    with pytest.raises(TypeError):
+        wkv6(r.half(), k.half(), v.half(), lw, u, s0)
+    with pytest.raises(RuntimeError, match="backward"):
+        wkv6(r.requires_grad_(), k, v, lw, u, s0)
+    with pytest.raises(ValueError):
+        wkv6(r.detach(), k, v, lw, u.cpu(), s0)  # mixed devices

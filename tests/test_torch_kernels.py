@@ -5,7 +5,8 @@ CPU dispatch of ``repro_torch.kernels.ops``.
 Inputs are drawn with numpy from a fixed seed and fed to both stacks.
 Tolerances are those of ``tests/test_kernels.py``: 2e-5 in float32 (both
 sides reduce in fp32, in another order) and 2e-2 in bfloat16 (both round
-the fp32 result to bf16, so they may differ by one bf16 step).  The
+the fp32 result to bf16, so they may differ by one bf16 step); WKV6 2e-4
+(1e-4 under extreme decay), as the JAX tests hold the Pallas kernel.  The
 kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
 """
 import numpy as np
@@ -18,7 +19,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import flash_attention as pallas_flash  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import rmsnorm as pallas_rmsnorm  # noqa: E402
-from repro_torch.kernels import flash_attention, ops, ref, rmsnorm  # noqa: E402
+from repro.kernels import wkv6 as pallas_wkv6  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, ref, rmsnorm, wkv6  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D)
@@ -87,10 +89,53 @@ def test_rmsnorm_plain_matches_oracle_and_pallas(rng, dtype, shape):
     _close(got, pallas_rmsnorm(jx, js, interpret=True, block_rows=16), TOL[dtype])
 
 
+def _wkv6_inputs(rng, B, H, T, K, dtype="float32", log_w=None, s0=True):
+    """r, k, v, log_w, u, s0 as test_kernels.py draws them: (jax, torch) pairs."""
+    r, k, v = (_pair(rng, (B, H, T, K), dtype) for _ in range(3))
+    lw = (-np.exp(rng.normal(size=(B, H, T, K))) if log_w is None
+          else np.full((B, H, T, K), log_w)).astype(np.float32)
+    u = _pair(rng, (H, K), "float32")
+    s = _pair(rng, (B, H, K, K), "float32") if s0 else (
+        jnp.zeros((B, H, K, K)), torch.zeros(B, H, K, K))
+    return [r, k, v, (jnp.asarray(lw), torch.from_numpy(lw)), u, s]
+
+
+@pytest.mark.parametrize("T,chunk", [(64, 16), (96, 32), (50, 32), (16, 64), (1, 32)])
+def test_wkv6_plain_matches_oracle_and_pallas(rng, T, chunk):
+    pairs = _wkv6_inputs(rng, 2, 3, T, 16)
+    jin, tin = [p[0] for p in pairs], [p[1] for p in pairs]
+    y, sf = wkv6(*tin)
+    assert y.shape == (2, 3, T, 16) and sf.dtype == torch.float32
+    for want_y, want_s in (jref.wkv6_reference(*jin),
+                           pallas_wkv6(*jin, chunk=chunk, interpret=True)):
+        _close(y, want_y, 2e-4)
+        _close(sf, want_s, 2e-4)
+
+
+def test_wkv6_plain_extreme_decay(rng):
+    """log_w = -50 (decay ~ e^-50): finite, and equal to the oracle and the
+    Pallas kernel within 1e-4."""
+    pairs = _wkv6_inputs(rng, 1, 1, 32, 8, log_w=-50.0, s0=False)
+    jin, tin = [p[0] for p in pairs], [p[1] for p in pairs]
+    y, sf = wkv6(*tin)
+    assert torch.isfinite(y).all() and torch.isfinite(sf).all()
+    for want_y, _ in (jref.wkv6_reference(*jin), pallas_wkv6(*jin, chunk=16, interpret=True)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=1e-4)
+
+
+def test_wkv6_plain_bf16_matches_oracle(rng):
+    pairs = _wkv6_inputs(rng, 2, 2, 40, 32, dtype="bfloat16")
+    y, sf = wkv6(*[p[1] for p in pairs])
+    want_y, want_s = jref.wkv6_reference(*[p[0] for p in pairs])
+    assert y.dtype == torch.bfloat16
+    _close(y, want_y, TOL["bfloat16"])
+    _close(sf, want_s, 2e-4)
+
+
 def test_ops_cpu_tensors_take_the_plain_path(rng):
     """ops.* take model layout (B, S, H, D), agree with the oracle, and on
     CPU tensors launch no kernel."""
-    flash_attention.launches = rmsnorm.launches = 0
+    flash_attention.launches = rmsnorm.launches = wkv6.launches = 0
     (jq, tq), (jk, tk) = _pair(rng, (2, 64, 4, 32), "float32"), _pair(rng, (2, 64, 2, 32), "float32")
     got = ops.attention(tq, tk, tk, window=16)
     want = jnp.swapaxes(jref.mha_reference(*(jnp.swapaxes(a, 1, 2) for a in (jq, jk, jk)),
@@ -100,7 +145,20 @@ def test_ops_cpu_tensors_take_the_plain_path(rng):
 
     (jx, tx), (js, ts) = _pair(rng, (4, 16, 128), "float32"), _pair(rng, (128,), "float32")
     _close(ops.rmsnorm(tx, ts), jref.rmsnorm_reference(jx, js), 2e-5)
-    assert flash_attention.launches == 0 and rmsnorm.launches == 0
+
+    # WKV6 in model layout (B, S, H, K); the final state written over s0
+    # (a copy: JAX on the CPU may share the numpy buffer that s0 was made from)
+    pairs = _wkv6_inputs(rng, 2, 4, 24, 16)
+    (jr, tr), (jk, tk), (jv, tv), (jw, tw), (ju, tu), (js0, ts0) = [
+        (jnp.swapaxes(j, 1, 2), t.transpose(1, 2).contiguous()) if i < 4 else (j, t.clone())
+        for i, (j, t) in enumerate(pairs)]
+    y, sf = ops.wkv6(tr, tk, tv, tw, tu, ts0, s_out=ts0)
+    want_y, want_s = jref.wkv6_reference(*(jnp.swapaxes(a, 1, 2) for a in (jr, jk, jv, jw)),
+                                         ju, js0)
+    assert y.shape == (2, 24, 4, 16) and sf is ts0
+    _close(y, jnp.swapaxes(want_y, 1, 2), 2e-4)
+    _close(ts0, want_s, 2e-4)
+    assert flash_attention.launches == rmsnorm.launches == wkv6.launches == 0
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -113,3 +171,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         rmsnorm(torch.zeros(2, 8), torch.zeros(4))
     with pytest.raises(ValueError):
         flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+    r, u, s0 = torch.zeros(1, 2, 4, 8), torch.zeros(2, 8), torch.zeros(1, 2, 8, 8)
+    with pytest.raises(ValueError):
+        wkv6(r, r, r, r, torch.zeros(3, 8), s0)  # u of the wrong heads
+    with pytest.raises(ValueError):
+        wkv6(r, r, r, r, u, torch.zeros(1, 2, 8, 4))  # state not (K, V)
+    with pytest.raises(TypeError):
+        wkv6(r, r, r, r.double(), u, s0)  # log_w must be float32
+    with pytest.raises(ValueError):
+        wkv6(r, r, r, r, u, s0.to("meta"))  # mixed devices
+    with pytest.raises(ValueError):
+        wkv6(*(t.to("meta") for t in (r, r, r, r, u, s0)))

@@ -2,7 +2,8 @@
 ``api.init(PRNGKey(0))`` params into the port, and train-mode, prefill and
 decode logits agree with ``repro.models`` ``apply_lm`` at atol 1e-4 (both
 stacks in float32 on the CPU; sums over d_model and d_ff are taken in
-another order, and the port's attention keeps its probabilities in fp32)."""
+another order, the port's attention keeps its probabilities in fp32, and
+the port's WKV6 steps token by token where JAX scans in chunks)."""
 import numpy as np
 import pytest
 
@@ -20,16 +21,19 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
 DENSE = ["gemma-2b", "olmo-1b", "gemma2-9b", "qwen2.5-14b"]
+RWKV = "rwkv6-1.6b"
+PORTED = DENSE + [RWKV]
 NOT_PORTED = ["deepseek-v3-671b", "grok-1-314b", "internvl2-1b",
-              "jamba-1.5-large-398b", "rwkv6-1.6b", "whisper-small"]
+              "jamba-1.5-large-398b", "whisper-small"]
 ATOL = 1e-4
 
 
-def _bridged(arch):
-    """(JAX cfg, JAX params, port cfg, port model on the CPU) with one set of weights."""
-    jcfg = jsmoke(arch)
+def _bridged(arch, **replace):
+    """(JAX cfg, JAX params, port cfg, port model on the CPU) with one set of
+    weights; ``replace`` changes both smoke configs alike."""
+    jcfg = jsmoke(arch).replace(**replace)
     jparams = jget_api(jcfg).init(jax.random.PRNGKey(0))
-    cfg = smoke_config(arch)
+    cfg = smoke_config(arch).replace(**replace)
     model = transformer.DecoderLM(cfg, torch.device("cpu"))
     sd = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
     model.load_state_dict(sd, strict=True)
@@ -46,24 +50,64 @@ def _close(t, j):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV])
 def test_bridge_takes_pytree_and_checkpoint_layouts(arch):
     jcfg, jparams, cfg, model = _bridged(arch)
     flat = ckpt_flatten(jparams)
     sd = params_from_jax(flat, cfg)
     assert set(sd) == set(model.state_dict())
     for name, t in model.state_dict().items():
-        assert sd[name].dtype == cfg.pdtype
+        assert sd[name].dtype == t.dtype
         torch.testing.assert_close(sd[name], t, atol=0, rtol=0)
     # layer i of the port is unit i of the stacked JAX params
-    wq = np.asarray(jparams["units"]["l0"]["mix"]["wq"])
+    key = "wq" if "wq" in jparams["units"]["l0"]["mix"] else "wr"
+    w = np.asarray(jparams["units"]["l0"]["mix"][key])
     for i in range(cfg.num_layers):
-        np.testing.assert_array_equal(model.layers[i].mix.wq.detach().numpy(), wq[i])
+        np.testing.assert_array_equal(getattr(model.layers[i].mix, key).detach().numpy(), w[i])
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_logits_match_jax(arch):
-    jcfg, jparams, cfg, model = _bridged(arch)
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.uint16 if a.itemsize == 2 else np.uint32)
+
+
+def test_bf16_bridge_keeps_rwkv_decay_and_bonus_in_fp32():
+    """At param_dtype bfloat16 the JAX initialiser keeps w0 and u in fp32;
+    the bridge keeps them so (from the pytree and from the checkpoint
+    layout, which stores bf16 as f32), bit for bit, and the rest in bf16."""
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16", num_layers=2)
+    jcfg = jsmoke(RWKV).replace(**bf16)
+    jparams = jget_api(jcfg).init(jax.random.PRNGKey(0))
+    cfg = smoke_config(RWKV).replace(**bf16)
+    jmix = jax.tree_util.tree_map(np.asarray, jparams["units"]["l0"]["mix"])
+    assert jmix["w0"].dtype == np.float32 and jmix["wr"].dtype != np.float32
+    for tree in (jax.tree_util.tree_map(np.asarray, jparams), ckpt_flatten(jparams)):
+        sd = params_from_jax(tree, cfg)
+        for i in range(cfg.num_layers):
+            for name in ("w0", "u", "wr", "mu"):
+                t = sd[f"layers.{i}.mix.{name}"]
+                assert t.dtype == (torch.float32 if name in ("w0", "u") else torch.bfloat16)
+                want = jmix[name][i]
+                got = t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+                np.testing.assert_array_equal(
+                    _bits(got if t.dtype == torch.float32 else t.view(torch.int16).numpy()),
+                    _bits(want if t.dtype == torch.float32 else want.view(np.int16)))
+        model = transformer.DecoderLM(cfg, torch.device("cpu"))
+        model.load_state_dict(sd, strict=True)
+        assert model.layers[1].mix.u.dtype == torch.float32
+
+
+def test_bridge_rejects_a_name_the_port_lacks():
+    _, jparams, cfg, _ = _bridged("gemma-2b")
+    flat = ckpt_flatten(jparams)
+    flat["units/l0/mix/w_extra"] = flat["units/l0/mix/wq"]
+    with pytest.raises(KeyError, match="w_extra"):
+        params_from_jax(flat, cfg)
+
+
+@pytest.mark.parametrize("arch,replace", [(a, {}) for a in PORTED]
+                         + [(RWKV, dict(num_layers=3))])
+def test_logits_match_jax(arch, replace):
+    jcfg, jparams, cfg, model = _bridged(arch, **replace)
     jb = jbatch(jcfg, batch=2, seq=16)
     tb = make_smoke_batch(cfg, batch=2, seq=16, device="cpu")
     np.testing.assert_array_equal(tb["tokens"].numpy(), np.asarray(jb["tokens"]))
@@ -94,15 +138,16 @@ def test_logits_match_jax(arch):
                                                 mode="decode")
             _close(tl, jl)
     assert cache["pos"] == int(jcache["pos"]) == 16
-    # the KV cache holds what JAX's holds (unit u, element j -> layer u*len(unit)+j)
+    # the cache holds what JAX's holds (unit u, element j -> layer u*len(unit)+j)
     unit = transformer.layer_plan(cfg).unit
-    for i, (k, v) in enumerate(cache["layers"]):
-        jk, jv = jcache["units"][f"l{i % len(unit)}"]
-        _close(k, jk[i // len(unit)])
-        _close(v, jv[i // len(unit)])
+    for i, entry in enumerate(cache["layers"]):
+        jentry = jcache["units"][f"l{i % len(unit)}"]
+        assert len(entry) == len(jentry)
+        for t, j in zip(entry, jentry):
+            _close(t, j[i // len(unit)])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_cache_shapes_match_init_cache(arch):
     cfg = smoke_config(arch)
     jcache = jtransformer.init_cache(jsmoke(arch), 3, 24)
@@ -155,3 +200,39 @@ def test_torch_init_distributions():
     assert abs(wi.std().item() * cfg.d_model ** 0.5 - 1.0) < 0.02
     assert torch.equal(a.layers[0].ln1.scale, torch.ones(cfg.d_model))
     assert not torch.equal(a.layers[0].ffn.wi, a.layers[1].ffn.wi)
+
+
+def test_torch_init_distributions_rwkv():
+    """The RWKV parameters: token-shift mixes uniform in [0.25, 0.75] (the
+    bf16 rounding can reach 0.75), lora
+    outputs at scale 0.01, w0 normal(-0.5, 0.5), u normal(0, 0.1),
+    ln_scale one; w0 and u in fp32 at a bf16 param dtype."""
+    cfg = smoke_config(RWKV).replace(d_model=1024, num_layers=2, param_dtype="bfloat16",
+                                     compute_dtype="bfloat16")
+    mix = get_api(cfg, device="cpu").init(seed=3).layers[0].mix
+    assert 0.25 <= mix.mu.min().item() and mix.mu.max().item() <= 0.75
+    assert abs(mix.mu.float().mean().item() - 0.5) < 0.01
+    assert abs(mix.ts_b.float().std().item() - 0.01) < 1e-3
+    assert abs(mix.w_b.float().std().item() - 0.01) < 1e-3
+    assert mix.w0.dtype == mix.u.dtype == torch.float32
+    assert abs(mix.w0.mean().item() + 0.5) < 0.05 and abs(mix.w0.std().item() - 0.5) < 0.05
+    assert abs(mix.u.mean().item()) < 0.01 and abs(mix.u.std().item() - 0.1) < 0.01
+    assert abs(mix.wr.float().std().item() * cfg.d_model ** 0.5 - 1.0) < 0.02
+    assert torch.equal(mix.ln_scale, torch.ones(cfg.d_model, dtype=torch.bfloat16))
+
+
+def test_rwkv_state_is_written_in_place():
+    """Prefill and decode update the rwkv cache tensors themselves."""
+    cfg = smoke_config(RWKV)
+    api = get_api(cfg, device="cpu")
+    model = api.init(seed=0)
+    cache = api.init_cache(2, 8)
+    tensors = [t for entry in cache["layers"] for t in entry]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 5)))
+    with torch.no_grad():
+        _, new = api.prefill(model, {"tokens": toks}, cache)
+        assert all(a is b for a, b in zip(tensors, (t for e in new["layers"] for t in e)))
+        assert all(t.abs().sum() > 0 for t in tensors)
+        before = [t.clone() for t in tensors]
+        api.decode(model, (toks[:, -1:] + 1) % cfg.vocab_size, new)
+    assert all(not torch.equal(a, b) for a, b in zip(before, tensors))

@@ -1,6 +1,7 @@
 """The port's serving engine against the JAX engine: identical greedy
 tokens from identical weights, the same KV bytes per token as the
-simulator's analytic formula, and the CLI on the CPU."""
+simulator's analytic formula (and the JAX engine's recurrent-state bytes
+for rwkv6), and the CLI on the CPU."""
 import numpy as np
 import pytest
 
@@ -17,9 +18,10 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 DENSE = ["gemma-2b", "olmo-1b", "gemma2-9b", "qwen2.5-14b"]
+RWKV = "rwkv6-1.6b"
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV])
 def test_greedy_tokens_equal_jax(arch):
     jcfg = jsmoke(arch)
     japi = jget_api(jcfg)
@@ -51,6 +53,21 @@ def test_kv_bytes_match_the_simulator_formula(arch):
         jsmoke(arch).replace(compute_dtype="bfloat16"))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv_comm_profile_matches_jax(dtype):
+    """A recurrent state does not grow with context: 0 KV bytes per token,
+    as the JAX engine and the simulator's formula give, and the same fixed
+    state bytes as the JAX engine less its 4-byte int32 ``pos`` leaf."""
+    jcfg = jsmoke(RWKV).replace(compute_dtype=dtype, num_layers=2)
+    want = JServeEngine(jget_api(jcfg), None, batch=2, s_max=32).comm_profile()
+    cfg = smoke_config(RWKV).replace(compute_dtype=dtype, num_layers=2)
+    got = ServeEngine(get_api(cfg, device="cpu"), None, batch=2, s_max=32).comm_profile()
+    assert got["kv_bytes_per_token"] == want["kv_bytes_per_token"] == kv_bytes_per_token(jcfg) == 0
+    assert got["fixed_state_bytes"] == want["fixed_state_bytes"] - 4 > 0
+    for key in ("dtype_bytes", "num_layers", "batch_slots"):
+        assert got[key] == want[key]
+
+
 def test_generate_refuses_to_overrun_the_cache():
     cfg = smoke_config("gemma-2b")
     api = get_api(cfg, device="cpu")
@@ -59,7 +76,7 @@ def test_generate_refuses_to_overrun_the_cache():
         eng.generate({"tokens": np.zeros((1, 8), np.int64)}, max_new_tokens=4)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV])
 def test_cli_runs_on_the_cpu(arch, capsys):
     serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                     "--prompt-len", "8", "--max-new", "4"])
