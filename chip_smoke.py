@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -56,13 +57,17 @@ def sync() -> None:
 
 def time_ms(fn, reps: int = 30, flush_bytes: int = 256 << 20) -> float:
     """Median device time of ``fn()`` in ms (CUDA events), with the 50 MB L2
-    flushed before each call so inputs come from device memory."""
+    flushed before each call so inputs come from device memory.  A device-side
+    wait (~1 ms) after the flush keeps the card busy while the host enqueues
+    the events and the call, so the host's launch time and its stalls stay
+    out of the window."""
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)  # clock cycles
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -95,15 +100,21 @@ def check_flash(gen) -> dict:
         (SERVE_BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, torch.bfloat16, {}),  # gemma-2b prefill
         (SERVE_BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, torch.float32, {}),
         (1, 4, 2, 256, 256, 64, torch.float32, dict(causal=False)),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(causal=False)),
         (1, 4, 2, 256, 256, 64, torch.float32, dict(window=64)),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=64)),
         (1, 4, 2, 256, 256, 64, torch.float32, dict(softcap=30.0)),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(softcap=30.0)),
         (1, 4, 2, 256, 256, 64, torch.float32, dict(window=32, softcap=50.0)),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=32, softcap=50.0)),
         (2, 4, 2, 256, 256, 64, torch.bfloat16, {}),
         (1, 8, 2, 128, 256, 128, torch.float32, {}),  # GQA, cross lengths
         (1, 8, 2, 128, 256, 128, torch.bfloat16, dict(window=100)),
         (1, 2, 2, 100, 100, 32, torch.float32, {}),  # ragged Sq/Sk
+        (1, 2, 2, 100, 100, 32, torch.bfloat16, {}),
         (1, 8, 1, 100, 173, 256, torch.bfloat16, dict(softcap=50.0)),
         (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8)),  # smoke head_dim
+        (2, 4, 2, 77, 77, 16, torch.bfloat16, dict(window=8)),
     ]
     main = None
     for B, Hq, Hkv, Sq, Sk, D, dtype, kw in cases:
@@ -199,8 +210,10 @@ def check_wkv6(gen, cfg) -> dict:
     K = cfg.rwkv.head_dim
     H = cfg.d_model // K
     zero = dict(s0=False)
+    fp32_y = dict(out_dtype=torch.float32)
     cases = [  # (B, H, T, K, dtype, options)
-        (SERVE_BATCH, H, PROMPT_LEN, K, torch.bfloat16, {}),  # rwkv6-1.6b prefill
+        (SERVE_BATCH, H, PROMPT_LEN, K, torch.bfloat16, fp32_y),  # rwkv6-1.6b prefill
+        (SERVE_BATCH, H, PROMPT_LEN, K, torch.bfloat16, {}),
         (SERVE_BATCH, H, PROMPT_LEN, K, torch.float32, {}),
         (SERVE_BATCH, H, 1, K, torch.bfloat16, {}),  # a decode step
         (SERVE_BATCH, H, 1, K, torch.float32, zero),
@@ -223,35 +236,41 @@ def check_wkv6(gen, cfg) -> dict:
         u = randn(gen, (Hh, Kk), torch.float32)
         s0 = (randn(gen, (B, Hh, Kk, Kk), torch.float32) if kw.get("s0", True)
               else torch.zeros((B, Hh, Kk, Kk), device=DEVICE))
-        y, sf = wkv6(r, k, v, lw, u, s0)
-        want_y, want_s = ref.wkv6_reference(r, k, v, lw, u, s0)
+        out_dtype = kw.get("out_dtype")
+        y, sf = wkv6(r, k, v, lw, u, s0, out_dtype=out_dtype)
+        want_y, want_s = ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=out_dtype)
         sync()
-        tol = 1e-4 if "log_w" in kw else WKV_TOL[dtype]
+        tol = 1e-4 if "log_w" in kw else WKV_TOL[y.dtype]  # fp32 y: both sides fp32
         s_tol = min(tol, WKV_TOL[torch.float32])  # the state is fp32 in every case
         err = (y.float() - want_y.float()).abs().max().item()
         s_err = (sf - want_s).abs().max().item()
-        ok = (torch.isfinite(y.float()).all().item()
+        ok = (y.dtype == want_y.dtype == (out_dtype or dtype)
+              and torch.isfinite(y.float()).all().item()
               and torch.allclose(y.float(), want_y.float(), atol=tol, rtol=tol)
               and torch.allclose(sf, want_s, atol=s_tol, rtol=s_tol))
         log(f"  wkv6 B={B} H={Hh} T={T} K=V={Kk} {str(dtype)[6:]} "
             f"{'s0=0' if not kw.get('s0', True) else 's0 random'}"
-            f"{' log_w=-50' if 'log_w' in kw else ''}: max_abs_err y={err:.3g} (tol {tol}), "
+            f"{' log_w=-50' if 'log_w' in kw else ''}"
+            f"{' y ' + str(out_dtype)[6:] if out_dtype else ''}: max_abs_err y={err:.3g} (tol {tol}), "
             f"state={s_err:.3g} (tol {s_tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"wkv6 disagrees with its plain version: y {err}, state {s_err}")
         if main is None:
-            main = dict(args=(r, k, v, lw, u, s0), err=err, dtype=dtype)
+            main = dict(args=(r, k, v, lw, u, s0), err=err, out_dtype=out_dtype)
 
     r, k, v, lw, u, s0 = main["args"]
+    out_dtype = main["out_dtype"]
     B, Hh, T, Kk = r.shape
-    ms = time_ms(lambda: wkv6(r, k, v, lw, u, s0))
-    plain_ms = time_ms(lambda: ref.wkv6_reference(r, k, v, lw, u, s0), reps=5)
-    # bytes: r, k, v, log_w, u and s0 read once; y and the final state written once
+    ms = time_ms(lambda: wkv6(r, k, v, lw, u, s0, out_dtype=out_dtype))
+    plain_ms = time_ms(lambda: ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=out_dtype),
+                       reps=5)
+    # bytes: r, k, v, log_w, u and s0 read once; y (fp32) and the final state written once
     nbytes = ((r.numel() + k.numel() + v.numel()) * r.element_size() + lw.numel() * 4
-              + u.numel() * 4 + 2 * s0.numel() * 4 + v.numel() * r.element_size())
+              + u.numel() * 4 + 2 * s0.numel() * 4 + v.numel() * (out_dtype or r.dtype).itemsize)
     flops = 4.0 * B * Hh * T * Kk * Kk  # k v^T, u-bonus, r.(S + ...), decay: ~4 per (k, v)
     bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # the recurrence is fp32
-    log(f"  wkv6 at the prefill shape (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16): kernel {ms:.4f} ms, "
+    log(f"  wkv6 at the prefill shape (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16 r/k/v, fp32 y): "
+        f"kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library: none (no single PyTorch call computes WKV6), "
         f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP fp32, "
         f"{nbytes / 1e6:.1f} MB)")
@@ -375,8 +394,35 @@ def serve(cfg) -> dict:
         raise AssertionError(f"comm_profile kv_bytes_per_token {kv}, fixed_state_bytes {fixed} "
                              f"!= {expect_kv}, {expect_fixed}")
     log(f"  kv_bytes_per_token {kv:.0f}, fixed_state_bytes {fixed:.0f}")
+    if cfg.family == "ssm":
+        wkv_y_rounding_shift(api, model, torch.from_numpy(tokens).to(DEVICE))
     profile_phases(api, model, torch.from_numpy(tokens).to(DEVICE), decode_ms)
     return launches
+
+
+def wkv_y_rounding_shift(api, model, tokens) -> None:
+    """How far the bf16 prefill logits move when WKV6 hands the group norm y
+    rounded to bf16 instead of the fp32 y that the model asks for (and that
+    the JAX model normalises)."""
+    from repro_torch.kernels import ops
+
+    wkv6 = ops.wkv6
+    with torch.inference_mode():
+        logits = []
+        for round_y in (False, True):
+            if round_y:
+                ops.wkv6 = lambda *a, out_dtype=None, **kw: wkv6(*a, **kw)
+            try:
+                out, _ = api.prefill(model, {"tokens": tokens},
+                                     api.init_cache(tokens.shape[0], tokens.shape[1]))
+            finally:
+                ops.wkv6 = wkv6
+            logits.append(out.float())
+    diff = (logits[0] - logits[1]).abs()
+    same = (logits[0].argmax(-1) == logits[1].argmax(-1)).float().mean().item()
+    log(f"  prefill logits, fp32 y against y rounded to bf16: max_abs_diff {diff.max().item():.4g}, "
+        f"mean_abs_diff {diff.mean().item():.4g} (logits max |{logits[0].abs().max().item():.4g}|), "
+        f"argmax equal at {same:.4f} of positions")
 
 
 def profile_phases(api, model, tokens, decode_ms: float, steps: int = 8) -> None:
@@ -418,6 +464,26 @@ def profile_phases(api, model, tokens, decode_ms: float, steps: int = 8) -> None
             log(f"    {ms:8.3f} ms  {name[:100]}")
 
 
+def ptxas_report(build_log: str) -> list:
+    """One line per kernel instantiation from ``nvcc -Xptxas -v``: its name
+    and template arguments, registers, shared memory and spills."""
+    out, name = [], None
+    for line in build_log.splitlines():
+        hit = re.search(r"entry function '(\w+_kernel)I(\w+?)EEvNS_6ParamsE'", line)
+        if hit:  # Itanium mangling: <length><name>I<template arguments>E
+            head = hit.group(1)
+            name = next(head[-n:] for n in range(1, len(head)) if head[:-n].endswith(str(n)))
+            args = re.findall(r"Li(-?\d+)E|(13__nv_bfloat16|S1_)|(f)", hit.group(2))
+            name += "<" + ",".join(n or ("bf16" if b else "f32") for n, b, _ in args) + ">"
+            spills = ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            out.append(f"{name}: {line.split('Used', 1)[1].strip()}; {spills}")
+            name = None
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -441,9 +507,8 @@ def main() -> int:
     times = build.build_all()
     log(f"  built {sorted(times)} in {time.perf_counter() - t0:.1f} s")
     for source in sorted(times):
-        for line in build.build_log(source).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {source}: {line.strip()}")
+        for line in ptxas_report(build.build_log(source)):
+            log(f"    {source}: {line}")
 
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     gen = torch.Generator(device=DEVICE).manual_seed(0)

@@ -6,8 +6,9 @@
 // with the state S (K x V) in fp32,
 //     y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
 //     S_t = diag(exp(log_w_t)) S_{t-1} + k_t v_t^T
-// r/k/v in f32 or bf16, log_w/u/s0 in f32; y comes out in r's dtype and the
-// final state in f32.  Any T >= 1 (prefill, ragged lengths, the decode step
+// r/k/v in f32 or bf16, log_w/u/s0 in f32; y comes out in r's dtype (or in
+// f32 from bf16 r/k/v, as the JAX rwkv6 model keeps y up to its group norm)
+// and the final state in f32.  Any T >= 1 (prefill, ragged lengths, the decode step
 // T = 1); K = V in {16, 32, 64}.
 //
 // What bounds it on the H100: every input is read once and every output
@@ -60,7 +61,8 @@ struct Params {
   long long w_sb, w_sh, w_st, y_sb, y_sh, y_st;
 };
 
-template <typename T, int K>
+// T: the type of r, k and v; TY: the type of y.
+template <typename T, typename TY, int K>
 __global__ void __launch_bounds__(K * K / ROWS)
 wkv6_kernel(const Params p) {
   constexpr int KS = K / ROWS;           // threads per state column
@@ -76,7 +78,7 @@ wkv6_kernel(const Params p) {
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* wb = p.lw + b * p.w_sb + h * p.w_sh;
-  T* yb = static_cast<T*>(p.y) + b * p.y_sb + h * p.y_sh;
+  TY* yb = static_cast<TY*>(p.y) + b * p.y_sb + h * p.y_sh;
   const long long st = ((long long)b * p.H + h) * K * K;  // s0, s_out: contiguous (B, H, K, V)
 
   float S[ROWS], uu[ROWS];
@@ -145,7 +147,7 @@ wkv6_kernel(const Params p) {
 #pragma unroll
       for (int off = KS / 2; off > 0; off >>= 1)
         y += __shfl_xor_sync(0xffffffffu, y, off);
-      if (s == 0) yb[(long long)(t0 + tt) * p.y_st + j] = from_float<T>(y);
+      if (s == 0) yb[(long long)(t0 + tt) * p.y_st + j] = from_float<TY>(y);
     }
   }
 
@@ -153,19 +155,19 @@ wkv6_kernel(const Params p) {
   for (int i = 0; i < ROWS; ++i) p.s_out[st + (i * KS + s) * K + j] = S[i];
 }
 
-template <typename T, int K>
+template <typename T, typename TY, int K>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const dim3 grid(p.H, B);
-  wkv6_kernel<T, K><<<grid, K * K / ROWS, 0, stream>>>(p);
+  wkv6_kernel<T, TY, K><<<grid, K * K / ROWS, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TY>
 cudaError_t dispatch(const Params& p, int B, int K, cudaStream_t stream) {
   switch (K) {
-    case 16: return launch<T, 16>(p, B, stream);
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
+    case 16: return launch<T, TY, 16>(p, B, stream);
+    case 32: return launch<T, TY, 32>(p, B, stream);
+    case 64: return launch<T, TY, 64>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -174,8 +176,8 @@ cudaError_t dispatch(const Params& p, int B, int K, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype (of r, k, v and y): 0 = float32, 1 = bfloat16; log_w, u, s0 and
-// s_out are float32.  Strides in elements over (B, H, T) for r, k, v, log_w
+// dtype: 0 = float32 r, k, v and y; 1 = bfloat16 r, k, v and y; 2 = bfloat16
+// r, k, v and float32 y.  log_w, u, s0 and s_out are float32.  Strides in elements over (B, H, T) for r, k, v, log_w
 // and y, whose last dim is contiguous; u (H, K), s0 and s_out (B, H, K, K)
 // are contiguous, and s_out may be s0.  Returns the cudaError_t of the
 // launch (0 on success).
@@ -194,8 +196,9 @@ int wkv6_fwd(const void* r, const void* k, const void* v, const void* log_w,
            r_sb, r_sh, r_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,
            w_sb, w_sh, w_st, y_sb, y_sh, y_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(p, B, K, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, B, K, s);
+  if (dtype == 0) return dispatch<float, float>(p, B, K, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16, __nv_bfloat16>(p, B, K, s);
+  if (dtype == 2) return dispatch<__nv_bfloat16, float>(p, B, K, s);
   return cudaErrorInvalidValue;
 }
 

@@ -49,8 +49,11 @@ def wkv6(
     s0: torch.Tensor,  # (B, H, K, V) fp32
     *,
     s_out: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """WKV6 with model-layout inputs; returns (y (B,S,H,V), s_final).  With
-    ``s_out`` (which may be ``s0``) the final state is written there."""
-    y, s_final = _wkv6(*(a.transpose(1, 2) for a in (r, k, v, log_w)), u, s0, s_out=s_out)
+    """WKV6 with model-layout inputs; returns (y (B,S,H,V) in ``out_dtype``,
+    r's dtype by default, s_final).  With ``s_out`` (which may be ``s0``) the
+    final state is written there."""
+    y, s_final = _wkv6(*(a.transpose(1, 2) for a in (r, k, v, log_w)), u, s0, s_out=s_out,
+                       out_dtype=out_dtype)
     return y.transpose(1, 2), s_final

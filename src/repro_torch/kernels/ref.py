@@ -61,9 +61,11 @@ def wkv6_reference(
     log_w: torch.Tensor,  # (B, H, T, K)  (log of per-channel decay, < 0)
     u: torch.Tensor,  # (H, K)  bonus for the current token
     s0: torch.Tensor,  # (B, H, K, V)  initial state
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential WKV6:  y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ);
-    S_t = diag(w_t) S_{t-1} + k_t v_tᵀ.  Returns (y in r's dtype, S fp32)."""
+    S_t = diag(w_t) S_{t-1} + k_t v_tᵀ.  Returns (y in ``out_dtype``, r's
+    dtype by default; S fp32)."""
     T = r.shape[2]
     rf, kf, vf = (a.float() for a in (r, k, v))
     wf = torch.exp(log_w.float())
@@ -77,4 +79,4 @@ def wkv6_reference(
         ys.append(torch.einsum("bhk,bhkv->bhv", rt, att))
         S = wt[..., :, None] * S + kv
     y = torch.stack(ys, dim=2)  # (B, H, T, V)
-    return y.to(r.dtype), S
+    return y.to(out_dtype or r.dtype), S

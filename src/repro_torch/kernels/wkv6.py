@@ -9,7 +9,9 @@ contract as the Pallas kernel, per (batch, head) with an fp32 state S (K, V):
     S_t = diag(exp(log_w_t)) S_{t-1} + k_t v_tᵀ
 
 returning y in r's dtype and the final S in fp32.  The Pallas kernel's chunk
-size is a TPU tiling choice and is not part of the contract.
+size is a TPU tiling choice and is not part of the contract.  Beyond it,
+``out_dtype=torch.float32`` returns y in fp32 from bf16 r/k/v, as the JAX
+rwkv6 model keeps y up to its group norm.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version, :func:`repro_torch.kernels.ref.wkv6_reference`.
@@ -27,7 +29,9 @@ from . import ref
 from .build import load_library
 
 HEAD_DIMS = (16, 32, 64)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (r/k/v dtype, y dtype) -> the kernel's dtype code
+_DTYPE_CODE = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+               (torch.bfloat16, torch.float32): 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +48,7 @@ def _bind() -> ctypes.CDLL:
     return lib
 
 
-def _check(r, k, v, log_w, u, s0, s_out) -> None:
+def _check(r, k, v, log_w, u, s0, s_out, out_dtype) -> None:
     if r.dim() != 4 or k.shape != r.shape or log_w.shape != r.shape:
         raise ValueError(f"expected r = k = log_w (B,H,T,K); got {tuple(r.shape)}, "
                          f"{tuple(k.shape)}, {tuple(log_w.shape)}")
@@ -65,11 +69,14 @@ def _check(r, k, v, log_w, u, s0, s_out) -> None:
         raise TypeError("r, k and v must have one dtype")
     if any(t.dtype != torch.float32 for t in tensors[3:]):
         raise TypeError("log_w, u, s0 and s_out must be float32")
+    if out_dtype not in (None, torch.float32):
+        raise TypeError(f"out_dtype must be None (r's dtype) or float32, not {out_dtype}")
 
 
 def _launch(r, k, v, log_w, u, s0, y, s_out) -> None:
     B, H, T, K = r.shape
-    if r.dtype not in _DTYPE_CODE:
+    code = _DTYPE_CODE.get((r.dtype, y.dtype))
+    if code is None:
         raise TypeError(f"wkv6 kernel takes float32 or bfloat16 r/k/v, not {r.dtype}")
     if K not in HEAD_DIMS or v.shape[3] != K:
         raise ValueError(f"wkv6 kernel takes K = V in {HEAD_DIMS}, not K={K}, V={v.shape[3]}")
@@ -85,7 +92,7 @@ def _launch(r, k, v, log_w, u, s0, y, s_out) -> None:
     err = lib.wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
         s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-        _DTYPE_CODE[r.dtype], B, H, T, K,
+        code, B, H, T, K,
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *log_w.stride()[:3],
         *y.stride()[:3],
         torch.cuda.current_stream(r.device).cuda_stream,
@@ -105,20 +112,21 @@ def wkv6(
     s0: torch.Tensor,  # (B, H, K, V) fp32
     *,
     s_out: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The WKV6 recurrence.  Returns (y (B,H,T,V) in r's dtype, with v's
-    memory layout; s_final (B,H,K,V) fp32).  With ``s_out`` the final state
-    is written there and returned; ``s_out`` may be ``s0`` itself (the
-    layer's cache, updated in place)."""
-    _check(r, k, v, log_w, u, s0, s_out)
+    """The WKV6 recurrence.  Returns (y (B,H,T,V) in ``out_dtype``, r's dtype
+    by default, with v's memory layout; s_final (B,H,K,V) fp32).  With
+    ``s_out`` the final state is written there and returned; ``s_out`` may
+    be ``s0`` itself (the layer's cache, updated in place)."""
+    _check(r, k, v, log_w, u, s0, s_out, out_dtype)
     if r.device.type == "cpu":
-        y, s_final = ref.wkv6_reference(r, k, v, log_w, u, s0)
+        y, s_final = ref.wkv6_reference(r, k, v, log_w, u, s0, out_dtype=out_dtype)
         if s_out is None:
             return y, s_final
         return y, s_out.copy_(s_final)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
-    y = torch.empty_like(v, dtype=r.dtype)
+    y = torch.empty_like(v, dtype=out_dtype or r.dtype)
     if s_out is None:
         s_out = torch.empty_like(s0, memory_format=torch.contiguous_format)
     _launch(r, k, v, log_w, u, s0, y, s_out)

@@ -10,9 +10,8 @@ The WKV recurrence (state S_t ∈ ℝ^{K×V} per head)
 goes through :func:`repro_torch.kernels.ops.wkv6` (the CUDA kernel on the
 card), where the JAX model path runs it through ``ssm.chunked_scan``.  The
 kernel takes ``log w = -exp(wlog)``; the JAX model forms
-``w = exp(-exp(wlog))``.  The kernel returns y in the compute dtype, where
-the JAX model keeps it in fp32 up to the group norm: the same numbers in
-fp32, one more bf16 rounding before the normalisation in bf16.
+``w = exp(-exp(wlog))``.  The kernel returns y in fp32 whatever the compute
+dtype, as the JAX model keeps it up to the group norm.
 
 State: ``(x_prev (B,1,d), wkv (B,H,K,V) fp32)`` for the time mix and
 ``x_prev (B,1,d)`` for the channel mix, updated in place when given.
@@ -116,12 +115,13 @@ class RWKVTimeMix(nn.Module):
         u = self.u.reshape(H, K)
         if wkv0 is None:
             y, _ = ops.wkv6(r, k, v, log_w, u,
-                            torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device))
+                            torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device),
+                            out_dtype=torch.float32)
         else:
-            y, _ = ops.wkv6(r, k, v, log_w, u, wkv0, s_out=wkv0)
+            y, _ = ops.wkv6(r, k, v, log_w, u, wkv0, s_out=wkv0, out_dtype=torch.float32)
             x_prev.copy_(x[:, -1:])
 
-        # per-head group norm, statistics in fp32
+        # per-head group norm, statistics in fp32 (y is fp32 already)
         yf = y.float()
         mu_ = yf.mean(-1, keepdim=True)
         var = yf.var(-1, unbiased=False, keepdim=True)

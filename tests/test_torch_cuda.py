@@ -51,6 +51,30 @@ def test_flash_kernel_matches_plain(gen, dtype, B, Hq, Hkv, Sq, Sk, D, kw):
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,kw", [
+    (1, 2, 1, 65, 65, 64, {}),  # one row and one key past a 64-row q tile and kv tile
+    (2, 2, 2, 65, 65, 128, dict(causal=False)),
+    (1, 2, 1, 33, 200, 64, {}),  # half a q tile against a ragged kv tail
+    (1, 2, 1, 33, 200, 256, dict(causal=False, softcap=30.0)),
+    (1, 2, 1, 200, 200, 256, dict(window=40)),  # the window edge crosses BK=32 tiles
+    (2, 8, 1, 130, 130, 32, dict(window=40, softcap=50.0)),  # Hq/Hkv = 8
+    (1, 8, 1, 64, 64, 16, {}),
+])
+def test_flash_bf16_tensor_core_edges(gen, B, Hq, Hkv, Sq, Sk, D, kw):
+    """The bf16 kernel at the edges of its tiles: ragged q and kv tails,
+    windows across kv tiles, MQA groups of 8."""
+    q = _randn(gen, (B, Hq, Sq, D), torch.bfloat16)
+    k = _randn(gen, (B, Hkv, Sk, D), torch.bfloat16)
+    v = _randn(gen, (B, Hkv, Sk, D), torch.bfloat16)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.dtype == torch.bfloat16
+    want = ref.mha_reference(q, k, v, **kw)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 256), (3, 5, 512), (4095, 2048), (7, 896), (5, 3584), (3, 8192)])
 def test_rmsnorm_kernel_matches_plain(gen, dtype, shape):
@@ -114,6 +138,22 @@ def test_wkv6_kernel_matches_plain(gen, B, H, T, K, dtype, kw):
     torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
     s_tol = min(tol, 2e-4)  # the state is fp32 whatever r's dtype
     torch.testing.assert_close(sf, want_s, atol=s_tol, rtol=s_tol)
+
+
+@pytest.mark.parametrize("B,H,T,K", [(4, 32, 1024, 64), (4, 32, 1, 64), (2, 3, 50, 16)])
+def test_wkv6_kernel_fp32_out_matches_plain(gen, B, H, T, K):
+    """bf16 r/k/v with out_dtype=float32 (the rwkv6 model's call): the fp32 y
+    of the kernel and of the plain version, both computed in fp32 from the
+    same bf16 values."""
+    args = _wkv6_inputs(gen, B, H, T, K, torch.bfloat16)
+    before = wkv6.launches
+    y, sf = wkv6(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    want_y, want_s = ref.wkv6_reference(*args, out_dtype=torch.float32)
+    assert y.dtype == want_y.dtype == torch.float32
+    torch.testing.assert_close(y, want_y, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(sf, want_s, atol=2e-4, rtol=2e-4)
 
 
 def test_wkv6_model_layout_and_state_in_place(gen):

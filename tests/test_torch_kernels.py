@@ -132,6 +132,24 @@ def test_wkv6_plain_bf16_matches_oracle(rng):
     _close(sf, want_s, 2e-4)
 
 
+def test_wkv6_plain_bf16_inputs_fp32_out_matches_oracle(rng):
+    """out_dtype=float32: bf16 r/k/v give the fp32 y that the oracle (and the
+    JAX model's chunked scan) computes from the same values in fp32."""
+    pairs = _wkv6_inputs(rng, 2, 2, 40, 32, dtype="bfloat16")
+    y, sf = wkv6(*[p[1] for p in pairs], out_dtype=torch.float32)
+    jin = [p[0].astype(jnp.float32) for p in pairs]
+    want_y, want_s = jref.wkv6_reference(*jin)
+    assert y.dtype == torch.float32 and sf.dtype == torch.float32
+    _close(y, want_y, 1e-4)
+    _close(sf, want_s, 1e-4)
+    y_ops, _ = ops.wkv6(*(p[1].transpose(1, 2) for p in pairs[:4]), pairs[4][1], pairs[5][1],
+                        out_dtype=torch.float32)
+    assert y_ops.dtype == torch.float32
+    torch.testing.assert_close(y_ops.transpose(1, 2), y, atol=0, rtol=0)
+    with pytest.raises(TypeError):
+        wkv6(*[p[1] for p in pairs], out_dtype=torch.float16)
+
+
 def test_ops_cpu_tensors_take_the_plain_path(rng):
     """ops.* take model layout (B, S, H, D), agree with the oracle, and on
     CPU tensors launch no kernel."""

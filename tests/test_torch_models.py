@@ -16,6 +16,7 @@ from repro.models import get_api as jget_api  # noqa: E402
 from repro.models import make_smoke_batch as jbatch  # noqa: E402
 from repro.models import smoke_config as jsmoke  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import get_api, make_smoke_batch, smoke_config  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
@@ -236,3 +237,28 @@ def test_rwkv_state_is_written_in_place():
         before = [t.clone() for t in tensors]
         api.decode(model, (toks[:, -1:] + 1) % cfg.vocab_size, new)
     assert all(not torch.equal(a, b) for a, b in zip(before, tensors))
+
+
+def test_bf16_rwkv_time_mix_normalises_an_fp32_y(monkeypatch):
+    """At compute dtype bfloat16 the time mix asks WKV6 for an fp32 y and
+    hands that to the group norm, as the JAX model keeps y fp32 there."""
+    seen = []
+    wkv6 = ops.wkv6
+
+    def spy(r, *args, **kwargs):
+        y, s = wkv6(r, *args, **kwargs)
+        seen.append((r.dtype, kwargs.get("out_dtype"), y.dtype))
+        return y, s
+
+    monkeypatch.setattr(ops, "wkv6", spy)
+    cfg = smoke_config(RWKV).replace(param_dtype="bfloat16", compute_dtype="bfloat16",
+                                     num_layers=2)
+    api = get_api(cfg, device="cpu")
+    model = api.init(seed=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6)))
+    with torch.no_grad():
+        logits, cache = api.prefill(model, {"tokens": toks}, api.init_cache(2, 8))
+        api.decode(model, toks[:, -1:], cache)
+        train, _ = model(toks, mode="train")
+    assert seen == [(torch.bfloat16, torch.float32, torch.float32)] * (3 * cfg.num_layers)
+    assert torch.isfinite(logits).all() and torch.isfinite(train).all()
