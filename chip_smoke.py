@@ -6,8 +6,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: the card's name and power limit;
 2. build: compiles the CUDA kernel sources of ``src/repro_torch/kernels/csrc``;
-3. kernels: each hand-written kernel (flash attention, RMSNorm, WKV6)
-   against its plain PyTorch version on CUDA tensors, at the serving paths'
+3. kernels: each hand-written kernel (flash attention, RMSNorm, the chunked
+   and the token-by-token WKV6) against its plain PyTorch version on CUDA
+   tensors, at the serving paths'
    shapes and at the other options of the TPU kernel it replaces, with times
    of the kernel, the plain version and one PyTorch library call where there
    is one, beside the least time the card could take;
@@ -18,7 +19,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16, random weights from a fixed seed, each serving batch 4 x prompt
    1024 + 32 new tokens through ``ServeEngine.generate``, with the kernels'
    launch counts of each run (flash attention and RMSNorm on gemma-2b's
-   path, WKV6 on rwkv6's).
+   path, the chunked WKV6 kernel in rwkv6's prefill and the token-by-token
+   one in its decode steps).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -203,9 +205,12 @@ def check_rmsnorm(gen, d_model: int) -> dict:
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def check_wkv6(gen, cfg) -> dict:
+def check_wkv6(gen, cfg) -> list:
+    """Both WKV6 kernels: the chunked one (T >= wkv6.CHUNK, prefill) and the
+    token-by-token one (shorter T, the decode step), each timed at its
+    serving shape."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6 import CHUNK, wkv6
 
     K = cfg.rwkv.head_dim
     H = cfg.d_model // K
@@ -215,7 +220,8 @@ def check_wkv6(gen, cfg) -> dict:
         (SERVE_BATCH, H, PROMPT_LEN, K, torch.bfloat16, fp32_y),  # rwkv6-1.6b prefill
         (SERVE_BATCH, H, PROMPT_LEN, K, torch.bfloat16, {}),
         (SERVE_BATCH, H, PROMPT_LEN, K, torch.float32, {}),
-        (SERVE_BATCH, H, 1, K, torch.bfloat16, {}),  # a decode step
+        (SERVE_BATCH, H, 1, K, torch.bfloat16, fp32_y),  # rwkv6-1.6b decode step
+        (SERVE_BATCH, H, 1, K, torch.bfloat16, {}),
         (SERVE_BATCH, H, 1, K, torch.float32, zero),
         (2, 3, 50, K, torch.float32, {}),  # ragged T
         (2, 3, 96, 32, torch.bfloat16, {}),
@@ -223,8 +229,15 @@ def check_wkv6(gen, cfg) -> dict:
         (2, 4, 64, 16, torch.bfloat16, zero),
         (1, 2, 32, K, torch.float32, dict(log_w=-50.0, s0=False)),  # extreme decay
         (2, 3, 40, 16, torch.float32, dict(log_w=-50.0)),
+        (2, 3, 31, K, torch.float32, {}),  # the edges of the kernel's 32-token chunks
+        (2, 3, 32, K, torch.bfloat16, fp32_y),
+        (2, 3, 33, K, torch.float32, {}),
+        (2, 3, 65, K, torch.bfloat16, {}),
+        (3, 2, 33, 16, torch.float32, {}),  # V = 16: one 16-column block is the whole state
+        (3, 2, 65, 16, torch.bfloat16, fp32_y),
+        (1, 2, 65, 32, torch.float32, dict(log_w=-50.0)),
     ]
-    main = None
+    main = {}
     for B, Hh, T, Kk, dtype, kw in cases:
         # model layout (B, T, H, K) viewed as (B, H, T, K), as ops.wkv6 passes it;
         # log_w = -exp(N(0, 1)) as tests/test_kernels.py draws it
@@ -237,47 +250,54 @@ def check_wkv6(gen, cfg) -> dict:
         s0 = (randn(gen, (B, Hh, Kk, Kk), torch.float32) if kw.get("s0", True)
               else torch.zeros((B, Hh, Kk, Kk), device=DEVICE))
         out_dtype = kw.get("out_dtype")
+        kernel = "wkv6" if T >= CHUNK else "wkv6_step"
+        before = (wkv6.chunk_launches, wkv6.step_launches)
         y, sf = wkv6(r, k, v, lw, u, s0, out_dtype=out_dtype)
         want_y, want_s = ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=out_dtype)
         sync()
+        ran = "wkv6" if wkv6.chunk_launches > before[0] else "wkv6_step"
         tol = 1e-4 if "log_w" in kw else WKV_TOL[y.dtype]  # fp32 y: both sides fp32
         s_tol = min(tol, WKV_TOL[torch.float32])  # the state is fp32 in every case
         err = (y.float() - want_y.float()).abs().max().item()
         s_err = (sf - want_s).abs().max().item()
-        ok = (y.dtype == want_y.dtype == (out_dtype or dtype)
+        ok = (ran == kernel and y.dtype == want_y.dtype == (out_dtype or dtype)
               and torch.isfinite(y.float()).all().item()
               and torch.allclose(y.float(), want_y.float(), atol=tol, rtol=tol)
               and torch.allclose(sf, want_s, atol=s_tol, rtol=s_tol))
-        log(f"  wkv6 B={B} H={Hh} T={T} K=V={Kk} {str(dtype)[6:]} "
+        log(f"  {kernel} B={B} H={Hh} T={T} K=V={Kk} {str(dtype)[6:]} "
             f"{'s0=0' if not kw.get('s0', True) else 's0 random'}"
             f"{' log_w=-50' if 'log_w' in kw else ''}"
             f"{' y ' + str(out_dtype)[6:] if out_dtype else ''}: max_abs_err y={err:.3g} (tol {tol}), "
             f"state={s_err:.3g} (tol {s_tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"wkv6 disagrees with its plain version: y {err}, state {s_err}")
-        if main is None:
-            main = dict(args=(r, k, v, lw, u, s0), err=err, out_dtype=out_dtype)
+        if kernel not in main:  # the first case of each kernel is its serving shape
+            main[kernel] = dict(args=(r, k, v, lw, u, s0), err=err, out_dtype=out_dtype)
 
-    r, k, v, lw, u, s0 = main["args"]
-    out_dtype = main["out_dtype"]
-    B, Hh, T, Kk = r.shape
-    ms = time_ms(lambda: wkv6(r, k, v, lw, u, s0, out_dtype=out_dtype))
-    plain_ms = time_ms(lambda: ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=out_dtype),
-                       reps=5)
-    # bytes: r, k, v, log_w, u and s0 read once; y (fp32) and the final state written once
-    nbytes = ((r.numel() + k.numel() + v.numel()) * r.element_size() + lw.numel() * 4
-              + u.numel() * 4 + 2 * s0.numel() * 4 + v.numel() * (out_dtype or r.dtype).itemsize)
-    flops = 4.0 * B * Hh * T * Kk * Kk  # k v^T, u-bonus, r.(S + ...), decay: ~4 per (k, v)
-    bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # the recurrence is fp32
-    log(f"  wkv6 at the prefill shape (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16 r/k/v, fp32 y): "
-        f"kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library: none (no single PyTorch call computes WKV6), "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP fp32, "
-        f"{nbytes / 1e6:.1f} MB)")
-    return dict(name="wkv6", route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
-                replaces="src/repro/kernels/rwkv6_wkv.py:37",
-                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    out = []
+    for kernel, what in (("wkv6", "prefill"), ("wkv6_step", "decode")):
+        r, k, v, lw, u, s0 = main[kernel]["args"]
+        out_dtype = main[kernel]["out_dtype"]
+        B, Hh, T, Kk = r.shape
+        ms = time_ms(lambda: wkv6(r, k, v, lw, u, s0, out_dtype=out_dtype))
+        plain_ms = time_ms(lambda: ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=out_dtype),
+                           reps=5 if T >= CHUNK else 30)
+        # bytes: r, k, v, log_w, u and s0 read once; y (fp32) and the final state written once
+        nbytes = ((r.numel() + k.numel() + v.numel()) * r.element_size() + lw.numel() * 4
+                  + u.numel() * 4 + 2 * s0.numel() * 4
+                  + v.numel() * (out_dtype or r.dtype).itemsize)
+        flops = 4.0 * B * Hh * T * Kk * Kk  # k v^T, u-bonus, r.(S + ...), decay: ~4 per (k, v)
+        bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # the recurrence is fp32
+        log(f"  {kernel} at the {what} shape (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16 r/k/v, "
+            f"fp32 y): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library: none (no single PyTorch call computes WKV6), "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.4f} GFLOP fp32, "
+            f"{nbytes / 1e6:.1f} MB)")
+        out.append(dict(name=kernel, route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
+                        replaces="src/repro/kernels/rwkv6_wkv.py:37",
+                        max_abs_err=main[kernel]["err"], ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -328,9 +348,10 @@ def expected_launches(cfg) -> dict:
     decode step per further token."""
     passes = 1 + (MAX_NEW - 1)
     if cfg.family == "ssm":  # rwkv: one WKV6 per layer per pass; LayerNorm is plain torch
-        return {"flash_attention": 0, "rmsnorm": 0, "wkv6": cfg.num_layers * passes}
+        return {"flash_attention": 0, "rmsnorm": 0, "wkv6": cfg.num_layers,  # chunked: prefill
+                "wkv6_step": cfg.num_layers * (passes - 1)}  # token by token: decode
     return {"flash_attention": cfg.num_layers,  # prefill only: decode is plain torch
-            "rmsnorm": (2 * cfg.num_layers + 1) * passes, "wkv6": 0}
+            "rmsnorm": (2 * cfg.num_layers + 1) * passes, "wkv6": 0, "wkv6_step": 0}
 
 
 def serve(cfg) -> dict:
@@ -352,12 +373,15 @@ def serve(cfg) -> dict:
     eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=PROMPT_LEN + MAX_NEW)
     eng.generate({"tokens": tokens[:, :64]}, max_new_tokens=2)  # warm-up (Triton JIT, cuBLAS)
 
-    flash_attention.launches = rmsnorm.launches = wkv6.launches = 0
+    flash_attention.launches = rmsnorm.launches = 0
+    wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = 0
     t0 = time.perf_counter()
     out = eng.generate({"tokens": tokens}, max_new_tokens=MAX_NEW)
     total_s = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches, "rmsnorm": rmsnorm.launches,
-                "wkv6": wkv6.launches}
+                "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches}
+    if wkv6.launches != wkv6.chunk_launches + wkv6.step_launches:
+        raise AssertionError(f"wkv6.launches {wkv6.launches} is not the sum of its kernels'")
 
     t = eng.timing
     prefill_ms = t["prefill_s"] * 1e3
@@ -513,7 +537,7 @@ def main() -> int:
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     log("kernels:")
-    kernels = [check_flash(gen), check_rmsnorm(gen, gemma.d_model), check_wkv6(gen, rwkv)]
+    kernels = [check_flash(gen), check_rmsnorm(gen, gemma.d_model), *check_wkv6(gen, rwkv)]
     log("reference:")
     for cfg in (gemma, rwkv):
         check_reference(cfg)
@@ -525,7 +549,8 @@ def main() -> int:
         runs[cfg.name] = serve(cfg)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
-    driven_by = {"flash_attention": gemma.name, "rmsnorm": gemma.name, "wkv6": rwkv.name}
+    driven_by = {"flash_attention": gemma.name, "rmsnorm": gemma.name, "wkv6": rwkv.name,
+                 "wkv6_step": rwkv.name}
     for k in kernels:
         k["launches"] = runs[driven_by[k["name"]]][k["name"]]
     print(smi)

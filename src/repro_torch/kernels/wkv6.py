@@ -1,9 +1,12 @@
-"""WKV6 (RWKV-6 time mixing): the wrapper of the hand-written CUDA kernel.
+"""WKV6 (RWKV-6 time mixing): the wrapper of the hand-written CUDA kernels.
 
 Replaces the Pallas TPU kernel ``_wkv6_kernel`` / ``wkv6`` of
-``src/repro/kernels/rwkv6_wkv.py``; the kernel is ``csrc/wkv6.cu``, whose
-head says what bounds it on the H100 and how its design answers that.  Same
-contract as the Pallas kernel, per (batch, head) with an fp32 state S (K, V):
+``src/repro/kernels/rwkv6_wkv.py``; the kernels are in ``csrc/wkv6.cu``,
+whose head says what bounds them on the H100 and how their design answers
+that.  A sequence of ``CHUNK`` tokens or more (prefill) goes to the chunked
+kernel (3xTF32 tensor-core products over chunks of 32 tokens); a shorter one
+(the decode step) to the token-by-token kernel.  Same contract as the Pallas
+kernel, per (batch, head) with an fp32 state S (K, V):
 
     y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
     S_t = diag(exp(log_w_t)) S_{t-1} + k_t v_tᵀ
@@ -15,7 +18,8 @@ rwkv6 model keeps y up to its group norm.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version, :func:`repro_torch.kernels.ref.wkv6_reference`.
-``wkv6.launches`` counts kernel launches.
+``wkv6.launches`` counts kernel launches (one per call on the card), split
+into ``wkv6.chunk_launches`` and ``wkv6.step_launches`` by kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from . import ref
 from .build import load_library
 
 HEAD_DIMS = (16, 32, 64)
+CHUNK = 32  # the chunked kernel's tokens per chunk (C in csrc/wkv6.cu); below it, the step kernel
 # (r/k/v dtype, y dtype) -> the kernel's dtype code
 _DTYPE_CODE = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
                (torch.bfloat16, torch.float32): 2}
@@ -101,6 +106,10 @@ def _launch(r, k, v, log_w, u, s0, y, s_out) -> None:
         msg = lib.wkv6_error_string(err).decode()
         raise RuntimeError(f"wkv6 kernel launch failed: {msg} ({err})")
     wkv6.launches += 1
+    if T >= CHUNK:
+        wkv6.chunk_launches += 1
+    else:
+        wkv6.step_launches += 1
 
 
 def wkv6(
@@ -133,4 +142,4 @@ def wkv6(
     return y, s_out
 
 
-wkv6.launches = 0
+wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = 0

@@ -124,6 +124,13 @@ def _wkv6_inputs(gen, B, H, T, K, dtype, log_w=None, s0=True):
     (2, 3, 96, 32, torch.float32, {}),
     (2, 4, 64, 16, torch.bfloat16, dict(s0=False)),
     (1, 2, 32, 64, torch.float32, dict(log_w=-50.0, s0=False)),  # extreme decay
+    (2, 3, 31, 64, torch.float32, {}),  # the edges of the kernel's 32-token chunks
+    (2, 3, 32, 64, torch.bfloat16, {}),
+    (2, 3, 33, 64, torch.float32, {}),
+    (2, 3, 65, 64, torch.bfloat16, {}),
+    (3, 2, 33, 16, torch.float32, {}),  # V = 16: one 16-column block is the whole state
+    (3, 2, 65, 16, torch.bfloat16, {}),
+    (1, 2, 65, 32, torch.float32, dict(log_w=-50.0)),
 ])
 def test_wkv6_kernel_matches_plain(gen, B, H, T, K, dtype, kw):
     args = _wkv6_inputs(gen, B, H, T, K, dtype, **kw)
@@ -153,6 +160,36 @@ def test_wkv6_kernel_fp32_out_matches_plain(gen, B, H, T, K):
     want_y, want_s = ref.wkv6_reference(*args, out_dtype=torch.float32)
     assert y.dtype == want_y.dtype == torch.float32
     torch.testing.assert_close(y, want_y, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(sf, want_s, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("T,kernel", [(1, "step"), (31, "step"), (32, "chunk"), (1024, "chunk")])
+def test_wkv6_picks_its_kernel_by_length(gen, T, kernel):
+    """A sequence of wkv6.CHUNK tokens or more goes to the chunked kernel,
+    a shorter one (the decode step) to the token-by-token kernel."""
+    args = _wkv6_inputs(gen, 2, 4, T, 64, torch.bfloat16)
+    before = (wkv6.launches, wkv6.chunk_launches, wkv6.step_launches)
+    wkv6(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    chunk = int(kernel == "chunk")
+    assert (wkv6.launches, wkv6.chunk_launches, wkv6.step_launches) == (
+        before[0] + 1, before[1] + chunk, before[2] + 1 - chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_unaligned_inputs(gen, dtype):
+    """Rows that do not start on 16 bytes (a view one element into a wider
+    buffer) are staged with plain loads instead of cp.async."""
+    args = list(_wkv6_inputs(gen, 2, 3, 45, 32, dtype))
+    for i in range(4):
+        wide = torch.zeros(*args[i].shape[:3], 33, dtype=args[i].dtype, device="cuda")
+        wide[..., 1:] = args[i]
+        args[i] = wide[..., 1:]
+        assert args[i].data_ptr() % 16 != 0
+    y, sf = wkv6(*args)
+    want_y, want_s = ref.wkv6_reference(*args)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(sf, want_s, atol=2e-4, rtol=2e-4)
 
 
