@@ -12,15 +12,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shapes and at the other options of the TPU kernel it replaces, with times
    of the kernel, the plain version and one PyTorch library call where there
    is one, beside the least time the card could take;
+   The backward kernels of flash attention and RMSNorm are held against
+   their plain versions the same way, at the training path's shapes and at
+   the other options;
 4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b on the
    card (kernels) against the same weights on the CPU (plain versions):
-   logits and greedy tokens;
+   logits and greedy tokens; then one AdamW step of the 2-layer fp32
+   gemma-2b on the card against the same step on the CPU: the loss, every
+   parameter's gradient and the parameter update;
 5. serve: full-width gemma-2b (18 layers) and then rwkv6-1.6b (24 layers),
    bf16, random weights from a fixed seed, each serving batch 4 x prompt
    1024 + 32 new tokens through ``ServeEngine.generate``, with the kernels'
    launch counts of each run (flash attention and RMSNorm on gemma-2b's
    path, the chunked WKV6 kernel in rwkv6's prefill and the token-by-token
-   one in its decode steps).
+   one in its decode steps);
+6. train: full-width, full-depth gemma-2b in bf16, random weights from a
+   fixed seed, 6 AdamW steps of batch 4 x 1024 tokens of the synthetic
+   affine data through ``train.trainstep.train_step``: the loss of every
+   step, step ms, tok/s, peak device memory, the launches per step of the
+   four kernels on the path (flash attention and RMSNorm, forward and
+   backward) and a profile of one step.
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -43,9 +54,14 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: 80 GB HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor core / fp32 CUDA core
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX kernel tests' tolerances
+# backward kernels against their plain versions: fp32 sums of up to a few
+# thousand products in another order; bf16: both sides compute in fp32 from
+# the same bf16 inputs and round each gradient once
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # 1e-4 at log_w = -50, as in JAX
 ARCHS = ("gemma-2b", "rwkv6-1.6b")
 SERVE_BATCH, PROMPT_LEN, MAX_NEW = 4, 1024, 32
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 
 
 def log(msg: str) -> None:
@@ -300,6 +316,135 @@ def check_wkv6(gen, cfg) -> list:
     return out
 
 
+def check_flash_bwd(gen) -> dict:
+    """The forward's LSE and the backward kernel against their plain
+    versions, timed at gemma-2b's training shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import _forward, flash_attention_bwd
+
+    cases = [  # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
+        (TRAIN_BATCH, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256, torch.bfloat16, {}),  # gemma-2b training
+        (TRAIN_BATCH, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256, torch.float32, {}),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(window=64)),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=64)),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(softcap=30.0)),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(softcap=30.0)),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(causal=False)),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=32, softcap=50.0)),
+        (1, 8, 2, 128, 256, 128, torch.float32, dict(window=100)),  # GQA, cross lengths
+        (1, 8, 2, 256, 256, 128, torch.bfloat16, {}),
+        (1, 2, 2, 1000, 1000, 64, torch.bfloat16, {}),  # ragged Sq = Sk
+        (1, 2, 2, 1000, 1000, 128, torch.float32, {}),
+        (1, 8, 1, 100, 173, 256, torch.bfloat16, dict(softcap=50.0)),
+        (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8, softcap=5.0)),
+        (1, 2, 2, 100, 100, 32, torch.bfloat16, dict(causal=False, window=30)),
+    ]
+    main = None
+    for B, Hq, Hkv, Sq, Sk, D, dtype, kw in cases:
+        q = randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
+        k = randn(gen, (B, Sk, Hkv, D), dtype).transpose(1, 2)
+        v = randn(gen, (B, Sk, Hkv, D), dtype).transpose(1, 2)
+        dout = randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
+        opts = dict(causal=True, window=None, softcap=None, scale=D ** -0.5) | kw
+        out, lse = _forward(q, k, v, with_lse=True, **opts)
+        _, want_lse = ref.mha_reference(q, k, v, return_lse=True, **kw)
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        want = ref.mha_backward_reference(q, k, v, out, lse, dout, **kw)
+        sync()
+        tol = BWD_TOL[dtype]
+        lse_err = (lse - want_lse).abs().max().item()
+        errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
+        ok = lse_err <= 1e-4 and all(
+            torch.allclose(g.float(), w.float(), atol=tol, rtol=tol) for g, w in zip(grads, want))
+        log(f"  flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} "
+            f"{str(dtype)[6:]} {kw or 'causal'}: lse err={lse_err:.3g} (tol 1e-4), "
+            f"max_abs_err dq={errs[0]:.3g} dk={errs[1]:.3g} dv={errs[2]:.3g} (tol {tol}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {errs}")
+        if main is None:
+            main = dict(args=(q, k, v, out, lse, dout), err=max(errs), dtype=dtype)
+
+    q, k, v, out, lse, dout = main["args"]
+    B, Hq, S, D = q.shape
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout))
+    plain_ms = time_ms(lambda: ref.mha_backward_reference(q, k, v, out, lse, dout), reps=5)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(sdpa, (ql, kl, vl), dout,
+                                                     retain_graph=True))
+    pairs = B * Hq * S * (S + 1) // 2  # causal (q, k) pairs this input needs
+    flops = 10.0 * D * pairs  # q.k, dO.v, P^T dO, dS K, dS^T Q: 2 flops per multiply-add each
+    # q, k, v, o, dO and the LSE read once; dq, dk, dv written once
+    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel() + dout.numel()) \
+        * q.element_size() + lse.numel() * 4
+    bound_ms, bound_by = bound(nbytes, flops, main["dtype"])
+    log(f"  flash_attention_bwd at the training shape (B={B}, Hq={Hq}, Hkv={k.shape[1]}, S={S}, "
+        f"D={D}, bf16, causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"(scaled_dot_product_attention backward) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention.py:40",
+                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_rmsnorm_bwd(gen, d_model: int) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    rows_main = TRAIN_BATCH * TRAIN_SEQ
+    cases = [  # (rows, d, dtype)
+        (rows_main, d_model, torch.bfloat16),  # gemma-2b training
+        (rows_main, d_model, torch.float32),
+        (rows_main - 1, d_model, torch.bfloat16),  # ragged last block of rows
+        (1000, 896, torch.float32),  # widths that are not powers of two
+        (333, 3584, torch.bfloat16),
+        (17, 8192, torch.bfloat16),
+        (3, 5, torch.float32),
+    ]
+    main = None
+    for rows, d, dtype in cases:
+        x, g = randn(gen, (rows, d), dtype), randn(gen, (rows, d), dtype)
+        s = randn(gen, (d,), dtype)
+        dx, ds = rmsnorm_bwd(x, s, g)
+        want_dx, want_ds = ref.rmsnorm_backward_reference(x, s, g)
+        sync()
+        tol = BWD_TOL[dtype]
+        ds_scale = want_ds.float().abs().max().item()  # dscale sums `rows` products
+        err = (dx.float() - want_dx.float()).abs().max().item()
+        ds_err = (ds.float() - want_ds.float()).abs().max().item()
+        ok = (dx.dtype == ds.dtype == dtype
+              and torch.allclose(dx.float(), want_dx.float(), atol=tol, rtol=tol)
+              and torch.allclose(ds.float(), want_ds.float(), atol=tol * ds_scale, rtol=tol))
+        log(f"  rmsnorm_bwd rows={rows} d={d} {str(dtype)[6:]}: max_abs_err dx={err:.3g} "
+            f"(tol {tol}), dscale={ds_err:.3g} (tol {tol} x max|dscale| {ds_scale:.3g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rmsnorm_bwd disagrees with its plain version: {err}, {ds_err}")
+        if main is None:
+            main = dict(args=(x, s, g), err=err, dtype=dtype)
+
+    x, s, g = main["args"]
+    ms = time_ms(lambda: rmsnorm_bwd(x, s, g))
+    plain_ms = time_ms(lambda: ref.rmsnorm_backward_reference(x, s, g))
+    xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
+    y = F.rms_norm(xl, (x.shape[-1],), weight=sl, eps=1e-6)
+    library_ms = time_ms(lambda: torch.autograd.grad(y, (xl, sl), g, retain_graph=True))
+    # x and g read, dx written; scale read, dscale written
+    nbytes = 3 * x.numel() * x.element_size() + 2 * s.numel() * s.element_size()
+    flops = 11.0 * x.numel()  # x^2, two row sums, g s, x g s, r g s, x r^3 c, dx, g x r, column sum
+    bound_ms, bound_by = bound(nbytes, flops, main["dtype"])
+    log(f"  rmsnorm_bwd at the training shape ({x.shape[0]}, {x.shape[1]}) bf16: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (rms_norm backward) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB)")
+    return dict(name="rmsnorm_bwd", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+                replaces="src/repro/kernels/rmsnorm.py:17",
+                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 # ---------------------------------------------------------------------------
 # the model on the card against the same model on the CPU
 # ---------------------------------------------------------------------------
@@ -337,6 +482,64 @@ def check_reference(cfg) -> None:
     log(f"  greedy tokens card {out['card'].tolist()} / CPU {out['cpu'].tolist()}")
     if not np.array_equal(out["cpu"], out["card"]):
         raise AssertionError("greedy tokens on the card differ from the CPU")
+
+
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+TRAIN_FAMILIES = (  # (family, substrings of kernel names), first match wins
+    ("flash attention backward", ("flash_bwd", "group_sum")),
+    ("flash attention forward", ("flash_fwd",)),
+    ("rmsnorm", ("rmsnorm",)),
+    ("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "copy", "CatArrayBatched", "fill")),
+)
+
+
+def check_train_reference(cfg) -> None:
+    """One AdamW step of a full-width, 2-layer fp32 model on the card
+    (forward and backward kernels) against the same step on the CPU (plain
+    versions): the loss, every parameter's gradient, and the update where
+    |g| > 1e-3 max|g| of its leaf (AdamW's first step is close to
+    lr sign(g), so an entry near zero that rounds differently flips a whole
+    update)."""
+    from repro_torch.models import get_api
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
+    from repro_torch.train.trainstep import _accum_grads, batch_to_torch
+
+    small = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
+    cpu_api, gpu_api = get_api(small, device="cpu"), get_api(small, device=DEVICE)
+    models = {"cpu": cpu_api.init(seed=1), "card": gpu_api.init(seed=1)}
+    models["card"].load_state_dict(models["cpu"].state_dict())
+    batch = SyntheticData(DataConfig(vocab_size=small.vocab_size, batch=1, seq=256)).batch_at(0)
+    opt = OptConfig(**TRAIN_OPT)
+    res = {}
+    for name, api in (("cpu", cpu_api), ("card", gpu_api)):
+        model = models[name]
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        loss, grads = _accum_grads(model, batch_to_torch(batch, api.device), 1)
+        adamw_update(model, grads, adamw_init(model), opt)
+        res[name] = dict(loss=loss.item(), grads={n: g.cpu() for n, g in grads.items()},
+                         delta={n: (p.detach() - before[n]).cpu()
+                                for n, p in model.named_parameters()})
+        del before, grads
+    tol = 1e-3  # fp32 on both sides; sums over d_ff, the vocab and S taken in another order
+    loss_err = abs(res["card"]["loss"] - res["cpu"]["loss"])
+    g_err, d_err = 0.0, 0.0
+    for n, g in res["cpu"]["grads"].items():
+        scale = g.abs().max().item()
+        g_err = max(g_err, (res["card"]["grads"][n] - g).abs().max().item() / scale)
+        big = g.abs() > 1e-3 * scale
+        d_diff = res["card"]["delta"][n] - res["cpu"]["delta"][n]
+        d_err = max(d_err, d_diff[big].abs().max().item())
+    lr0 = float(TRAIN_OPT["lr"]) / TRAIN_OPT["warmup_steps"]
+    log(f"  {cfg.name} 2-layer full-width fp32 train step (B=1, S=256), card vs CPU: loss "
+        f"{res['card']['loss']:.6f} / {res['cpu']['loss']:.6f} (err {loss_err:.3g}, tol {tol}); "
+        f"gradients max_abs_err / max|g| over {len(res['cpu']['grads'])} leaves {g_err:.3g} "
+        f"(tol {tol}); update max_abs_err where |g| > 1e-3 max|g| {d_err:.3g} "
+        f"(tol {1e-2 * lr0:.3g}, 1e-2 x lr)")
+    if not (loss_err <= tol * abs(res["cpu"]["loss"]) and g_err <= tol and d_err <= 1e-2 * lr0):
+        raise AssertionError("the train step on the card disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +627,138 @@ def serve(cfg) -> dict:
     return launches
 
 
+def bf16_absorbs(p: torch.Tensor, bound: float) -> bool:
+    """True if no entry of the bf16 tensor ``p`` can move by an update of at
+    most ``bound``: it is below half the bf16 spacing just under every
+    |entry| (2^(floor(log2 |p|) - 8), the finer side of a power of two)."""
+    a = p.detach().float().abs()
+    return bool((bound < 0.5 * torch.exp2(torch.floor(torch.log2(a)) - 8)).all())
+
+
+def train(cfg) -> dict:
+    """TRAIN_STEPS AdamW steps of the full model in bf16 through train_step;
+    returns the kernels' launches in those steps."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.models import get_api
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.train.trainstep import (TrainHparams, _accum_grads, batch_to_torch,
+                                             make_train_state, train_step)
+
+    api = get_api(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(api, seed=0)
+    model = state["model"]
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params in "
+        f"{str(cfg.pdtype)[6:]}, fp32 AdamW moments, initialised in "
+        f"{time.perf_counter() - t0:.1f} s; params and moments take "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                    mode="affine"))
+    opt, hp = OptConfig(**TRAIN_OPT), TrainHparams(grad_accum=1)
+    batches = [batch_to_torch(data.batch_at(i), DEVICE) for i in range(TRAIN_STEPS + 2)]
+
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    rmsnorm.launches = rmsnorm_bwd.launches = 0
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        sync()
+        t0 = time.perf_counter()
+        metrics = train_step(model, state["opt"], batches[i], opt, hp)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        log(f"  step {i}: loss {losses[-1]:.4f}, lr {metrics['lr'].item():.3e}, grad_norm "
+            f"{metrics['grad_norm'].item():.4g}, {step_ms[-1]:.1f} ms")
+        if i == 0:
+            lr0 = metrics["lr"].item()
+            moved, absorbed, stuck = 0, [], []
+            for n, p in model.named_parameters():
+                if not torch.equal(p, before[n]):
+                    moved += 1
+                elif bf16_absorbs(before[n], lr0 * (1 + opt.weight_decay
+                                                    * before[n].float().abs().max().item())):
+                    absorbed.append(n)
+                else:
+                    stuck.append(n)
+            del before
+            log(f"  after step 0: {moved} of {moved + len(absorbed) + len(stuck)} parameters "
+                f"changed; {len(absorbed)} unchanged because bf16 rounding absorbs any update "
+                f"of at most lr (1 + wd max|p|) = {lr0 * (1 + opt.weight_decay):.3g} at their "
+                f"values {sorted(set(absorbed))[:3]}...; {len(stuck)} unchanged otherwise {stuck}")
+            if stuck:
+                raise AssertionError(f"parameters unchanged after the first step: {stuck}")
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches,
+                "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches}
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    expect = {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
+              "rmsnorm": 2 * cfg.num_layers + 1, "rmsnorm_bwd": 2 * cfg.num_layers + 1}
+    med = statistics.median(step_ms[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / med * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    log(f"  step {med:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}; step 0 {step_ms[0]:.1f} ms), "
+        f"{tok_s:.0f} tok/s, peak device memory {peak:.2f} GiB")
+    log(f"  launches per step: {per_step}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if per_step != expect:
+        raise AssertionError(f"kernel launches per step {per_step} != {expect} implied by the path")
+    profile_train_step(model, state["opt"], batches[TRAIN_STEPS], opt, hp, med)
+
+    # one more step, split by CUDA events (outside the counted run): what
+    # train_step does, its two parts timed apart
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    _, grads = _accum_grads(model, batches[TRAIN_STEPS + 1], hp.grad_accum)
+    events[1].record()
+    adamw_update(model, grads, state["opt"], opt)
+    events[2].record()
+    events[2].synchronize()
+    del grads
+    fwd_bwd, update = events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
+    log(f"  one step split by CUDA events: loss and gradients {fwd_bwd:.1f} ms, AdamW update "
+        f"{update:.1f} ms ({update / (fwd_bwd + update):.3f} of the step)")
+    return launches
+
+
+def profile_train_step(model, opt_state, batch, opt, hp, step_ms: float) -> None:
+    """torch.profiler over one train step (outside the counted run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.trainstep import train_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(model, opt_state, batch, opt, hp)
+        sync()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        log("  profile train step: no device events (not measured)")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    log(f"  profile train step: {len(kern)} kernels, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / step_ms:.3f} of the unprofiled {step_ms:.1f} ms")
+    families = {}  # device ms by kernel family, matched on the kernel's name
+    for name, ms in by_name.items():
+        fam = next((f for f, keys in TRAIN_FAMILIES if any(k in name for k in keys)), "other")
+        families[fam] = families.get(fam, 0.0) + ms
+    log("  by family: " + ", ".join(f"{f} {ms:.3f} ms"
+                                    for f, ms in sorted(families.items(), key=lambda kv: -kv[1])))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {ms:8.3f} ms  {name[:100]}")
+
+
 def wkv_y_rounding_shift(api, model, tokens) -> None:
     """How far the bf16 prefill logits move when WKV6 hands the group norm y
     rounded to bf16 instead of the fp32 y that the model asks for (and that
@@ -493,12 +828,14 @@ def ptxas_report(build_log: str) -> list:
     and template arguments, registers, shared memory and spills."""
     out, name = [], None
     for line in build_log.splitlines():
-        hit = re.search(r"entry function '(\w+_kernel)I(\w+?)EEvNS_6ParamsE'", line)
+        hit = re.search(r"entry function '(\w+_kernel)I(\w+?)EEvNS_6ParamsE", line)
         if hit:  # Itanium mangling: <length><name>I<template arguments>E
             head = hit.group(1)
             name = next(head[-n:] for n in range(1, len(head)) if head[:-n].endswith(str(n)))
-            args = re.findall(r"Li(-?\d+)E|(13__nv_bfloat16|S1_)|(f)", hit.group(2))
-            name += "<" + ",".join(n or ("bf16" if b else "f32") for n, b, _ in args) + ">"
+            args = re.findall(r"Li(-?\d+)E|Lb([01])E|(13__nv_bfloat16|S1_)|(f)", hit.group(2))
+            name += "<" + ",".join(
+                n or ({"1": "true", "0": "false"}[bo] if bo else "bf16" if b else "f32")
+                for n, bo, b, _ in args) + ">"
             spills = ""
         elif name and "spill" in line:
             spills = line.strip()
@@ -537,11 +874,15 @@ def main() -> int:
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     log("kernels:")
-    kernels = [check_flash(gen), check_rmsnorm(gen, gemma.d_model), *check_wkv6(gen, rwkv)]
+    kernels = [check_flash(gen), check_rmsnorm(gen, gemma.d_model), *check_wkv6(gen, rwkv),
+               check_flash_bwd(gen), check_rmsnorm_bwd(gen, gemma.d_model)]
+    torch.cuda.empty_cache()
     log("reference:")
     for cfg in (gemma, rwkv):
         check_reference(cfg)
         torch.cuda.empty_cache()
+    check_train_reference(gemma)
+    torch.cuda.empty_cache()
     log("serve:")
     runs = {}
     for cfg in (gemma, rwkv):
@@ -549,10 +890,19 @@ def main() -> int:
         runs[cfg.name] = serve(cfg)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
-    driven_by = {"flash_attention": gemma.name, "rmsnorm": gemma.name, "wkv6": rwkv.name,
-                 "wkv6_step": rwkv.name}
+    log("train:")
+    trained = train(gemma)
+    # each kernel's launches in the run of the path that drives it; the
+    # forward kernels run in gemma-2b's serving and training alike
+    paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],
+             f"train {gemma.name}": trained}
+    driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",
+                 "wkv6": f"serve {rwkv.name}", "wkv6_step": f"serve {rwkv.name}",
+                 "flash_attention_bwd": f"train {gemma.name}",
+                 "rmsnorm_bwd": f"train {gemma.name}"}
     for k in kernels:
-        k["launches"] = runs[driven_by[k["name"]]][k["name"]]
+        k["launches"] = paths[driven_by[k["name"]]][k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if n.get(k["name"])}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,12 @@
 // in dynamic shared memory as fp32 (~105 KB at D=256, above the 48 KB of
 // static shared memory, hence cudaFuncSetAttribute).
 //
+// Training (optional): with a non-null `lse` pointer each kernel also writes
+// the row log-sum-exp of the scores it normalised, in natural-log units
+// after scale and softcap, fp32 (B, Hq, Sq) contiguous; the backward kernel
+// (flash_attention_bwd.cu) recomputes P from it.  The serve path passes null
+// and writes nothing more.
+//
 // Shared by both: the loop bounds replace the Pallas `live` guard (with
 // `causal` the loop stops after the tile holding the q tile's last real
 // row; with `window` it starts at the first tile that the q tile's first row
@@ -66,9 +72,11 @@ namespace {
 
 constexpr int BQ = 64;  // q rows per block
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q; const void* k; const void* v; void* o;
+  float* lse;  // (B, Hq, Sq) row log-sum-exp, or null
   int Hq, Hkv, Sq, Sk;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   float scale; int causal; int window; float softcap;
@@ -257,6 +265,8 @@ flash_fwd_kernel(const Params p) {
     const int r = q0 + ty * RM + i;
     if (r >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.Hq + h) * p.Sq + r] = m[i] + logf(denom);
     float* orow = ob + (long long)r * p.o_ss;
 #pragma unroll
     for (int c = 0; c < DN; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
@@ -513,6 +523,8 @@ flash_fwd_mma_kernel(const Params p) {
     const int row = row_a + r * 8;
     if (row >= p.Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (p.lse != nullptr && t == 0)  // m and l are in log2 units
+      p.lse[((long long)b * p.Hq + h) * p.Sq + row] = (m[r] + log2f(fmaxf(l[r], 1e-30f))) * LN2;
     bf16* orow = ob + (long long)row * p.o_ss + 2 * t;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
@@ -547,8 +559,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides in elements; the last dim of
 // every tensor is contiguous.  window <= 0 means none; softcap <= 0 means
-// none.  Returns the cudaError_t of the launch (0 on success).
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+// none; lse may be null.  Returns the cudaError_t of the launch (0 on
+// success).
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                         int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
                         long long q_sb, long long q_sh, long long q_ss,
                         long long k_sb, long long k_sh, long long k_ss,
@@ -557,7 +570,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float scale, int causal, int window, float softcap,
                         void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  Params p{q, k, v, o, Hq, Hkv, Sq, Sk,
+  Params p{q, k, v, o, lse, Hq, Hkv, Sq, Sk,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
            scale, causal, window, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

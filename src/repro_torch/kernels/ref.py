@@ -1,10 +1,13 @@
 """Plain PyTorch versions of the hand-written kernels — their contracts.
 
-Line for line the math of ``repro.kernels.ref``: they materialise the full
-score matrix and reduce in fp32, so the tests hold the kernels against the
-most obviously correct implementation (WKV6 steps through the sequence
-one token at a time).  On a CPU tensor the kernel wrappers run these; on
-the card ``chip_smoke.py`` compares each kernel with them.
+The forward versions are line for line the math of ``repro.kernels.ref``:
+they materialise the full score matrix and reduce in fp32, so the tests hold
+the kernels against the most obviously correct implementation (WKV6 steps
+through the sequence one token at a time).  The backward versions of flash
+attention and RMSNorm, which the JAX package leaves to XLA, are their
+explicit gradient formulas (flash attention's from o, the row log-sum-exp
+and dO).  On a CPU tensor the kernel wrappers run these; on the card
+``chip_smoke.py`` compares each kernel with them.
 """
 from __future__ import annotations
 
@@ -12,6 +15,26 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+
+def _scores(q, k, causal, window, softcap, scale):
+    """Scores after scale and softcap, fp32 (B, Hq, Sq, Sk), the visibility
+    mask (Sq, Sk), and tanh(z / softcap) (None without a softcap); k is
+    already repeated to Hq heads."""
+    Sq, Sk = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    return s, ok, t
 
 
 def mha_reference(
@@ -23,27 +46,63 @@ def mha_reference(
     window: Optional[int] = None,
     softcap: Optional[float] = None,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    B, Hq, Sq, D = q.shape
-    _, Hkv, Sk, _ = k.shape
-    group = Hq // Hkv
+    return_lse: bool = False,
+):
+    """Attention in q's dtype; with ``return_lse`` also the row log-sum-exp
+    of the masked scores, fp32 (B, Hq, Sq), as the kernel writes it for
+    training."""
+    D = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Sk, device=q.device)[None, :]
-    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= k_pos <= q_pos
-    if window is not None:
-        ok &= k_pos > q_pos - window
+    s, ok, _ = _scores(q, k, causal, window, softcap, scale)
     s = torch.where(ok[None, None], s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def mha_backward_reference(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,  # (B, Hkv, Sk, D)
+    o: torch.Tensor,  # (B, Hq, Sq, D) the forward's output
+    lse: torch.Tensor,  # (B, Hq, Sq) fp32, the forward's row log-sum-exp
+    do: torch.Tensor,  # (B, Hq, Sq, D) the gradient of o
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtype, by the explicit formula of the
+    backward kernel, fp32 throughout: P = exp(s - lse) where visible, else
+    0; Delta = rowsum(dO o); dS = P (dO V^T - Delta) (1 - tanh^2(z/softcap))
+    scale; dQ = dS K, dK = dS^T Q, dV = P^T dO, dK and dV summed over the q
+    heads of each kv group."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    qf, dof = q.float(), do.float()
+    s, ok, t = _scores(qf, kf, causal, window, softcap, scale)
+    p = torch.where(ok[None, None], torch.exp(s - lse.float()[..., None]), 0.0)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf).reshape(B, Hkv, group, Sk, D).sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).reshape(B, Hkv, group, Sk, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rmsnorm_reference(
@@ -52,6 +111,22 @@ def rmsnorm_reference(
     xf = x.float()
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * r * scale.float()).to(x.dtype)
+
+
+def rmsnorm_backward_reference(
+    x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx in x's dtype, dscale in scale's dtype) of y = x r scale,
+    r = rsqrt(mean(x^2) + eps), for the gradient g of y, in fp32:
+    dx = r (g scale) - x r^3 mean(x g scale); dscale = sum over rows of
+    g x r."""
+    d = x.shape[-1]
+    xf, gf = x.float().reshape(-1, d), g.float().reshape(-1, d)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    gs = gf * scale.float()
+    dx = r * gs - xf * r ** 3 * torch.mean(xf * gs, dim=-1, keepdim=True)
+    dscale = (gf * xf * r).sum(0)
+    return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype)
 
 
 def wkv6_reference(

@@ -8,7 +8,8 @@ Conventions
 * weights are stored in ``cfg.pdtype`` and matmuls run in ``cfg.cdtype``
   with fp32 softmax/norm accumulations
 * ``rmsnorm`` goes through :func:`repro_torch.kernels.ops.rmsnorm` (the
-  Triton kernel on the card); the JAX model path computes it in XLA
+  Triton kernels on the card, forward and backward); the JAX model path
+  computes it in XLA
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels import ops
@@ -176,3 +178,54 @@ class Embed(nn.Module):
         else:
             logits = x @ self.out.to(x.dtype)
         return softcap(logits.float(), self.cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return logz - gold
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
+    """Mean next-token NLL.  logits (..., V) fp32, targets int (...)."""
+    nll = _nll(logits, targets)
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
+
+
+def _chunk_nll(embed: Embed, h: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return _nll(embed.unembed(h), targets)  # (B, chunk), from fp32 softcapped logits
+
+
+def cross_entropy_fused(h: torch.Tensor, embed: Embed, targets: torch.Tensor, mask=None,
+                        chunk: int = 512) -> torch.Tensor:
+    """Fused unembed + NLL, chunked over the sequence (``cross_entropy_fused``
+    of the JAX package).
+
+    Never keeps the full (B, S, V) logits: each chunk's logits are produced,
+    reduced to (lse, gold) and dropped, and ``torch.utils.checkpoint``
+    recomputes them chunk by chunk in the backward pass.  The chunk is
+    ``chunk``, or gcd(S, chunk) when S is not a multiple of it, or S when
+    S < chunk, as in JAX."""
+    B, S, d = h.shape
+    if S % chunk:
+        chunk = S if S < chunk else math.gcd(S, chunk)
+    tot = h.new_zeros((), dtype=torch.float32)
+    cnt = h.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S, chunk):
+        hx, tx = h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
+        nll = torch.utils.checkpoint.checkpoint(_chunk_nll, embed, hx, tx, use_reentrant=False)
+        if mask is not None:
+            mx = mask[:, c0:c0 + chunk].to(torch.float32)
+            tot = tot + (nll * mx).sum()
+            cnt = cnt + mx.sum()
+        else:
+            tot = tot + nll.sum()
+            cnt = cnt + nll.numel()
+    return tot / torch.clamp(cnt, min=1)

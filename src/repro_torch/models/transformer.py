@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from .attention import GQAAttention
-from .layers import MLP, Embed, Norm
+from .layers import MLP, Embed, Norm, cross_entropy_fused
 from .rwkv import RWKVChannelMix, RWKVTimeMix, rwkv_state_shapes
 
 
@@ -165,8 +165,11 @@ class DecoderLM(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
 
-    def forward(self, tokens, cache=None, mode: str = "train", last_only: bool = False):
-        """Returns (logits fp32 (B, S, V), new_cache).
+    def forward(self, tokens, cache=None, mode: str = "train", last_only: bool = False,
+                return_hidden: bool = False):
+        """Returns (logits fp32 (B, S, V), new_cache), or with
+        ``return_hidden`` (the hidden state after the final norm (B, S, d),
+        new_cache).
 
         * mode="train":   cache ignored
         * mode="prefill": cache required; writes positions [0:S], pos := S
@@ -183,17 +186,32 @@ class DecoderLM(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, cache["layers"][i] if cache is not None else None, pos)
         x = self.final_norm(x)
+        new_cache = None
+        if cache is not None:
+            new_pos = cache["pos"] + (1 if mode == "decode" else tokens.shape[1])
+            new_cache = {"pos": new_pos, "layers": cache["layers"]}
+        if return_hidden:
+            return x, new_cache
         if last_only:
             x = x[:, -1:, :]
-        logits = self.embed.unembed(x)
-        if cache is None:
-            return logits, None
-        new_pos = cache["pos"] + (1 if mode == "decode" else tokens.shape[1])
-        return logits, {"pos": new_pos, "layers": cache["layers"]}
+        return self.embed.unembed(x), new_cache
 
 
 def apply_lm(model: DecoderLM, tokens, cache=None, mode: str = "train",
-             last_only: bool = False):
+             last_only: bool = False, return_hidden: bool = False):
     """Functional entry point in the JAX ``apply_lm`` argument order; returns
-    (logits, new_cache) (the ported families have no auxiliary loss)."""
-    return model(tokens, cache=cache, mode=mode, last_only=last_only)
+    (logits, new_cache), or (hidden, new_cache) with ``return_hidden`` (the
+    ported families have no auxiliary loss)."""
+    return model(tokens, cache=cache, mode=mode, last_only=last_only,
+                 return_hidden=return_hidden)
+
+
+def lm_loss(model: DecoderLM, batch) -> torch.Tensor:
+    """Mean next-token NLL of ``batch`` = {"tokens" (B,S), "targets" (B,S),
+    optional "mask"}: the fused, chunked loss on the hidden state after the
+    final norm, as JAX's ``lm_loss``.  JAX adds 0.01 x the MoE auxiliary
+    loss; the port's families have no MoE yet (it raises
+    ``NotImplementedError`` at model construction), so the term does not
+    arise."""
+    h, _ = model(batch["tokens"], mode="train", return_hidden=True)
+    return cross_entropy_fused(h, model.embed, batch["targets"], batch.get("mask"))

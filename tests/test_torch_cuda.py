@@ -5,13 +5,18 @@ with a reason.  Run them on the GPU with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances: 2e-5 in float32 and 2e-2 in bfloat16, as in
 ``tests/test_kernels.py``; WKV6 2e-4 in float32 (1e-4 under extreme decay),
-as the JAX tests hold the Pallas kernel, and 2e-2 in bfloat16.
+as the JAX tests hold the Pallas kernel, and 2e-2 in bfloat16.  The backward
+kernels: 1e-4 in float32 (dK and dV sum up to a few thousand products in
+another order than the plain version) and 2e-2 in bfloat16 (both sides
+compute in fp32 from the same bf16 inputs and round once).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import flash_attention, ops, ref, rmsnorm, wkv6  # noqa: E402
+from repro_torch.kernels import flash_attention, flash_attention_bwd, ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm, rmsnorm_bwd, wkv6  # noqa: E402
+from repro_torch.kernels.flash_attention import _forward as flash_forward  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -103,6 +108,122 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
         flash_attention(q, q, q)
     with pytest.raises(TypeError):
         rmsnorm(_randn(gen, (4, 64), torch.float16), _randn(gen, (64,), torch.float16))
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,dtype,kw", [
+    (4, 8, 1, 1024, 1024, 256, torch.bfloat16, {}),  # gemma-2b training
+    (4, 8, 1, 1024, 1024, 256, torch.float32, {}),
+    (1, 4, 2, 256, 256, 64, torch.float32, dict(window=64)),
+    (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(softcap=30.0)),
+    (1, 4, 2, 256, 256, 64, torch.float32, dict(causal=False)),
+    (1, 8, 2, 128, 256, 128, torch.float32, dict(window=100)),  # GQA, cross lengths
+    (1, 2, 2, 1000, 1000, 128, torch.bfloat16, {}),  # ragged S
+    (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8, softcap=5.0)),
+    (1, 2, 2, 100, 100, 32, torch.bfloat16, dict(causal=False, window=30)),
+])
+def test_flash_backward_kernel_matches_plain(gen, B, Hq, Hkv, Sq, Sk, D, dtype, kw):
+    """The forward's LSE against the plain one, then the backward kernel
+    against the plain backward on the same q, k, v, o, LSE and dO."""
+    q = _randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
+    k = _randn(gen, (B, Sk, Hkv, D), dtype).transpose(1, 2)
+    v = _randn(gen, (B, Sk, Hkv, D), dtype).transpose(1, 2)
+    dout = _randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
+    opts = dict(causal=True, window=None, softcap=None, scale=D ** -0.5) | kw
+    out, lse = flash_forward(q, k, v, with_lse=True, **opts)
+    _, want_lse = ref.mha_reference(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = ref.mha_backward_reference(q, k, v, out, lse, dout, **kw)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape and g.stride() == x.stride()
+        torch.testing.assert_close(g.float(), w.float(), atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
+
+
+def test_flash_autograd_runs_both_kernels(gen):
+    """A gradient through ops.attention launches the forward (with its LSE)
+    and the backward kernel once each, and matches autograd of the plain
+    version; a broadcast dO is copied to rows the kernel can read."""
+    q, k, v = (_randn(gen, (2, 64, h, 32), torch.float32).requires_grad_() for h in (4, 2, 2))
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = ops.attention(q, k, v, window=20)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    plain = ref.mha_reference(*(t.transpose(1, 2) for t in (q, k, v)), window=20)
+    want = torch.autograd.grad(plain.sum(), (q, k, v))
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (4096, 2048, torch.bfloat16),  # gemma-2b training
+    (4096, 2048, torch.float32),
+    (1000, 896, torch.float32),  # widths that are not powers of two
+    (333, 3584, torch.bfloat16),
+    (17, 8192, torch.bfloat16),
+    (3, 5, torch.float32),
+])
+def test_rmsnorm_backward_kernel_matches_plain(gen, rows, d, dtype):
+    x, g = _randn(gen, (rows, d), dtype), _randn(gen, (rows, d), dtype)
+    s = _randn(gen, (d,), dtype)
+    before = rmsnorm_bwd.launches
+    dx, ds = rmsnorm_bwd(x, s, g)
+    torch.cuda.synchronize()
+    assert rmsnorm_bwd.launches == before + 1
+    want_dx, want_ds = ref.rmsnorm_backward_reference(x, s, g)
+    assert dx.dtype == ds.dtype == dtype
+    tol = BWD_TOL[dtype]
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=tol, rtol=tol)
+    # dscale sums `rows` products: relative to its size
+    torch.testing.assert_close(ds.float(), want_ds.float(), atol=tol * want_ds.abs().max().item(),
+                               rtol=tol)
+
+
+def test_rmsnorm_autograd_runs_both_kernels(gen):
+    x = _randn(gen, (3, 7, 256), torch.float32).requires_grad_()
+    s = _randn(gen, (256,), torch.float32).requires_grad_()
+    before = (rmsnorm.launches, rmsnorm_bwd.launches)
+    grads = torch.autograd.grad(ops.rmsnorm(x, s).square().sum(), (x, s))
+    assert (rmsnorm.launches, rmsnorm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(ref.rmsnorm_reference(x, s).square().sum(), (x, s))
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_gemma_gradient_on_the_card_matches_the_cpu(gen):
+    """lm_loss and every parameter's gradient of a 2-layer, narrow fp32
+    gemma-2b: the card (forward and backward kernels) against the CPU
+    (plain versions), same weights and batch."""
+    from repro_torch.models import get_api, smoke_config
+    from repro_torch.models.transformer import lm_loss
+
+    cfg = smoke_config("gemma-2b").replace(num_layers=2, d_model=256, num_heads=4,
+                                           head_dim=64, d_ff=512, vocab_size=1024)
+    cpu_model = get_api(cfg, device="cpu").init(seed=0)
+    gpu_model = get_api(cfg, device="cuda").init(seed=0)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=torch.Generator().manual_seed(0))
+    out = {}
+    for name, model in (("cpu", cpu_model), ("card", gpu_model)):
+        dev = "cpu" if name == "cpu" else "cuda"
+        batch = {"tokens": toks[:, :-1].to(dev), "targets": toks[:, 1:].to(dev)}
+        before = (flash_attention_bwd.launches, rmsnorm_bwd.launches)
+        loss = lm_loss(model, batch)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        after = (flash_attention_bwd.launches, rmsnorm_bwd.launches)
+        assert after == (before if name == "cpu" else (before[0] + 2, before[1] + 5))
+        out[name] = (loss.item(), {n: g.cpu() for n, g in zip(names, grads)})
+    assert out["card"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    for n, g in out["cpu"][1].items():
+        torch.testing.assert_close(out["card"][1][n], g, atol=1e-3 * g.abs().max().item(),
+                                   rtol=1e-3)
 
 
 def _wkv6_inputs(gen, B, H, T, K, dtype, log_w=None, s0=True):
