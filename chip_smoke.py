@@ -14,7 +14,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    is one, beside the least time the card could take;
    The backward kernels of flash attention and RMSNorm are held against
    their plain versions the same way, at the training path's shapes and at
-   the other options;
+   the other options; flash attention's backward also gives bit-identical
+   gradients in two calls, its time is split by launch (torch.profiler),
+   and its yardstick is SDPA's backward under the flash backend (or the
+   backend that takes the shape where flash refuses it, named);
 4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b on the
    card (kernels) against the same weights on the CPU (plain versions):
    logits and greedy tokens; then one AdamW step of the 2-layer fp32
@@ -38,6 +41,7 @@ The line before the last is the ``kernels`` JSON summary; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -45,6 +49,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -338,6 +343,8 @@ def check_flash_bwd(gen) -> dict:
         (1, 8, 1, 100, 173, 256, torch.bfloat16, dict(softcap=50.0)),
         (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8, softcap=5.0)),
         (1, 2, 2, 100, 100, 32, torch.bfloat16, dict(causal=False, window=30)),
+        (1, 2, 2, 1000, 1000, 256, torch.bfloat16, {}),  # 64-row tiles ending mid-tile
+        (1, 8, 2, 300, 300, 256, torch.bfloat16, dict(window=100, softcap=50.0)),
     ]
     main = None
     for B, Hq, Hkv, Sq, Sk, D, dtype, kw in cases:
@@ -367,12 +374,18 @@ def check_flash_bwd(gen) -> dict:
 
     q, k, v, out, lse, dout = main["args"]
     B, Hq, S, D = q.shape
+    again = flash_attention_bwd(q, k, v, out, lse, dout)
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip(again, flash_attention_bwd(*main["args"]))):
+        raise AssertionError("flash_attention_bwd: two calls on the same inputs differ")
+    log("  flash_attention_bwd at the training shape: two calls give bit-identical dq, dk, dv")
     ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout))
     plain_ms = time_ms(lambda: ref.mha_backward_reference(q, k, v, out, lse, dout), reps=5)
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
-    library_ms = time_ms(lambda: torch.autograd.grad(sdpa, (ql, kl, vl), dout,
-                                                     retain_graph=True))
+    split = bwd_launch_split(main["args"])
+    log("  flash_attention_bwd at the training shape, device ms per call by launch "
+        "(torch.profiler over 5 back-to-back calls): "
+        + ", ".join(f"{name} {t:.4f}" for name, t in split.items()))
+    library_ms, backend = sdpa_backward_ms(q, k, v, dout)
     pairs = B * Hq * S * (S + 1) // 2  # causal (q, k) pairs this input needs
     flops = 10.0 * D * pairs  # q.k, dO.v, P^T dO, dS K, dS^T Q: 2 flops per multiply-add each
     # q, k, v, o, dO and the LSE read once; dq, dk, dv written once
@@ -381,13 +394,79 @@ def check_flash_bwd(gen) -> dict:
     bound_ms, bound_by = bound(nbytes, flops, main["dtype"])
     log(f"  flash_attention_bwd at the training shape (B={B}, Hq={Hq}, Hkv={k.shape[1]}, S={S}, "
         f"D={D}, bf16, causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"(scaled_dot_product_attention backward) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"(scaled_dot_product_attention backward, {backend} backend) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms "
         f"by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 replaces="src/repro/kernels/flash_attention.py:40",
                 max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, library_backend=backend,
+                ms_by_launch=split)
+
+
+def bwd_launch_split(args, calls: int = 5) -> dict:
+    """Device ms per call of each kernel that ``flash_attention_bwd(*args)``
+    launches, from torch.profiler over ``calls`` back-to-back calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    flash_attention_bwd(*args)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flash_attention_bwd(*args)
+        sync()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            hit = re.search(r"\w+_kernel(<[^>]*>)?", e.name)
+            name = hit.group(0) if hit else e.name[:60]
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    if not split:
+        raise AssertionError("torch.profiler saw no device time in flash_attention_bwd")
+    return split
+
+
+def sdpa_backward_ms(q, k, v, dout) -> tuple:
+    """The yardstick: SDPA's backward through autograd (timed only: the port
+    never calls it) under each backend alone, and as PyTorch dispatches it by
+    default.  Returns (ms, backend): the flash backend's time or, where flash
+    refuses the shape, that of the first backend that takes it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def forward(backend):
+        leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+        with sdpa_kernel(backend) if backend is not None else contextlib.nullcontext():
+            return leaves, F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                          enable_gqa=True)
+
+    def grad_ms(leaves, out):
+        return time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        with warnings.catch_warnings(record=True) as why:  # a refusal warns its reasons
+            warnings.simplefilter("always")
+            try:
+                leaves, out = forward(backend)
+            except RuntimeError as err:  # this backend does not take the shape
+                reasons = [str(w.message).split(" (Triggered internally")[0] for w in why]
+                times[backend.name] = f"refused ({' '.join(reasons or [str(err)])[:240]})"
+                continue
+        times[backend.name] = grad_ms(leaves, out)
+        del leaves, out
+    default = grad_ms(*forward(None))
+    log("  scaled_dot_product_attention backward at the training shape, by backend: "
+        + ", ".join(f"{n} {t:.4f} ms" if isinstance(t, float) else f"{n} {t}"
+                    for n, t in times.items()) + f"; default dispatch {default:.4f} ms")
+    served = next(((n, t) for n, t in times.items() if isinstance(t, float)), None)
+    if served is None:
+        raise AssertionError("no scaled_dot_product_attention backend takes the training shape")
+    return served[1], served[0]
 
 
 def check_rmsnorm_bwd(gen, d_model: int) -> dict:

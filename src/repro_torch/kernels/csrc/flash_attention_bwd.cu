@@ -17,32 +17,56 @@
 //   dQ = dS K,    dK = dS^T Q,
 // dK and dV summed over the q heads of a kv group.
 //
-// What bounds it on the H100: like the forward it does hundreds of
-// operations per byte at the training shapes (five products per (q, k)
-// pair against the forward's two), so arithmetic, and the arithmetic
-// belongs on the tensor cores.  Two paths share one contract, as in the
-// forward:
+// What bounds it on the H100: five products per (q, k) pair (Q K^T, dO V^T,
+// P^T dO, dS K, dS^T Q), hundreds of operations per byte: 42.99 GFLOP at
+// gemma-2b's training shape (B=4, Hq=8, Hkv=1, S=1024, D=256, causal), 0.0435
+// ms on the bf16 tensor cores at 989 TFLOP/s.  So arithmetic, and the
+// arithmetic belongs on the tensor cores.  Two paths share one contract, as
+// in the forward:
 //
-// bf16 (`flash_bwd_dq_mma_kernel`, `flash_bwd_dkdv_mma_kernel`): the
-// FlashAttention-2 backward on `mma.sync.m16n8k16` (bf16 in, fp32 out), with
-// the forward's fragment patterns (`ldmatrix`, padded shared rows,
-// double-buffered `cp.async`).
-//   * dQ: one block of 4 warps per (b, h, 64-row q tile), each warp 16 q
-//     rows.  It first forms Delta for its rows (and writes it for the dK/dV
-//     pass), then walks the kv tiles that the q tile can see: S = Q K^T and
-//     dP = dO V^T from shared memory, P = exp(S - LSE) and dS in registers,
-//     and dQ += dS K with dS rounded to bf16 as the A operand straight from
-//     the accumulators.
-//   * dK, dV: one block of 4 warps per (b, q head, 64-row key tile), each
-//     warp 16 key rows; it walks the q tiles that can see the key tile:
-//     S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q.  A block
-//     per q head (not per kv head) keeps gemma-2b's MQA (8 q heads on one kv
-//     head) at 512 blocks; each head's fp32 part is summed over its group in
-//     head order by `group_sum_kernel` (deterministic, no atomics).  At
-//     D = 256 the dK and dV accumulators (128 floats a thread each) do not
-//     fit one thread together, so they are two launches of the kernel.
-//   P and dS are rounded to bf16 before their products, as the forward
-//   rounds P; that is the rounding the fp32 plain version does not make.
+// bf16 (`flash_bwd_dq_mma_kernel`, `flash_bwd_dkdv_mma_kernel`,
+// `group_sum_kernel`): FlashAttention-2's backward tiling on
+// `mma.sync.m16n8k16` (bf16 in, fp32 out): 64 x 64 tiles, blocks of 8 warps
+// (two warpgroups), one block per SM, double-buffered `cp.async`, `ldmatrix`
+// from shared rows padded by 16 bytes.  Every shape of the contract is one
+// template; the warps of a block split the work in two phases:
+//   phase 1, 64 x 64 scores over the full D: 4 x 2 warps, each 16 rows x 32
+//     columns of both products (S and dP, or S^T and dP^T), so each thread
+//     holds P and dP of the same pairs and forms dS from the fp32 P;
+//   phase 2, the accumulators, 64 rows x D: warpgroup 0 owns columns
+//     [0, D/2), warpgroup 1 [D/2, D); at D >= 64 each warp 32 rows x D/4.
+//   * dQ (and Delta): one block per (b, q head, 64-row q tile).  It forms
+//     Delta first and writes it for the dK/dV kernel, then walks the 64-key
+//     tiles the q tile can see (K and V double-buffered): S = Q K^T and
+//     dP = dO V^T, P and dS in registers, dS to shared memory in bf16, then
+//     dQ += dS K.  A warp's Q fragments are the same in every key tile, so
+//     they stay in registers for the whole walk.
+//   * dK, dV: one block per (b, q head, 64-key tile), walking the 64-row q
+//     tiles that can see it (Q, dO, LSE and Delta double-buffered):
+//     S^T = K Q^T and dP^T = V dO^T, P^T and dS^T to shared memory in bf16,
+//     then dV += P^T dO and dK += dS^T Q.  At D = 256 that is 64 + 64 fp32
+//     accumulators a thread, so both come from one pass: four products per
+//     pair here and three in the dQ kernel (the design this replaced, with
+//     16-row tiles on 4 warps, ran the dK/dV kernel twice at D = 256 and
+//     formed S^T in both).  The two warpgroups do not split S^T from dP^T:
+//     dS^T needs P^T and, under a softcap, the derivative at the same pair,
+//     and passing those in fp32 through shared memory would take 16 KB more
+//     than the 227 KB a block has.
+//   * MQA/GQA: a block per q head, not per kv head (gemma-2b's one kv head
+//     would give 64 blocks for 132 SMs), so each q head's dK and dV are
+//     written as fp32 parts (B, Hq, Sk, D) and one `group_sum_kernel` adds
+//     both over each group in head order (deterministic, no atomics).
+//   Under causal attention the early key tiles and the late q tiles carry
+//   the most work; the tile index is the grid's slowest axis, so they are
+//   dispatched first.  P and dS are rounded to bf16 before their products,
+//   as the forward rounds P; that is the rounding the fp32 plain version does
+//   not make (`ref.mha_backward_tiled` mirrors it on the CPU).
+//   Per block at D = 256 (`nvcc -Xptxas -v`, printed by chip_smoke.py's
+//   build phase): dQ 238 registers and 212,224 bytes of shared memory,
+//   dK/dV 240 registers and 222,208 bytes; no spills.  Where the time goes
+//   (tools/flash_bwd_ablation.py): the 64 x 64 S and dP products are bound
+//   by `ldmatrix` traffic (six loads a warp for eight `mma.sync`, five in
+//   dQ), and the dQ kernel forms them a second time.
 //
 // f32 (`flash_bwd_dq_kernel`, `flash_bwd_dkdv_kernel`): the only
 // tensor-core path for fp32 is TF32, which would break the fp32 tolerance,
@@ -52,8 +76,9 @@
 // read conflicts.  The dK/dV block there owns a kv head and walks the q
 // heads of its group itself.
 //
-// Both are deterministic and use no atomics.  Left for later (ROADMAP B.1):
-// `wgmma`, TMA loads and a deeper ring, as for the forward.
+// Both are deterministic and use no atomics.  Left for the next PR (ROADMAP
+// B.1): `wgmma` for the four 64-row products, TMA loads with an `mbarrier`
+// ring, and dQ fused into the dK/dV pass.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -403,12 +428,11 @@ flash_bwd_dkdv_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync.m16n8k16), the fragment patterns of the
-// forward's flash_fwd_mma_kernel
+// bf16: tensor cores (mma.sync.m16n8k16), FlashAttention-2's backward tiling
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows
-constexpr int MMA_ROWS = 64;      // q rows of a dQ block, key rows of a dK/dV block
+constexpr int MMA_THREADS = 256;  // 8 warps, two warpgroups
+constexpr int TILE = 64;          // rows of every q and key tile
 constexpr int PAD = 8;            // bf16 elements (16 bytes) of padding per shared row
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -421,13 +445,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full
                :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0));
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* ptr) {
@@ -438,6 +466,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* ptr) {
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* ptr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(ptr)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const bf16* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(ptr)));
 }
 
 // c += a b: a 16x16 (row), b 16x8 (col), c 16x8 fp32.
@@ -472,7 +505,8 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, long long st
 // m16n8 accumulator holds rows g and g + 8, columns 2t and 2t + 1):
 //   A from a row-major [m][k] tile:                 + m0 * LD + k0
 //   B (two n-tiles) from a row-major [n][k] tile:   + n0 * LD + k0
-//   B (two n-tiles) from a row-major [k][n] tile, ldmatrix.trans: + k0 * LD + n0
+//   B (two n-tiles, or one with .x2) from a row-major [k][n] tile,
+//   ldmatrix.trans:                                 + k0 * LD + n0
 template <int LD> __device__ __forceinline__ int a_off(int lane) {
   return (lane & 15) * LD + (lane >> 4) * 8;
 }
@@ -483,79 +517,171 @@ template <int LD> __device__ __forceinline__ int bt_off(int lane) {
   return ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
 }
 
-// c[NT][4] += A (16 x D, from a) . B^T (NT*8 rows of a [n][D] tile, from b)
-template <int D, int NT>
-__device__ __forceinline__ void mma_rows(float (&c)[NT][4], const bf16* a, const bf16* b) {
+// Phase 1: a warp's 16 rows x 32 columns of a 64 x 64 score tile (4 x 2 warps).
+constexpr int NT1 = TILE / 2 / 8;  // n8 tiles of a warp
+
+// Phase 2: the accumulators of a 64-row tile, D columns, over 8 warps: WM
+// warps along the rows (MT m16 tiles each), 8 / WM along the columns (DW
+// columns, NT n8 tiles each).  Warps 0-3 (warpgroup 0) own columns [0, D/2).
+template <int D> struct Acc {
+  static constexpr int WM = D >= 64 ? 2 : 4;
+  static constexpr int MT = TILE / 16 / WM;
+  static constexpr int DW = D * WM / 8;
+  static constexpr int NT = DW / 8;
+};
+
+// One k16 step of both phase-1 products: s += A . B^T and dp += A2 . B2^T,
+// A and A2 one fragment each, B and B2 32 rows of [n][D] tiles (at b, b2).
+template <int D>
+__device__ __forceinline__ void score_step(float (&s)[NT1][4], float (&dp)[NT1][4],
+                                           const uint32_t (&af)[4], const uint32_t (&af2)[4],
+                                           const bf16* b, const bf16* b2, int kk) {
   constexpr int LD = D + PAD;
+#pragma unroll
+  for (int jp = 0; jp < NT1 / 2; ++jp) {
+    uint32_t bf[4], bf2[4];
+    ldmatrix_x4(bf, b + jp * 16 * LD + kk * 16);
+    ldmatrix_x4(bf2, b2 + jp * 16 * LD + kk * 16);
+    mma_bf16(s[2 * jp], af, bf[0], bf[1]);
+    mma_bf16(s[2 * jp + 1], af, bf[2], bf[3]);
+    mma_bf16(dp[2 * jp], af2, bf2[0], bf2[1]);
+    mma_bf16(dp[2 * jp + 1], af2, bf2[2], bf2[3]);
+  }
+}
+
+__device__ __forceinline__ void zero_scores(float (&s)[NT1][4], float (&dp)[NT1][4]) {
+#pragma unroll
+  for (int j = 0; j < NT1; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+}
+
+// s[NT1][4] = A . B^T and dp[NT1][4] = A2 . B2^T over D: A, A2 16 rows of
+// [m][D] tiles (at a, a2) ...
+template <int D>
+__device__ __forceinline__ void mma_scores(float (&s)[NT1][4], float (&dp)[NT1][4],
+                                           const bf16* a, const bf16* b, const bf16* a2,
+                                           const bf16* b2) {
+  zero_scores(s, dp);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
+    uint32_t af[4], af2[4];
     ldmatrix_x4(af, a + kk * 16);
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, b + jp * 16 * LD + kk * 16);
-      mma_bf16(c[2 * jp], af, bf[0], bf[1]);
-      mma_bf16(c[2 * jp + 1], af, bf[2], bf[3]);
-    }
+    ldmatrix_x4(af2, a2 + kk * 16);
+    score_step<D>(s, dp, af, af2, b, b2, kk);
   }
 }
 
-// acc[D/8][4] += X (16 x 8 NT, fp32 accumulators rounded to bf16) . Y (8 NT
-// rows of a [k][D] tile, from y)
-template <int D, int NT>
-__device__ __forceinline__ void mma_acc(float (&acc)[D / 8][4], const float (&x)[NT][4],
+// ... or A already in registers, all D / 16 of its fragments.
+template <int D>
+__device__ __forceinline__ void mma_scores(float (&s)[NT1][4], float (&dp)[NT1][4],
+                                           const uint32_t (&af)[D / 16][4], const bf16* b,
+                                           const bf16* a2, const bf16* b2) {
+  zero_scores(s, dp);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af2[4];
+    ldmatrix_x4(af2, a2 + kk * 16);
+    score_step<D>(s, dp, af[kk], af2, b, b2, kk);
+  }
+}
+
+// acc += X . Y over TILE: X this warp's MT*16 rows of a bf16 [row][TILE]
+// tile with row length LDX (at x), Y this warp's DW columns of a [TILE][D]
+// tile (at y).
+template <int D, int LDX>
+__device__ __forceinline__ void mma_acc(float (&acc)[Acc<D>::MT][Acc<D>::NT][4], const bf16* x,
                                         const bf16* y) {
+  using A = Acc<D>;
   constexpr int LD = D + PAD;
 #pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t af[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+  for (int kk = 0; kk < TILE / 16; ++kk) {
+    uint32_t af[A::MT][4];
 #pragma unroll
-    for (int jp = 0; jp < D / 16; ++jp) {
+    for (int mt = 0; mt < A::MT; ++mt) ldmatrix_x4(af[mt], x + mt * 16 * LDX + kk * 16);
+#pragma unroll
+    for (int jp = 0; jp < A::NT / 2; ++jp) {
       uint32_t bf[4];
       ldmatrix_x4_trans(bf, y + kk * 16 * LD + jp * 16);
-      mma_bf16(acc[2 * jp], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * jp + 1], af, bf[2], bf[3]);
+#pragma unroll
+      for (int mt = 0; mt < A::MT; ++mt) {
+        mma_bf16(acc[mt][2 * jp], af[mt], bf[0], bf[1]);
+        mma_bf16(acc[mt][2 * jp + 1], af[mt], bf[2], bf[3]);
+      }
+    }
+    if constexpr (A::NT % 2 == 1) {  // D = 16: one n8 tile a warp
+      uint32_t bf[2];
+      ldmatrix_x2_trans(bf, y + kk * 16 * LD + (A::NT - 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < A::MT; ++mt) mma_bf16(acc[mt][A::NT - 1], af[mt], bf[0], bf[1]);
     }
   }
 }
 
-// P (log2 units against lse2) and dS of one pair from q.k and dO.v.
-__device__ __forceinline__ void p_ds2(const Params& p, bool ok, float qk, float dov, float lse2,
-                                      float delta, float& pr, float& ds) {
-  float z = qk * p.scale, deriv = 1.f;
-  if (p.softcap > 0.f) {
-    const float t = tanhf(z / p.softcap);
-    z = p.softcap * t;
-    deriv = 1.f - t * t;
-  }
-  pr = ok ? exp2f(fmaf(z, LOG2E, -lse2)) : 0.f;
-  ds = pr * (dov - delta) * deriv * p.scale;
+// 2^x, with results below 2^-126 flushed to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// dQ (and Delta): one block of 4 warps per (b, h, 64-row q tile); each warp
-// owns 16 q rows.  K and V tiles of BK rows are double-buffered.
-// smem: Qs [64][LD] | dOs [64][LD] | Ks [2][BK][LD] | Vs [2][BK][LD] | delta_s [64] f32
-template <int D, int BK>
-__global__ void __launch_bounds__(MMA_THREADS, 2)
+// P (log2 units against lse2) and dS of one pair from q.k and dO.v; the
+// softcap test is uniform over the block.
+__device__ __forceinline__ void p_ds2(const Params& p, bool ok, float qk, float dov, float lse2,
+                                      float delta, float& pr, float& ds) {
+  if (p.softcap > 0.f) {
+    const float t = tanhf(qk * p.scale / p.softcap);
+    pr = ok ? ex2(fmaf(p.softcap * t, LOG2E, -lse2)) : 0.f;
+    ds = pr * (dov - delta) * (1.f - t * t) * p.scale;
+  } else {
+    pr = ok ? ex2(fmaf(qk, p.scale * LOG2E, -lse2)) : 0.f;
+    ds = pr * (dov - delta) * p.scale;
+  }
+}
+
+// Rows r0 + g and r0 + g + 8 of a warp's phase-1 tile (NT1 n8 tiles from
+// column c0) into a bf16 [row][LDX] shared tile.
+template <int LDX>
+__device__ __forceinline__ void store_scores(bf16* dst, const float (&x)[NT1][4], int r0, int c0,
+                                             int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < NT1; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(dst + (r0 + g + 8 * r) * LDX + c0 + 8 * j + 2 * t) =
+          pack_bf16(x[j][2 * r], x[j][2 * r + 1]);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {  // Qs, dOs, Ks[2], Vs[2], dSs, delta_s
+  return (size_t)6 * TILE * (D + PAD) * sizeof(bf16) + TILE * (TILE + PAD) * sizeof(bf16) +
+         TILE * sizeof(float);
+}
+
+// dQ (and Delta): one block of 8 warps per (b, q head, 64-row q tile),
+// walking the 64-key tiles that the q tile can see.
+// smem: Qs [64][LD] | dOs [64][LD] | Ks [2][64][LD] | Vs [2][64][LD] |
+//       dSs [64][64 + PAD] | delta_s [64] f32
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
 flash_bwd_dq_mma_kernel(const Params p) {
-  constexpr int BQ = MMA_ROWS, LD = D + PAD, NT = BK / 8, DT = D / 8;
+  using A = Acc<D>;
+  constexpr int LD = D + PAD, LDS = TILE + PAD;
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Ks = dOs + BQ * LD;
-  bf16* Vs = Ks + 2 * BK * LD;
-  float* delta_s = reinterpret_cast<float*>(Vs + 2 * BK * LD);
+  bf16* dOs = Qs + TILE * LD;
+  bf16* Ks = dOs + TILE * LD;
+  bf16* Vs = Ks + 2 * TILE * LD;
+  bf16* dSs = Vs + 2 * TILE * LD;
+  float* delta_s = reinterpret_cast<float*>(dSs + TILE * LDS);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // late causal tiles carry more work
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // late causal q tiles carry more work: first
   const int kvh = h / (p.Hq / p.Hkv);
-  const int q0 = qt * BQ;
+  const int q0 = qt * TILE;
   const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
   const bf16* qb = at<bf16>(p, Q, b, h);
   const bf16* ob = at<bf16>(p, O, b, h);
@@ -563,303 +689,341 @@ flash_bwd_dq_mma_kernel(const Params p) {
   const bf16* kb = at<bf16>(p, K, b, kvh);
   const bf16* vb = at<bf16>(p, V, b, kvh);
 
-  const int q_last = min(q0 + BQ, p.Sq) - 1;
-  int kt_end = (p.Sk + BK - 1) / BK;
-  if (p.causal) kt_end = min(kt_end, q_last / BK + 1);
+  // the key tiles the q tile can see (the forward's loop bounds)
+  const int q_last = min(q0 + TILE, p.Sq) - 1;
+  int kt_end = (p.Sk + TILE - 1) / TILE;
+  if (p.causal) kt_end = min(kt_end, q_last / TILE + 1);
   int kt_begin = 0;
-  if (p.window > 0 && q0 - p.window + 1 > 0) kt_begin = (q0 - p.window + 1) / BK;
+  if (p.window > 0 && q0 - p.window + 1 > 0) kt_begin = (q0 - p.window + 1) / TILE;
 
-  cp_tile<D>(Qs, qb, p.st[Q][2], q0, BQ, p.Sq);
-  cp_tile<D>(dOs, dob, p.st[DO][2], q0, BQ, p.Sq);
+  cp_tile<D>(Qs, qb, p.st[Q][2], q0, TILE, p.Sq);
+  cp_tile<D>(dOs, dob, p.st[DO][2], q0, TILE, p.Sq);
   if (kt_begin < kt_end) {
-    cp_tile<D>(Ks, kb, p.st[K][2], kt_begin * BK, BK, p.Sk);
-    cp_tile<D>(Vs, vb, p.st[V][2], kt_begin * BK, BK, p.Sk);
+    cp_tile<D>(Ks, kb, p.st[K][2], kt_begin * TILE, TILE, p.Sk);
+    cp_tile<D>(Vs, vb, p.st[V][2], kt_begin * TILE, TILE, p.Sk);
   }
   cp_async_commit();
 
-  // Delta = rowsum(dO o) while the copies fly, one warp per row; written
-  // for the dK/dV kernel.
-  for (int r = warp; r < BQ; r += MMA_THREADS / 32) {
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < p.Sq) {
-      for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(dob[(long long)row * p.st[DO][2] + d]) *
-               __bfloat162float(ob[(long long)row * p.st[O][2] + d]);
-    }
+  // Delta = rowsum(dO o) while the copies fly: TPR neighbouring threads a
+  // row, each with all its 16-byte loads in flight at once; written for the
+  // dK/dV kernel.
+  {
+    constexpr int CH = D / 8, TPR = CH < 4 ? CH : 4, CPT = CH / TPR;
+    static_assert(TILE * TPR <= MMA_THREADS, "one pass over the rows");
+    if (tid < TILE * TPR) {  // whole warps
+      const int r = tid / TPR, c0 = (tid % TPR) * CPT * 8, row = q0 + r;
+      float acc = 0.f;
+      if (row < p.Sq) {
+        uint4 x[CPT], y[CPT];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      delta_s[r] = acc;
-      if (row < p.Sq) p.delta[row_base + row] = acc;
+        for (int c = 0; c < CPT; ++c) {
+          x[c] = *reinterpret_cast<const uint4*>(dob + (long long)row * p.st[DO][2] + c0 + 8 * c);
+          y[c] = *reinterpret_cast<const uint4*>(ob + (long long)row * p.st[O][2] + c0 + 8 * c);
+        }
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x[c]);
+          const __nv_bfloat162* o = reinterpret_cast<const __nv_bfloat162*>(&y[c]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 af = __bfloat1622float2(a[i]), of = __bfloat1622float2(o[i]);
+            acc = fmaf(af.x, of.x, acc);
+            acc = fmaf(af.y, of.y, acc);
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (tid % TPR == 0) {
+        delta_s[r] = acc;
+        if (row < p.Sq) p.delta[row_base + row] = acc;
+      }
     }
   }
-  __syncthreads();
-  const int row_a = q0 + warp * 16 + g;  // this lane's rows: row_a, row_a + 8
+  cp_async_wait_all();
+  __syncthreads();  // Q, dO, the first key tile and Delta are in shared memory
+
+  // phase 1: q rows 16 wr + [0, 16), keys 32 wc + [0, 32) of each key tile
+  const int wr = warp & 3, wc = warp >> 2;
+  const int row_a = q0 + wr * 16 + g;  // this lane's rows: row_a, row_a + 8
   float lse2[2], dlt[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
     lse2[r] = row < p.Sq ? p.lse[row_base + row] * LOG2E : 0.f;
-    dlt[r] = delta_s[warp * 16 + g + 8 * r];
+    dlt[r] = delta_s[wr * 16 + g + 8 * r];
   }
+  // this warp's rows of Q are the same in every key tile: their A
+  // fragments stay in registers for the whole walk
+  uint32_t q_frag[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(q_frag[kk], Qs + wr * 16 * LD + a_off<LD>(lane) + kk * 16);
+  const bf16* do_a = dOs + wr * 16 * LD + a_off<LD>(lane);
+  const int c_w = wc * (TILE / 2);
+  // phase 2: q rows row2 + [0, 16 MT), dQ columns col2 + [0, DW)
+  const int row2 = (warp % A::WM) * A::MT * 16, col2 = (warp / A::WM) * A::DW;
 
-  float dq[DT][4];
+  float dq[A::MT][A::NT][4];
 #pragma unroll
-  for (int j = 0; j < DT; ++j)
+  for (int mt = 0; mt < A::MT; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-  const bf16* q_a = Qs + warp * 16 * LD + a_off<LD>(lane);
-  const bf16* do_a = dOs + warp * 16 * LD + a_off<LD>(lane);
+    for (int j = 0; j < A::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[mt][j][e] = 0.f;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int buf = (kt - kt_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt has landed, and every warp is done with tile kt - 1
     if (kt + 1 < kt_end) {  // the next tile goes into the other buffer
-      cp_tile<D>(Ks + (buf ^ 1) * BK * LD, kb, p.st[K][2], (kt + 1) * BK, BK, p.Sk);
-      cp_tile<D>(Vs + (buf ^ 1) * BK * LD, vb, p.st[V][2], (kt + 1) * BK, BK, p.Sk);
+      cp_tile<D>(Ks + (buf ^ 1) * TILE * LD, kb, p.st[K][2], (kt + 1) * TILE, TILE, p.Sk);
+      cp_tile<D>(Vs + (buf ^ 1) * TILE * LD, vb, p.st[V][2], (kt + 1) * TILE, TILE, p.Sk);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncthreads();  // tile kt (and Q, dO) have landed for every thread
-    const bf16* Kt = Ks + buf * BK * LD;
-    const bf16* Vt = Vs + buf * BK * LD;
+    const bf16* Kt = Ks + buf * TILE * LD;
+    const bf16* Vt = Vs + buf * TILE * LD;
 
-    float s[NT][4], dp[NT][4];
+    float s[NT1][4], dp[NT1][4];
+    mma_scores<D>(s, dp, q_frag, Kt + c_w * LD + b_off<LD>(lane), do_a,
+                  Vt + c_w * LD + b_off<LD>(lane));
+    const int k0 = kt * TILE;
+    const bool edge = q0 + TILE > p.Sq || k0 + TILE > p.Sk ||
+                      (p.causal && k0 + TILE - 1 > q0) ||
+                      (p.window > 0 && k0 <= q0 + TILE - 1 - p.window);
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_rows<D, NT>(s, q_a, Kt + b_off<LD>(lane));
-    mma_rows<D, NT>(dp, do_a, Vt + b_off<LD>(lane));
-
-    const int k0 = kt * BK;
-    const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0) ||
-                      (p.window > 0 && k0 <= q0 + BQ - 1 - p.window);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT1; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const bool ok = !edge || visible(p, row_a + 8 * r, k0 + 8 * j + 2 * t + (e & 1));
+        const bool ok = !edge || visible(p, row_a + 8 * r, k0 + c_w + 8 * j + 2 * t + (e & 1));
         float pr;
         p_ds2(p, ok, s[j][e], dp[j][e], lse2[r], dlt[r], pr, s[j][e]);  // s := dS
       }
     }
-    mma_acc<D, NT>(dq, s, Kt + bt_off<LD>(lane));  // dQ += dS K
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    store_scores<LDS>(dSs, s, wr * 16, c_w, lane);
+    __syncthreads();  // dS is whole
+    mma_acc<D, LDS>(dq, dSs + row2 * LDS + a_off<LDS>(lane), Kt + col2 + bt_off<LD>(lane));
   }
-  cp_async_wait<0>();  // no copy outlives the block, even with no kv tile to see
+  cp_async_wait_all();  // no copy outlives the block, even with no key tile to see
 
   bf16* dqb = static_cast<bf16*>(p.dq) + b * p.st[DQ][0] + h * p.st[DQ][1];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    if (row >= p.Sq) continue;
-    bf16* orow = dqb + (long long)row * p.st[DQ][2] + 2 * t;
+  for (int mt = 0; mt < A::MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(dq[j][2 * r], dq[j][2 * r + 1]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row2 + mt * 16 + g + 8 * r;
+      if (row >= p.Sq) continue;
+      bf16* orow = dqb + (long long)row * p.st[DQ][2] + col2 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < A::NT; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(dq[mt][j][2 * r], dq[mt][j][2 * r + 1]);
+    }
   }
 }
 
-// dK and/or dV of one q head: one block of 4 warps per (b, q head, 64-row
-// key tile); each warp owns 16 key rows and walks the q tiles (BQC rows,
-// double-buffered) that can see the key tile.  With one q head per kv head
-// the block writes dK/dV in bf16; otherwise its fp32 part (B, Hq, Sk, D),
-// which group_sum_kernel sums over the group.  At D = 256 the dK and dV
-// accumulators do not fit one thread's registers together, so the two are
-// separate launches.
-// smem: Ks [64][LD] | Vs [64][LD] | Qs [2][BQC][LD] | dOs [2][BQC][LD] |
-//       lse_s [2][BQC] (log2 units) | delta_s [2][BQC]
-template <int D, int BQC, bool WITH_DK, bool WITH_DV>
-__global__ void __launch_bounds__(MMA_THREADS, 2)
+template <int D>
+constexpr size_t dkdv_smem_bytes() {  // Ks, Vs, Qs[2], dOs[2], Ps, dSs, lse_s[2], delta_s[2]
+  return (size_t)6 * TILE * (D + PAD) * sizeof(bf16) + 2 * TILE * (TILE + PAD) * sizeof(bf16) +
+         4 * TILE * sizeof(float);
+}
+
+// dK and dV of one q head: one block of 8 warps per (b, q head, 64-key
+// tile), walking the 64-row q tiles that can see the key tile.  With one q
+// head per kv head the block writes dK and dV in bf16; otherwise its fp32
+// parts (B, Hq, Sk, D), which group_sum_kernel sums over the group.
+// smem: Ks [64][LD] | Vs [64][LD] | Qs [2][64][LD] | dOs [2][64][LD] |
+//       Ps [64][64 + PAD] (P^T) | dSs [64][64 + PAD] (dS^T) |
+//       lse_s [2][64] | delta_s [2][64]
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
 flash_bwd_dkdv_mma_kernel(const Params p, float* dk_part, float* dv_part) {
-  constexpr int BKV = MMA_ROWS, LD = D + PAD, NT = BQC / 8, DT = D / 8;
+  using A = Acc<D>;
+  constexpr int LD = D + PAD, LDS = TILE + PAD;
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);
-  bf16* Vs = Ks + BKV * LD;
-  bf16* Qs = Vs + BKV * LD;
-  bf16* dOs = Qs + 2 * BQC * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQC * LD);
-  float* delta_s = lse_s + 2 * BQC;
+  bf16* Vs = Ks + TILE * LD;
+  bf16* Qs = Vs + TILE * LD;
+  bf16* dOs = Qs + 2 * TILE * LD;
+  bf16* Ps = dOs + 2 * TILE * LD;
+  bf16* dSs = Ps + TILE * LDS;
+  float* lse_s = reinterpret_cast<float*>(dSs + TILE * LDS);
+  float* delta_s = lse_s + 2 * TILE;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
-  const int kt = blockIdx.x;  // early causal key tiles carry more work
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kt = blockIdx.z;  // early causal key tiles carry more work: first
   const int group = p.Hq / p.Hkv, kvh = h / group;
-  const int k0 = kt * BKV;
+  const int k0 = kt * TILE;
   const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
   const bf16* qb = at<bf16>(p, Q, b, h);
   const bf16* dob = at<bf16>(p, DO, b, h);
 
-  const int k_last = min(k0 + BKV, p.Sk) - 1;
+  // the q tiles that can see the key tile
+  const int k_last = min(k0 + TILE, p.Sk) - 1;
   int q_end = p.Sq;
   if (p.window > 0) q_end = min(q_end, k_last + p.window);
-  const int qt_begin = p.causal ? k0 / BQC : 0;
-  const int qt_end = (q_end + BQC - 1) / BQC;
+  const int qt_begin = p.causal ? k0 / TILE : 0;
+  const int qt_end = (q_end + TILE - 1) / TILE;
 
-  // the q tile qt into buffer buf: Q and dO by cp.async, LSE and Delta by
-  // plain stores (both read after the next barrier)
+  // the q tile qt into buffer buf, all by cp.async: Q, dO, and the rows'
+  // LSE and Delta (zero past Sq)
   auto stage = [&](int qt, int buf) {
-    cp_tile<D>(Qs + buf * BQC * LD, qb, p.st[Q][2], qt * BQC, BQC, p.Sq);
-    cp_tile<D>(dOs + buf * BQC * LD, dob, p.st[DO][2], qt * BQC, BQC, p.Sq);
-    for (int r = tid; r < BQC; r += MMA_THREADS) {
-      const int row = qt * BQC + r;
-      lse_s[buf * BQC + r] = row < p.Sq ? p.lse[row_base + row] * LOG2E : 0.f;
-      delta_s[buf * BQC + r] = row < p.Sq ? p.delta[row_base + row] : 0.f;
+    cp_tile<D>(Qs + buf * TILE * LD, qb, p.st[Q][2], qt * TILE, TILE, p.Sq);
+    cp_tile<D>(dOs + buf * TILE * LD, dob, p.st[DO][2], qt * TILE, TILE, p.Sq);
+    if (tid < 2 * TILE) {
+      const int r = tid % TILE, row = qt * TILE + r;
+      const float* src = (tid < TILE ? p.lse : p.delta) + row_base;
+      cp_async4((tid < TILE ? lse_s : delta_s) + buf * TILE + r,
+                row < p.Sq ? src + row : src, row < p.Sq);
     }
   };
 
-  cp_tile<D>(Ks, at<bf16>(p, K, b, kvh), p.st[K][2], k0, BKV, p.Sk);
-  cp_tile<D>(Vs, at<bf16>(p, V, b, kvh), p.st[V][2], k0, BKV, p.Sk);
+  cp_tile<D>(Ks, at<bf16>(p, K, b, kvh), p.st[K][2], k0, TILE, p.Sk);
+  cp_tile<D>(Vs, at<bf16>(p, V, b, kvh), p.st[V][2], k0, TILE, p.Sk);
   if (qt_begin < qt_end) stage(qt_begin, 0);
   cp_async_commit();
 
-  float dk[DT][4], dv[DT][4];
+  // phase 1: keys 16 wr + [0, 16), q columns 32 wc + [0, 32) of each q tile
+  const int wr = warp & 3, wc = warp >> 2;
+  const bf16* k_a = Ks + wr * 16 * LD + a_off<LD>(lane);
+  const bf16* v_a = Vs + wr * 16 * LD + a_off<LD>(lane);
+  const int key_a = k0 + wr * 16 + g;  // this lane's keys: key_a, key_a + 8
+  const int c_w = wc * (TILE / 2);
+  // phase 2: keys row2 + [0, 16 MT), dK/dV columns col2 + [0, DW)
+  const int row2 = (warp % A::WM) * A::MT * 16, col2 = (warp / A::WM) * A::DW;
+
+  float dk[A::MT][A::NT][4], dv[A::MT][A::NT][4];
 #pragma unroll
-  for (int j = 0; j < DT; ++j)
+  for (int mt = 0; mt < A::MT; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  const bf16* k_a = Ks + warp * 16 * LD + a_off<LD>(lane);
-  const bf16* v_a = Vs + warp * 16 * LD + a_off<LD>(lane);
-  const int key_a = k0 + warp * 16 + g;  // this lane's key rows: key_a, key_a + 8
+    for (int j = 0; j < A::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[mt][j][e] = dv[mt][j][e] = 0.f;
 
   for (int qt = qt_begin; qt < qt_end; ++qt) {
     const int buf = (qt - qt_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile qt has landed, and every warp is done with tile qt - 1
     if (qt + 1 < qt_end) {
       stage(qt + 1, buf ^ 1);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncthreads();
-    const bf16* Qt = Qs + buf * BQC * LD;
-    const bf16* dOt = dOs + buf * BQC * LD;
-    const float* lse_t = lse_s + buf * BQC;
-    const float* dl_t = delta_s + buf * BQC;
+    const bf16* Qt = Qs + buf * TILE * LD;
+    const bf16* dOt = dOs + buf * TILE * LD;
+    const float* lse_t = lse_s + buf * TILE;
+    const float* dl_t = delta_s + buf * TILE;
 
-    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys, columns q
-    float s[NT][4], dp[NT][4];
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns q
+    float s[NT1][4], dp[NT1][4];
+    mma_scores<D>(s, dp, k_a, Qt + c_w * LD + b_off<LD>(lane), v_a,
+                  dOt + c_w * LD + b_off<LD>(lane));
+    const int q0 = qt * TILE;
+    const bool edge = q0 + TILE > p.Sq || k0 + TILE > p.Sk ||
+                      (p.causal && q0 < k0 + TILE - 1) ||
+                      (p.window > 0 && q0 + TILE - 1 - k0 >= p.window);
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_rows<D, NT>(s, k_a, Qt + b_off<LD>(lane));
-    if constexpr (WITH_DK) mma_rows<D, NT>(dp, v_a, dOt + b_off<LD>(lane));
-
-    const int q0 = qt * BQC;
-    const bool edge = q0 + BQC > p.Sq || k0 + BKV > p.Sk || (p.causal && q0 < k0 + BKV - 1) ||
-                      (p.window > 0 && q0 + BQC - 1 - k0 >= p.window);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT1; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1);
+        const int c = c_w + 8 * j + 2 * t + (e & 1);
         const bool ok = !edge || visible(p, q0 + c, key_a + 8 * (e >> 1));
-        p_ds2(p, ok, s[j][e], dp[j][e], lse_t[c], dl_t[c], s[j][e], dp[j][e]);  // P^T, dS^T
+        p_ds2(p, ok, s[j][e], dp[j][e], lse_t[c] * LOG2E, dl_t[c], s[j][e], dp[j][e]);  // P^T, dS^T
       }
     }
-    if constexpr (WITH_DV) mma_acc<D, NT>(dv, s, dOt + bt_off<LD>(lane));  // dV += P^T dO
-    if constexpr (WITH_DK) mma_acc<D, NT>(dk, dp, Qt + bt_off<LD>(lane));  // dK += dS^T Q
-    __syncthreads();
+    store_scores<LDS>(Ps, s, wr * 16, c_w, lane);
+    store_scores<LDS>(dSs, dp, wr * 16, c_w, lane);
+    __syncthreads();  // P^T and dS^T are whole
+    mma_acc<D, LDS>(dv, Ps + row2 * LDS + a_off<LDS>(lane), dOt + col2 + bt_off<LD>(lane));
+    mma_acc<D, LDS>(dk, dSs + row2 * LDS + a_off<LDS>(lane), Qt + col2 + bt_off<LD>(lane));
   }
-  cp_async_wait<0>();
+  cp_async_wait_all();
 
-  // rows key_a and key_a + 8 of one accumulator: bf16 into dK/dV, or the
-  // head's fp32 part
-  auto store = [&](const float (&acc)[DT][4], int which, void* out, float* part) {
+  // this warp's rows of one accumulator: bf16 into dK/dV, or the head's
+  // fp32 part
+  auto store = [&](const float (&acc)[A::MT][A::NT][4], int which, void* out, float* part) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = key_a + 8 * r;
-      if (row >= p.Sk) continue;
-      if (group == 1) {
-        bf16* orow = static_cast<bf16*>(out) + b * p.st[which][0] + kvh * p.st[which][1] +
-                     (long long)row * p.st[which][2] + 2 * t;
+    for (int mt = 0; mt < A::MT; ++mt) {
 #pragma unroll
-        for (int j = 0; j < DT; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-              __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
-      } else {
-        float* orow = part + (((long long)b * p.Hq + h) * p.Sk + row) * D + 2 * t;
+      for (int r = 0; r < 2; ++r) {
+        const int row = k0 + row2 + mt * 16 + g + 8 * r;
+        if (row >= p.Sk) continue;
+        if (group == 1) {
+          bf16* orow = static_cast<bf16*>(out) + b * p.st[which][0] + kvh * p.st[which][1] +
+                       (long long)row * p.st[which][2] + col2 + 2 * t;
 #pragma unroll
-        for (int j = 0; j < DT; ++j)
-          *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+          for (int j = 0; j < A::NT; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+                __floats2bfloat162_rn(acc[mt][j][2 * r], acc[mt][j][2 * r + 1]);
+        } else {
+          float* orow = part + (((long long)b * p.Hq + h) * p.Sk + row) * D + col2 + 2 * t;
+#pragma unroll
+          for (int j = 0; j < A::NT; ++j)
+            *reinterpret_cast<float2*>(orow + 8 * j) =
+                make_float2(acc[mt][j][2 * r], acc[mt][j][2 * r + 1]);
+        }
       }
     }
   };
-  if constexpr (WITH_DK) store(dk, DK, p.dk, dk_part);
-  if constexpr (WITH_DV) store(dv, DV, p.dv, dv_part);
+  store(dk, DK, p.dk, dk_part);
+  store(dv, DV, p.dv, dv_part);
 }
 
-// dK or dV (B, Hkv, Sk, D) bf16 = the sum of the fp32 parts (B, Hq, Sk, D)
-// over the q heads of each kv group, in head order.
-__global__ void group_sum_kernel(const float* part, bf16* out, long long sb, long long sh,
-                                 long long ss, int B, int Hq, int Hkv, int Sk, int D) {
-  const long long n = (long long)B * Hkv * Sk * D;
-  const int group = Hq / Hkv;
+// dK and dV (B, Hkv, Sk, D) bf16 = the sums of their fp32 parts
+// (B, Hq, Sk, D) over the q heads of each kv group, in head order; four
+// columns a thread.
+__global__ void group_sum_kernel(const Params p, const float* dk_part, const float* dv_part,
+                                 int B, int D) {
+  const long long n = (long long)B * p.Hkv * p.Sk * D / 4;
+  const int group = p.Hq / p.Hkv;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    const int d = i % D;
-    const int s = (i / D) % Sk;
-    const int kvh = (i / ((long long)D * Sk)) % Hkv;
-    const int b = i / ((long long)D * Sk * Hkv);
-    float acc = 0.f;
-    for (int hg = 0; hg < group; ++hg)
-      acc += part[(((long long)b * Hq + kvh * group + hg) * Sk + s) * D + d];
-    out[b * sb + kvh * sh + s * ss + d] = __float2bfloat16(acc);
+    const long long e = 4 * i;
+    const int d = e % D;
+    const int s = (e / D) % p.Sk;
+    const int kvh = (e / ((long long)D * p.Sk)) % p.Hkv;
+    const int b = e / ((long long)D * p.Sk * p.Hkv);
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int hg = 0; hg < group; ++hg) {
+      const long long off = (((long long)b * p.Hq + kvh * group + hg) * p.Sk + s) * D + d;
+      const float4 x = *reinterpret_cast<const float4*>(dk_part + off);
+      const float4 y = *reinterpret_cast<const float4*>(dv_part + off);
+      sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
+      sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
+    }
+    __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(
+        static_cast<bf16*>(p.dk) + b * p.st[DK][0] + kvh * p.st[DK][1] + s * p.st[DK][2] + d);
+    __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(
+        static_cast<bf16*>(p.dv) + b * p.st[DV][0] + kvh * p.st[DV][1] + s * p.st[DV][2] + d);
+    ok[0] = __floats2bfloat162_rn(sk.x, sk.y);
+    ok[1] = __floats2bfloat162_rn(sk.z, sk.w);
+    ov[0] = __floats2bfloat162_rn(sv.x, sv.y);
+    ov[1] = __floats2bfloat162_rn(sv.z, sv.w);
   }
 }
 
-template <int D, int BQC, bool WITH_DK, bool WITH_DV>
-cudaError_t launch_dkdv_mma(const Params& p, int B, float* dk_part, float* dv_part,
-                            cudaStream_t stream) {
-  constexpr int LD = D + PAD;
-  const size_t smem = (size_t)(2 * MMA_ROWS + 4 * BQC) * LD * sizeof(bf16) + 4 * BQC * sizeof(float);
-  auto kern = flash_bwd_dkdv_mma_kernel<D, BQC, WITH_DK, WITH_DV>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3((p.Sk + MMA_ROWS - 1) / MMA_ROWS, p.Hq, B), MMA_THREADS, smem, stream>>>(
-      p, dk_part, dv_part);
-  return cudaGetLastError();
-}
-
+// One dQ launch, one dK/dV launch and, for GQA/MQA, one group sum.
 template <int D>
 cudaError_t launch_bf16(const Params& p, int B, float* dk_part, float* dv_part,
                         cudaStream_t stream) {
-  // tiles that leave registers for the D-wide fp32 accumulators
-  constexpr int BK = D >= 256 ? 16 : D >= 128 ? 32 : 64;
-  constexpr int LD = D + PAD;
-  const size_t dq_smem = (size_t)(2 * MMA_ROWS + 4 * BK) * LD * sizeof(bf16) +
-                         MMA_ROWS * sizeof(float);
-  auto dq_kern = flash_bwd_dq_mma_kernel<D, BK>;
+  const size_t dq_smem = dq_smem_bytes<D>(), kv_smem = dkdv_smem_bytes<D>();
+  auto dq_kern = flash_bwd_dq_mma_kernel<D>;
+  auto kv_kern = flash_bwd_dkdv_mma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (err != cudaSuccess) return err;
-  dq_kern<<<dim3((p.Sq + MMA_ROWS - 1) / MMA_ROWS, p.Hq, B), MMA_THREADS, dq_smem, stream>>>(p);
+  err = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+  if (err != cudaSuccess) return err;
+  dq_kern<<<dim3(p.Hq, B, (p.Sq + TILE - 1) / TILE), MMA_THREADS, dq_smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  if constexpr (D >= 256) {
-    err = launch_dkdv_mma<D, BK, true, false>(p, B, dk_part, dv_part, stream);
-    if (err != cudaSuccess) return err;
-    err = launch_dkdv_mma<D, BK, false, true>(p, B, dk_part, dv_part, stream);
-  } else {
-    err = launch_dkdv_mma<D, BK, true, true>(p, B, dk_part, dv_part, stream);
-  }
+  kv_kern<<<dim3(p.Hq, B, (p.Sk + TILE - 1) / TILE), MMA_THREADS, kv_smem, stream>>>(
+      p, dk_part, dv_part);
+  err = cudaGetLastError();
   if (err != cudaSuccess || p.Hq == p.Hkv) return err;
-  const int threads = 256, blocks = 132 * 8;
-  group_sum_kernel<<<blocks, threads, 0, stream>>>(dk_part, static_cast<bf16*>(p.dk),
-      p.st[DK][0], p.st[DK][1], p.st[DK][2], B, p.Hq, p.Hkv, p.Sk, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  group_sum_kernel<<<blocks, threads, 0, stream>>>(dv_part, static_cast<bf16*>(p.dv),
-      p.st[DV][0], p.st[DV][1], p.st[DV][2], B, p.Hq, p.Hkv, p.Sk, D);
+  group_sum_kernel<<<132 * 8, 256, 0, stream>>>(p, dk_part, dv_part, B, D);
   return cudaGetLastError();
 }
 
@@ -906,8 +1070,8 @@ extern "C" {
 // scratch of the same shape; dk_part and dv_part are fp32 scratch of
 // (B, Hq, Sk, D), needed for bf16 with Hq > Hkv (else they may be null).
 // window <= 0 means none; softcap <= 0 means none.  Launches the dQ kernel,
-// then the dK/dV kernel(s) (and for bf16 GQA the group sums); returns the
-// first cudaError_t (0 on success).
+// then the dK/dV kernel (and for bf16 GQA one group sum); returns the first
+// cudaError_t (0 on success).
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* delta,
                         void* dq, void* dk, void* dv, float* dk_part, float* dv_part,

@@ -7,7 +7,10 @@ through the sequence one token at a time).  The backward versions of flash
 attention and RMSNorm, which the JAX package leaves to XLA, are their
 explicit gradient formulas (flash attention's from o, the row log-sum-exp
 and dO).  On a CPU tensor the kernel wrappers run these; on the card
-``chip_smoke.py`` compares each kernel with them.
+``chip_smoke.py`` compares each kernel with them.  Two CPU mirrors of a
+kernel's own algebra, used by the tests only, follow the CUDA kernels step
+for step: the chunked WKV6 and the tiles of the bf16 flash-attention
+backward.
 """
 from __future__ import annotations
 
@@ -27,14 +30,19 @@ def _scores(q, k, causal, window, softcap, scale):
     if softcap is not None:
         t = torch.tanh(s / softcap)
         s = softcap * t
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Sk, device=q.device)[None, :]
-    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= k_pos <= q_pos
-    if window is not None:
-        ok &= k_pos > q_pos - window
+    ok = _visible(torch.arange(Sq, device=q.device), torch.arange(Sk, device=q.device),
+                  causal, window)
     return s, ok, t
+
+
+def _visible(q_pos, k_pos, causal, window):
+    """The (len(q_pos), len(k_pos)) mask of the (q, k) pairs attention sees."""
+    ok = torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return ok
 
 
 def mha_reference(
@@ -103,6 +111,102 @@ def mha_backward_reference(
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf).reshape(B, Hkv, group, Sk, D).sum(2)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).reshape(B, Hkv, group, Sk, D).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def dkdv_q_tiles(k0: int, Sq: int, Sk: int, causal: bool, window: Optional[int],
+                 tile: int = 64) -> range:
+    """The q tiles that the bf16 dK/dV kernel walks for the key tile at k0."""
+    k_last = min(k0 + tile, Sk) - 1
+    q_end = Sq if window is None else min(Sq, k_last + window)
+    return range(k0 // tile if causal else 0, -(-q_end // tile))
+
+
+def dq_key_tiles(q0: int, Sq: int, Sk: int, causal: bool, window: Optional[int],
+                 tile: int = 64) -> range:
+    """The key tiles that the bf16 dQ kernel walks for the q tile at q0."""
+    end = -(-Sk // tile)
+    if causal:
+        end = min(end, (min(q0 + tile, Sq) - 1) // tile + 1)
+    begin = 0 if window is None or q0 - window + 1 <= 0 else (q0 - window + 1) // tile
+    return range(begin, end)
+
+
+def mha_backward_tiled(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,  # (B, Hkv, Sk, D)
+    o: torch.Tensor,  # (B, Hq, Sq, D)
+    lse: torch.Tensor,  # (B, Hq, Sq) fp32
+    do: torch.Tensor,  # (B, Hq, Sq, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    tile: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 backward kernels of ``csrc/flash_attention_bwd.cu`` step for
+    step, for the tests: the same (q tile, key tile) pairs of ``tile`` rows
+    and the same products, in fp32.
+
+    dK/dV: per key tile, the q tiles of :func:`dkdv_q_tiles`; S^T and dP^T
+    formed once per pair, P^T and dS^T rounded to bf16 (for bf16 inputs)
+    before dV += P^T dO and dK += dS^T Q, into one fp32 part per q head,
+    summed over each kv group in head order.  dQ: per q tile, the key tiles
+    of :func:`dq_key_tiles`; S and dP again, dS rounded to bf16 before
+    dQ += dS K.  Gradients in the inputs' dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if q.dtype == torch.bfloat16:
+        def rnd(x):
+            return x.to(torch.bfloat16).float()
+    else:
+        def rnd(x):
+            return x
+    qf, dof, lsef = q.float(), do.float(), lse.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    delta = (dof * o.float()).sum(-1)
+
+    def p_ds(q0, k0):
+        """P and dS of the tile pair, (B, Hq, q rows, keys), zero where masked."""
+        qs, ks = slice(q0, min(q0 + tile, Sq)), slice(k0, min(k0 + tile, Sk))
+        z = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, qs], kf[:, :, ks]) * scale
+        deriv = 1.0
+        if softcap is not None:
+            t = torch.tanh(z / softcap)
+            z, deriv = softcap * t, 1.0 - t * t
+        ok = _visible(torch.arange(qs.start, qs.stop), torch.arange(ks.start, ks.stop),
+                      causal, window)
+        p = torch.where(ok, torch.exp(z - lsef[:, :, qs, None]), 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof[:, :, qs], vf[:, :, ks])
+        return qs, ks, p, p * (dp - delta[:, :, qs, None]) * deriv * scale
+
+    dk_part = torch.zeros(B, Hq, Sk, D)
+    dv_part = torch.zeros(B, Hq, Sk, D)
+    for k0 in range(0, Sk, tile):
+        for qt in dkdv_q_tiles(k0, Sq, Sk, causal, window, tile):
+            qs, ks, p, ds = p_ds(qt * tile, k0)
+            pt, dst = rnd(p.transpose(-1, -2)), rnd(ds.transpose(-1, -2))  # P^T, dS^T
+            dv_part[:, :, ks] += pt @ dof[:, :, qs]
+            dk_part[:, :, ks] += dst @ qf[:, :, qs]
+    dq = torch.zeros(B, Hq, Sq, D)
+    for q0 in range(0, Sq, tile):
+        for kt in dq_key_tiles(q0, Sq, Sk, causal, window, tile):
+            qs, ks, _, ds = p_ds(q0, kt * tile)
+            dq[:, :, qs] += rnd(ds) @ kf[:, :, ks]
+
+    def group_sum(part):
+        part = part.reshape(B, Hkv, group, Sk, D)
+        acc = part[:, :, 0]
+        for hg in range(1, group):
+            acc = acc + part[:, :, hg]
+        return acc
+
+    return (dq.to(q.dtype), group_sum(dk_part).to(k.dtype), group_sum(dv_part).to(v.dtype))
 
 
 def rmsnorm_reference(

@@ -123,6 +123,14 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (1, 2, 2, 1000, 1000, 128, torch.bfloat16, {}),  # ragged S
     (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8, softcap=5.0)),
     (1, 2, 2, 100, 100, 32, torch.bfloat16, dict(causal=False, window=30)),
+    # the bf16 kernels' 64-row tiles at D = 256: ragged ends, Sq != Sk, options
+    (1, 2, 2, 1000, 1000, 256, torch.bfloat16, {}),
+    (1, 4, 1, 200, 333, 256, torch.bfloat16, {}),
+    (1, 4, 1, 333, 200, 256, torch.bfloat16, dict(causal=False)),
+    (1, 4, 2, 300, 300, 256, torch.bfloat16, dict(window=100, softcap=50.0)),
+    (1, 8, 2, 256, 256, 256, torch.bfloat16, {}),  # GQA 8/2
+    (2, 4, 2, 200, 200, 16, torch.bfloat16, {}),
+    (1, 4, 2, 200, 200, 64, torch.bfloat16, {}),
 ])
 def test_flash_backward_kernel_matches_plain(gen, B, Hq, Hkv, Sq, Sk, D, dtype, kw):
     """The forward's LSE against the plain one, then the backward kernel
@@ -143,6 +151,26 @@ def test_flash_backward_kernel_matches_plain(gen, B, Hq, Hkv, Sq, Sk, D, dtype, 
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape and g.stride() == x.stride()
         torch.testing.assert_close(g.float(), w.float(), atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,dtype", [
+    (4, 8, 1, 1024, 256, torch.bfloat16),  # gemma-2b training: MQA, through the group sum
+    (1, 4, 4, 300, 128, torch.bfloat16),
+    (1, 4, 2, 200, 64, torch.float32),
+])
+def test_flash_backward_kernel_is_deterministic(gen, B, Hq, Hkv, S, D, dtype):
+    """Two calls on the same inputs give bit-identical dQ, dK and dV: the
+    kernels sum in one fixed order and use no atomics."""
+    q = _randn(gen, (B, Hq, S, D), dtype)
+    k, v = (_randn(gen, (B, Hkv, S, D), dtype) for _ in range(2))
+    dout = _randn(gen, (B, Hq, S, D), dtype)
+    out, lse = flash_forward(q, k, v, with_lse=True, causal=True, window=None, softcap=None,
+                             scale=D ** -0.5)
+    first = flash_attention_bwd(q, k, v, out, lse, dout)
+    second = flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_runs_both_kernels(gen):
