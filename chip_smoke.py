@@ -7,17 +7,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device: the card's name and power limit;
 2. build: compiles the CUDA kernel sources of ``src/repro_torch/kernels/csrc``;
 3. kernels: each hand-written kernel (flash attention, RMSNorm, the chunked
-   and the token-by-token WKV6) against its plain PyTorch version on CUDA
+   and the short-sequence WKV6) against its plain PyTorch version on CUDA
    tensors, at the serving paths'
    shapes and at the other options of the TPU kernel it replaces, with times
    of the kernel, the plain version and one PyTorch library call where there
    is one, beside the least time the card could take;
    The backward kernels of flash attention and RMSNorm are held against
    their plain versions the same way, at the training path's shapes and at
-   the other options; flash attention's backward also gives bit-identical
-   gradients in two calls, its time is split by launch (torch.profiler),
-   and its yardstick is SDPA's backward under the flash backend (or the
-   backend that takes the shape where flash refuses it, named);
+   the other options; both give bit-identical gradients in two calls; flash
+   attention's backward time is split by launch (torch.profiler), and its
+   yardstick is SDPA's backward under the flash backend (or the backend that
+   takes the shape where flash refuses it, named).  Two floors of the timing
+   window are printed: one launch of a one-element kernel, and, beside the
+   RMSNorm backward and the WKV6 decode step, a PyTorch call that moves the
+   bytes the kernel must move;
 4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b on the
    card (kernels) against the same weights on the CPU (plain versions):
    logits and greedy tokens; then one AdamW step of the 2-layer fp32
@@ -27,7 +30,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16, random weights from a fixed seed, each serving batch 4 x prompt
    1024 + 32 new tokens through ``ServeEngine.generate``, with the kernels'
    launch counts of each run (flash attention and RMSNorm on gemma-2b's
-   path, the chunked WKV6 kernel in rwkv6's prefill and the token-by-token
+   path, the chunked WKV6 kernel in rwkv6's prefill and the decode-step
    one in its decode steps);
 6. train: full-width, full-depth gemma-2b in bf16, random weights from a
    fixed seed, 6 AdamW steps of batch 4 x 1024 tokens of the synthetic
@@ -105,6 +108,12 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def launch_floor_ms() -> float:
+    """time_ms of the smallest launch: one one-element kernel."""
+    one = torch.zeros(1, device=DEVICE)
+    return time_ms(lambda: one.add_(1.0))
 
 
 def randn(gen, shape, dtype):
@@ -227,9 +236,9 @@ def check_rmsnorm(gen, d_model: int) -> dict:
 
 
 def check_wkv6(gen, cfg) -> list:
-    """Both WKV6 kernels: the chunked one (T >= wkv6.CHUNK, prefill) and the
-    token-by-token one (shorter T, the decode step), each timed at its
-    serving shape."""
+    """The WKV6 kernels: the chunked one (T >= wkv6.CHUNK, prefill) and the
+    short-sequence ones (the decode step at T = 1, a token loop at
+    1 < T < wkv6.CHUNK), the first two timed at their serving shapes."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.wkv6 import CHUNK, wkv6
 
@@ -237,6 +246,8 @@ def check_wkv6(gen, cfg) -> list:
     H = cfg.d_model // K
     zero = dict(s0=False)
     fp32_y = dict(out_dtype=torch.float32)
+    in_place = dict(out_dtype=torch.float32, state="in place")  # the model's call: s_out = s0
+    unaligned = dict(out_dtype=torch.float32, state="unaligned")  # s0 4 bytes past 16
     cases = [  # (B, H, T, K, dtype, options)
         (SERVE_BATCH, H, PROMPT_LEN, K, torch.bfloat16, fp32_y),  # rwkv6-1.6b prefill
         (SERVE_BATCH, H, PROMPT_LEN, K, torch.bfloat16, {}),
@@ -244,6 +255,13 @@ def check_wkv6(gen, cfg) -> list:
         (SERVE_BATCH, H, 1, K, torch.bfloat16, fp32_y),  # rwkv6-1.6b decode step
         (SERVE_BATCH, H, 1, K, torch.bfloat16, {}),
         (SERVE_BATCH, H, 1, K, torch.float32, zero),
+        (SERVE_BATCH, H, 1, K, torch.bfloat16, in_place),
+        (SERVE_BATCH, H, 1, K, torch.bfloat16, unaligned),
+        (SERVE_BATCH, H, 2, K, torch.bfloat16, in_place),  # short prompts: the token loop
+        (SERVE_BATCH, H, 2, K, torch.float32, unaligned),
+        (SERVE_BATCH, H, 31, K, torch.bfloat16, in_place),
+        (2, 3, 31, 16, torch.float32, in_place),
+        (2, 3, 2, 32, torch.bfloat16, unaligned),
         (2, 3, 50, K, torch.float32, {}),  # ragged T
         (2, 3, 96, 32, torch.bfloat16, {}),
         (2, 3, 50, 16, torch.float32, {}),  # the smoke head size
@@ -270,11 +288,15 @@ def check_wkv6(gen, cfg) -> list:
         u = randn(gen, (Hh, Kk), torch.float32)
         s0 = (randn(gen, (B, Hh, Kk, Kk), torch.float32) if kw.get("s0", True)
               else torch.zeros((B, Hh, Kk, Kk), device=DEVICE))
+        state = kw.get("state", "new")
+        if state == "unaligned":
+            s0 = torch.cat([s0.new_zeros(1), s0.flatten()])[1:].view(s0.shape)
         out_dtype = kw.get("out_dtype")
         kernel = "wkv6" if T >= CHUNK else "wkv6_step"
-        before = (wkv6.chunk_launches, wkv6.step_launches)
-        y, sf = wkv6(r, k, v, lw, u, s0, out_dtype=out_dtype)
         want_y, want_s = ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=out_dtype)
+        before = (wkv6.chunk_launches, wkv6.step_launches)
+        y, sf = wkv6(r, k, v, lw, u, s0, s_out=None if state == "new" else s0,
+                     out_dtype=out_dtype)
         sync()
         ran = "wkv6" if wkv6.chunk_launches > before[0] else "wkv6_step"
         tol = 1e-4 if "log_w" in kw else WKV_TOL[y.dtype]  # fp32 y: both sides fp32
@@ -282,13 +304,14 @@ def check_wkv6(gen, cfg) -> list:
         err = (y.float() - want_y.float()).abs().max().item()
         s_err = (sf - want_s).abs().max().item()
         ok = (ran == kernel and y.dtype == want_y.dtype == (out_dtype or dtype)
-              and torch.isfinite(y.float()).all().item()
+              and (state == "new" or sf is s0) and torch.isfinite(y.float()).all().item()
               and torch.allclose(y.float(), want_y.float(), atol=tol, rtol=tol)
               and torch.allclose(sf, want_s, atol=s_tol, rtol=s_tol))
         log(f"  {kernel} B={B} H={Hh} T={T} K=V={Kk} {str(dtype)[6:]} "
             f"{'s0=0' if not kw.get('s0', True) else 's0 random'}"
             f"{' log_w=-50' if 'log_w' in kw else ''}"
-            f"{' y ' + str(out_dtype)[6:] if out_dtype else ''}: max_abs_err y={err:.3g} (tol {tol}), "
+            f"{' y ' + str(out_dtype)[6:] if out_dtype else ''}"
+            f"{'' if state == 'new' else ', state ' + state}: max_abs_err y={err:.3g} (tol {tol}), "
             f"state={s_err:.3g} (tol {s_tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"wkv6 disagrees with its plain version: y {err}, state {s_err}")
@@ -309,15 +332,20 @@ def check_wkv6(gen, cfg) -> list:
                   + v.numel() * (out_dtype or r.dtype).itemsize)
         flops = 4.0 * B * Hh * T * Kk * Kk  # k v^T, u-bonus, r.(S + ...), decay: ~4 per (k, v)
         bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # the recurrence is fp32
+        extra = {}
+        if kernel == "wkv6_step":  # what a copy of the state takes in the same window
+            copy = torch.empty_like(s0)
+            extra["copy_ms"] = time_ms(lambda: copy.copy_(s0))
         log(f"  {kernel} at the {what} shape (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16 r/k/v, "
             f"fp32 y): kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, library: none (no single PyTorch call computes WKV6), "
             f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.4f} GFLOP fp32, "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"{nbytes / 1e6:.1f} MB)"
+            + (f"; a copy of the state (copy_) {extra['copy_ms']:.4f} ms" if extra else ""))
         out.append(dict(name=kernel, route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
                         replaces="src/repro/kernels/rwkv6_wkv.py:37",
                         max_abs_err=main[kernel]["err"], ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **extra))
     return out
 
 
@@ -474,19 +502,27 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
 
     rows_main = TRAIN_BATCH * TRAIN_SEQ
-    cases = [  # (rows, d, dtype)
-        (rows_main, d_model, torch.bfloat16),  # gemma-2b training
-        (rows_main, d_model, torch.float32),
-        (rows_main - 1, d_model, torch.bfloat16),  # ragged last block of rows
-        (1000, 896, torch.float32),  # widths that are not powers of two
-        (333, 3584, torch.bfloat16),
-        (17, 8192, torch.bfloat16),
-        (3, 5, torch.float32),
+    cases = [  # (rows, d, dtype, option)
+        (rows_main, d_model, torch.bfloat16, None),  # gemma-2b training
+        (rows_main, d_model, torch.float32, None),
+        (rows_main - 1, d_model, torch.bfloat16, None),  # ragged last slice of rows
+        (1000, 896, torch.float32, None),  # widths that are not powers of two
+        (333, 3584, torch.bfloat16, None),
+        (17, 8192, torch.bfloat16, None),
+        (3, 5, torch.float32, None),
+        (64, 16384, torch.bfloat16, None),  # the widest row the kernel takes
+        (9, 16384, torch.float32, None),
+        (300, d_model, torch.bfloat16, "unaligned x"),  # x 2 bytes past 16: scalar loads
+        (300, d_model, torch.float32, "broadcast g"),  # autograd's gradient of a sum
     ]
-    main = None
-    for rows, d, dtype in cases:
+    main = determinism_args = None
+    for rows, d, dtype, option in cases:
         x, g = randn(gen, (rows, d), dtype), randn(gen, (rows, d), dtype)
         s = randn(gen, (d,), dtype)
+        if option == "unaligned x":
+            x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(rows, d)
+        elif option == "broadcast g":
+            g = randn(gen, (d,), dtype).expand(rows, d)
         dx, ds = rmsnorm_bwd(x, s, g)
         want_dx, want_ds = ref.rmsnorm_backward_reference(x, s, g)
         sync()
@@ -497,31 +533,45 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
         ok = (dx.dtype == ds.dtype == dtype
               and torch.allclose(dx.float(), want_dx.float(), atol=tol, rtol=tol)
               and torch.allclose(ds.float(), want_ds.float(), atol=tol * ds_scale, rtol=tol))
-        log(f"  rmsnorm_bwd rows={rows} d={d} {str(dtype)[6:]}: max_abs_err dx={err:.3g} "
+        log(f"  rmsnorm_bwd rows={rows} d={d} {str(dtype)[6:]}{', ' + option if option else ''}: "
+            f"max_abs_err dx={err:.3g} "
             f"(tol {tol}), dscale={ds_err:.3g} (tol {tol} x max|dscale| {ds_scale:.3g}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"rmsnorm_bwd disagrees with its plain version: {err}, {ds_err}")
         if main is None:
             main = dict(args=(x, s, g), err=err, dtype=dtype)
+        if (rows, d) == (333, 3584):
+            determinism_args = (x, s, g)
 
+    for args in (main["args"], determinism_args):
+        first, second = rmsnorm_bwd(*args), rmsnorm_bwd(*args)
+        sync()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"rmsnorm_bwd at {tuple(args[0].shape)}: two calls differ")
+        log(f"  rmsnorm_bwd at {tuple(args[0].shape)} {str(args[0].dtype)[6:]}: two calls give "
+            f"bit-identical dx and dscale")
     x, s, g = main["args"]
     ms = time_ms(lambda: rmsnorm_bwd(x, s, g))
     plain_ms = time_ms(lambda: ref.rmsnorm_backward_reference(x, s, g))
     xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
     y = F.rms_norm(xl, (x.shape[-1],), weight=sl, eps=1e-6)
     library_ms = time_ms(lambda: torch.autograd.grad(y, (xl, sl), g, retain_graph=True))
+    o = torch.empty_like(x)
+    copy_ms = time_ms(lambda: torch.add(x, g, out=o))  # reads x and g, writes dx's bytes
     # x and g read, dx written; scale read, dscale written
     nbytes = 3 * x.numel() * x.element_size() + 2 * s.numel() * s.element_size()
     flops = 11.0 * x.numel()  # x^2, two row sums, g s, x g s, r g s, x r^3 c, dx, g x r, column sum
     bound_ms, bound_by = bound(nbytes, flops, main["dtype"])
     log(f"  rmsnorm_bwd at the training shape ({x.shape[0]}, {x.shape[1]}) bf16: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (rms_norm backward) {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB)")
-    return dict(name="rmsnorm_bwd", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+        f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB); the same bytes "
+        f"through torch.add(x, g) {copy_ms:.4f} ms")
+    return dict(name="rmsnorm_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                 replaces="src/repro/kernels/rmsnorm.py:17",
                 max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, copy_ms=copy_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -631,7 +681,7 @@ def expected_launches(cfg) -> dict:
     passes = 1 + (MAX_NEW - 1)
     if cfg.family == "ssm":  # rwkv: one WKV6 per layer per pass; LayerNorm is plain torch
         return {"flash_attention": 0, "rmsnorm": 0, "wkv6": cfg.num_layers,  # chunked: prefill
-                "wkv6_step": cfg.num_layers * (passes - 1)}  # token by token: decode
+                "wkv6_step": cfg.num_layers * (passes - 1)}  # one token a step: decode
     return {"flash_attention": cfg.num_layers,  # prefill only: decode is plain torch
             "rmsnorm": (2 * cfg.num_layers + 1) * passes, "wkv6": 0, "wkv6_step": 0}
 
@@ -836,6 +886,10 @@ def profile_train_step(model, opt_state, batch, opt, hp, step_ms: float) -> None
                                     for f, ms in sorted(families.items(), key=lambda kv: -kv[1])))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"    {ms:8.3f} ms  {name[:100]}")
+    # the RMSNorm backward's column sum (column_sum_kernel) falls under "other"
+    names = sorted(n for n in by_name if "rmsnorm" in n or "column_sum" in n)
+    log("  rmsnorm kernels and the backward's column sum: " + ", ".join(
+        f"{by_name[n]:.3f} ms x{sum(e.name == n for e in kern)} {n[:60]}" for n in names))
 
 
 def wkv_y_rounding_shift(api, model, tokens) -> None:
@@ -953,8 +1007,13 @@ def main() -> int:
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     log("kernels:")
+    floor_ms = launch_floor_ms()
+    log(f"  launch floor: one launch of a one-element kernel (add_) takes {floor_ms:.4f} ms "
+        f"in time_ms's window")
     kernels = [check_flash(gen), check_rmsnorm(gen, gemma.d_model), *check_wkv6(gen, rwkv),
                check_flash_bwd(gen), check_rmsnorm_bwd(gen, gemma.d_model)]
+    for k in kernels:
+        k["launch_floor_ms"] = floor_ms
     torch.cuda.empty_cache()
     log("reference:")
     for cfg in (gemma, rwkv):

@@ -72,9 +72,10 @@
 //     and y written in place.  The final state may be written over s0 (the
 //     layer's cache): a block reads its slice of s0 before it writes it,
 //     and no other block touches that slice.
-//   * Sequences shorter than C (the decode step) go to the token-by-token
-//     kernel below: at T = 1 the chunked kernel still runs a whole chunk
-//     (tools/wkv6_ablation.py, variant chunk_only, times both).
+//   * Sequences shorter than C go to the kernels below: the decode step
+//     (T = 1) splits the state's columns over blocks, and 1 < T < C keeps
+//     the token-by-token kernel.  At T = 1 the chunked kernel still runs a
+//     whole chunk (tools/wkv6_ablation.py, variant chunk_only, times both).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -492,17 +493,120 @@ wkv6_chunk_kernel(const Params p) {
     p.s_out[st + (i / BV) * K + j0 + i % BV] = Ss[(i / BV) * LDV + i % BV];
 }
 
-// The decode kernel (T < C): the token-by-token recurrence of the first
-// port.  One block per (b, h) of K K / 16 threads holds S in registers
-// (thread (j, s) owns column j, rows s, s + K/16, ..), stages a chunk of
-// K/2 tokens in shared memory as f32 with the next chunk's loads in flight,
-// and sums y_t[j] with shuffles.  At T = 1 it takes about half the time of
-// the chunked kernel, whose fixed cost per chunk does not shrink with T.
+// The decode step (T = 1).  Column j of the state depends only on column j,
+// and with the bonus folded into one K-long dot a = sum_i r[i] u[i] k[i],
+//     y[j]     = sum_i r[i] S[i][j] + v[j] a
+//     S'[i][j] = w[i] S[i][j] + k[i] v[j]
+// What bounds it is one round trip of the state: 2 MB read and 2 MB written
+// at rwkv6-1.6b's decode shape (B=4, H=32, K=V=64), 1.3 us at 3.35 TB/s.
+//   * V is split over blocks: grid (V / BV, H, B) with BV = 16 STEP_WARPS
+//     columns, a warp per 16 of them.  Lane 4 g + q owns columns 4 q ..
+//     4 q + 3 of its warp's 16 (one 16-byte access: rows of S are contiguous
+//     along V) in rows K/8 g .. K/8 g + K/8 - 1, so one instruction of the
+//     warp reads eight whole 64-byte row segments.
+//   * Every state load and the token's r, k, log_w, u and v are issued
+//     before anything waits, straight from device memory into registers: no
+//     shared memory and no barrier.
+//   * A lane adds r_i S[i][j] and r_i (u_i k_i) over its rows in row order,
+//     and the warp adds its 8 row groups with shuffles (xor 4, 8, 16: the
+//     same bits in every lane); row group 0 writes y = r S + v a.
+//   * The state may be written over s0 (the layer's cache): a lane writes
+//     only the elements it read, and no other lane touches them.  A state
+//     that does not start on 16 bytes takes scalar accesses.
+//   * STEP_WARPS = 1 gives 512 blocks of one warp at the decode shape, ~4 a
+//     SM.  Blocks of 2 or 4 warps (4: one block per (b, h)) took the same
+//     time within 0.0001 ms (tools/wkv6_ablation.py, PERF.md): what set the
+//     time was whether every load is in flight at once (below).
+constexpr int STEP_WARPS = 1;  // warps of a decode-step block
+
+template <int K> __host__ __device__ constexpr int step_warps() {
+  return STEP_WARPS < K / 16 ? STEP_WARPS : K / 16;
+}
+
+template <typename T, typename TY, int K, bool VEC_STATE>
+__global__ void __launch_bounds__(32 * step_warps<K>())
+wkv6_step_kernel(const Params p) {
+  constexpr int RP = K / 8;  // state rows of a lane
+  const int lane = threadIdx.x & 31, g = lane >> 2, r0 = RP * g;  // the lane's rows: r0 .. r0 + RP - 1
+  const int jb = 16 * (blockIdx.x * step_warps<K>() + (threadIdx.x >> 5)) + 4 * (lane & 3);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const T* rb = static_cast<const T*>(p.r) + b * p.r_sb + h * p.r_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* wb = p.lw + b * p.w_sb + h * p.w_sh;
+  TY* yb = static_cast<TY*>(p.y) + b * p.y_sb + h * p.y_sh + jb;
+  const long long st = ((long long)b * p.H + h) * K * K + jb;  // s0, s_out: (B, H, K, V)
+
+  float S[RP][4], r[RP], k[RP], w[RP], uu[RP], v[4];  // w = exp(log_w)
+#pragma unroll
+  for (int m = 0; m < RP; ++m) {
+    const float* src = p.s0 + st + (long long)(r0 + m) * K;
+    if constexpr (VEC_STATE) {
+      const float4 s4 = *reinterpret_cast<const float4*>(src);
+      S[m][0] = s4.x; S[m][1] = s4.y; S[m][2] = s4.z; S[m][3] = s4.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) S[m][e] = src[e];
+    }
+    r[m] = to_float(rb[r0 + m]);
+    k[m] = to_float(kb[r0 + m]);
+    w[m] = expf(wb[r0 + m]);
+    uu[m] = p.u[h * K + r0 + m];
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = to_float(vb[jb + e]);
+
+  // The arithmetic sits in a loop over the call's tokens (one), so ptxas
+  // issues every load above before any of it: as straight-line code it
+  // interleaved loads with arithmetic at 64 registers and paid a second
+  // round trip to memory (tools/wkv6_ablation.py, PERF.md).
+  for (int t = 0; t < p.T; ++t) {
+    float y[4] = {}, a = 0.f;
+#pragma unroll
+    for (int m = 0; m < RP; ++m) {
+      a = fmaf(r[m], uu[m] * k[m], a);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        y[e] = fmaf(r[m], S[m][e], y[e]);
+        S[m][e] = fmaf(w[m], S[m][e], k[m] * v[e]);
+      }
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {  // over the warp's 8 row groups
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[e] += __shfl_xor_sync(0xffffffffu, y[e], off);
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yb[e] = from_float<TY>(fmaf(v[e], a, y[e]));
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < RP; ++m) {
+    float* dst = p.s_out + st + (long long)(r0 + m) * K;
+    if constexpr (VEC_STATE) {
+      *reinterpret_cast<float4*>(dst) = make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = S[m][e];
+    }
+  }
+}
+
+// Short sequences (1 < T < C): the token-by-token recurrence of the first
+// port, unchanged.  One block per (b, h) of K K / 16 threads holds S in
+// registers (thread (j, s) owns column j, rows s, s + K/16, ..), stages a
+// chunk of K/2 tokens in shared memory as f32 with the next chunk's loads in
+// flight, and sums y_t[j] with shuffles.  The chunked kernel's fixed cost
+// per chunk does not shrink with T.  No served or trained path runs these
+// lengths; short prompts keep the time they had.
 constexpr int ROWS = 16;  // state rows held by one thread
 
 template <typename T, typename TY, int K>
 __global__ void __launch_bounds__(K * K / ROWS)
-wkv6_step_kernel(const Params p) {
+wkv6_loop_kernel(const Params p) {
   constexpr int KS = K / ROWS;           // threads per state column
   constexpr int THREADS = K * KS;
   constexpr int CT = K / 2;              // tokens per staged chunk
@@ -595,8 +699,16 @@ wkv6_step_kernel(const Params p) {
 
 template <typename T, typename TY, int K>
 cudaError_t launch_step(const Params& p, int B, cudaStream_t stream) {
-  const dim3 grid(p.H, B);
-  wkv6_step_kernel<T, TY, K><<<grid, K * K / ROWS, 0, stream>>>(p);
+  if (p.T > 1) {
+    wkv6_loop_kernel<T, TY, K><<<dim3(p.H, B), K * K / ROWS, 0, stream>>>(p);
+    return cudaGetLastError();
+  }
+  const dim3 grid(K / (16 * step_warps<K>()), p.H, B);
+  const int threads = 32 * step_warps<K>();
+  if ((reinterpret_cast<uintptr_t>(p.s0) | reinterpret_cast<uintptr_t>(p.s_out)) % 16 == 0)
+    wkv6_step_kernel<T, TY, K, true><<<grid, threads, 0, stream>>>(p);
+  else
+    wkv6_step_kernel<T, TY, K, false><<<grid, threads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -636,7 +748,9 @@ extern "C" {
 // r, k, v and float32 y.  log_w, u, s0 and s_out are float32.  Strides in
 // elements over (B, H, T) for r, k, v, log_w and y, whose last dim is
 // contiguous; u (H, K), s0 and s_out (B, H, K, K) are contiguous, and s_out
-// may be s0.  Returns the cudaError_t of the launch (0 on success).
+// may be s0.  No pointer needs an alignment: inputs or a state that do not
+// start on 16 bytes take plain loads and stores.  Returns the cudaError_t of
+// the launch (0 on success).
 int wkv6_fwd(const void* r, const void* k, const void* v, const void* log_w,
              const void* u, const void* s0, void* y, void* s_out,
              int dtype, int B, int H, int T, int K,

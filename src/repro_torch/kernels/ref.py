@@ -15,7 +15,7 @@ backward.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -231,6 +231,60 @@ def rmsnorm_backward_reference(
     dx = r * gs - xf * r ** 3 * torch.mean(xf * gs, dim=-1, keepdim=True)
     dscale = (gf * xf * r).sum(0)
     return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype)
+
+
+def rmsnorm_bwd_team_rows(rows: int, rows_per_block: int, teams: int,
+                          rows_per_step: int) -> List[List[List[int]]]:
+    """The rows of each team of each block of ``csrc/rmsnorm_bwd.cu``, in the
+    order the team takes them: block b starts at b rows_per_block, and at
+    step k team t takes rows start + (k teams + t) rows_per_step + j for
+    j < rows_per_step, up to the block's end."""
+    blocks = -(-rows // rows_per_block)
+    steps = rows_per_block // (teams * rows_per_step)
+    out = []
+    for b in range(blocks):
+        start, end = b * rows_per_block, min((b + 1) * rows_per_block, rows)
+        out.append([[row for k in range(steps) for j in range(rows_per_step)
+                     for row in [start + (k * teams + t) * rows_per_step + j] if row < end]
+                    for t in range(teams)])
+    return out
+
+
+def rmsnorm_backward_blocked(
+    x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float = 1e-6, *,
+    rows_per_block: int, teams: int, rows_per_step: int, phases: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RMSNorm backward with dscale summed in the order of
+    ``csrc/rmsnorm_bwd.cu`` under the split ``rmsnorm.bwd_plan`` gives: each
+    team adds g x r over its rows (:func:`rmsnorm_bwd_team_rows`) and each
+    block adds its teams in order into one partial row; then, per column,
+    ``phases`` sums each add every phases-th partial row in order (phase q:
+    rows q, q + phases, ..) and the phase sums are added in order; all in
+    fp32.  dx is the plain version's: it has no sum across rows."""
+    dx, _ = rmsnorm_backward_reference(x, scale, g, eps=eps)
+    d = x.shape[-1]
+    xf, gf = x.float().reshape(-1, d), g.float().reshape(-1, d)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    terms = gf * xf * r  # each row's share of dscale
+    parts = []
+    for block in rmsnorm_bwd_team_rows(xf.shape[0], rows_per_block, teams, rows_per_step):
+        team_sums = []
+        for team in block:
+            acc = torch.zeros(d)
+            for row in team:
+                acc = acc + terms[row]
+            team_sums.append(acc)
+        parts.append(_sum_in_order(team_sums))
+    zero = torch.zeros(d)
+    phase_sums = [_sum_in_order([zero] + parts[q::phases]) for q in range(phases)]
+    return dx, _sum_in_order(phase_sums).to(scale.dtype)
+
+
+def _sum_in_order(rows: List[torch.Tensor]) -> torch.Tensor:
+    acc = rows[0]
+    for row in rows[1:]:
+        acc = acc + row
+    return acc
 
 
 def wkv6_reference(

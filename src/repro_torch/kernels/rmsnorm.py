@@ -1,5 +1,5 @@
-"""Fused RMSNorm, forward and backward: hand-written Triton kernels and
-their wrappers.
+"""Fused RMSNorm, forward and backward: a hand-written Triton kernel (the
+forward), a hand-written CUDA kernel (the backward) and their wrappers.
 
 Replaces the Pallas TPU kernel ``_rmsnorm_kernel`` / ``rmsnorm`` of
 ``src/repro/kernels/rmsnorm.py``: y = x * rsqrt(mean(x^2) + eps) * scale, in
@@ -17,11 +17,13 @@ program still moves a few KB.
 The backward (the JAX package leaves it to XLA) is bound by bytes too: x
 and the gradient g are read once and dx written once.  With
 r = rsqrt(mean(x^2) + eps), dx = r (g scale) - x r^3 mean(x g scale) is a
-row reduction and an elementwise pass, one program over a block of rows;
-dscale = sum over rows of g x r is a column sum across programs, so each
-program writes its fp32 partial sums and a second small kernel reduces them
-(no atomics, so the sum is the same in every run).  Statistics are fp32; dx
-comes out in x's dtype and dscale in scale's.
+row reduction and an elementwise pass, and dscale = sum over rows of g x r
+a column sum across rows.  Both are in ``csrc/rmsnorm_bwd.cu`` (a row
+kernel and a column sum of its partial rows), whose head says how it keeps
+many rows in flight on each SM and sums dscale in one fixed order without
+floating-point atomics (the same bits in every run); :func:`bwd_plan` is its
+split of the rows.  Statistics are fp32; dx comes out in x's dtype and
+dscale in scale's.
 
 :func:`rmsnorm` is differentiable: when a gradient is wanted it runs inside
 a ``torch.autograd.Function`` whose backward is :func:`rmsnorm_bwd`.
@@ -32,16 +34,19 @@ tensor it runs the plain version
 :func:`~repro_torch.kernels.ref.rmsnorm_backward_reference`).
 ``rmsnorm.launches`` and ``rmsnorm_bwd.launches`` count kernel launches
 (one per call; the backward's call runs its two kernels).  ``triton`` is
-imported only when a kernel is first launched.
+imported, and the CUDA source built, only when a kernel is first launched.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Tuple
+import math
+from typing import Dict, Tuple
 
 import torch
 
 from . import ref
+from .build import load_library
 
 MAX_D = 16384
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -67,49 +72,6 @@ def _kernel():
         tl.store(o_ptr + offs, y.to(o_ptr.dtype.element_ty), mask=mask)
 
     return triton, rmsnorm_kernel
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_kernels():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rmsnorm_bwd_kernel(x_ptr, s_ptr, g_ptr, dx_ptr, part_ptr, n_rows, d, eps,
-                           ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < d
-        s = tl.load(s_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        acc = tl.zeros((BLOCK_D,), dtype=tl.float32)
-        for i in range(ROWS):
-            row = pid * ROWS + i
-            mask = cmask & (row < n_rows)
-            offs = row.to(tl.int64) * d + cols
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            r = 1.0 / tl.sqrt(tl.sum(x * x, axis=0) / d + eps)
-            gs = g * s
-            c = tl.sum(x * gs, axis=0) / d
-            dx = r * gs - x * (r * r * r * c)
-            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-            acc += g * x * r
-        tl.store(part_ptr + pid.to(tl.int64) * d + cols, acc, mask=cmask)
-
-    @triton.jit
-    def column_sum_kernel(part_ptr, out_ptr, n_parts, d,
-                          BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < d
-        acc = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
-        for p0 in range(0, n_parts, BLOCK_P):
-            parts = p0 + tl.arange(0, BLOCK_P)
-            mask = (parts < n_parts)[:, None] & cmask[None, :]
-            acc += tl.load(part_ptr + parts.to(tl.int64)[:, None] * d + cols[None, :],
-                           mask=mask, other=0.0)
-        tl.store(out_ptr + cols, tl.sum(acc, axis=0).to(out_ptr.dtype.element_ty), mask=cmask)
-
-    return triton, rmsnorm_bwd_kernel, column_sum_kernel
 
 
 def _launch(x2: torch.Tensor, scale: torch.Tensor, out: torch.Tensor, eps: float) -> None:
@@ -182,6 +144,49 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
 rmsnorm.launches = 0
 
 
+BWD_THREADS = 512  # threads of a block of the backward kernel (THREADS in csrc/rmsnorm_bwd.cu)
+BWD_PHASES = 16  # the column sum's threads per column (PHASES in csrc/rmsnorm_bwd.cu)
+
+
+def bwd_plan(rows: int, d: int, elem_size: int, n_sm: int) -> Dict[str, int]:
+    """The backward kernel's split of (rows, d) with elements of
+    ``elem_size`` bytes over a card of ``n_sm`` SMs (``csrc/rmsnorm_bwd.cu``):
+
+    - ``elems``: elements of a row per thread (16; 32 above d = 8192);
+    - ``team_threads``: threads that share a row (a power of two, 32 to
+      512), ``teams`` = 512 / team_threads of them per block;
+    - ``rows_per_step``: rows a team takes at a time (2 in bf16, 1 in fp32);
+    - ``rows_per_block``, ``blocks``: contiguous slices of rows, at most one
+      block per SM, each writing one partial row of dscale.
+    """
+    elems = 16 if d <= 16 * BWD_THREADS else 32
+    team = max(32, 1 << (math.ceil(d / elems) - 1).bit_length())
+    teams = BWD_THREADS // team
+    step = 2 if elems * elem_size <= 32 else 1
+    step_rows = teams * step
+    blocks = max(1, min(n_sm, math.ceil(rows / step_rows)))
+    rows_per_block = math.ceil(math.ceil(rows / blocks) / step_rows) * step_rows
+    return dict(elems=elems, team_threads=team, teams=teams, rows_per_step=step,
+                rows_per_block=rows_per_block, blocks=math.ceil(rows / rows_per_block))
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_bwd() -> ctypes.CDLL:
+    lib = load_library("rmsnorm_bwd")
+    fn = lib.rmsnorm_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.rmsnorm_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.rmsnorm_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
                 eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx in x's dtype, dscale in scale's dtype) for the gradient ``g`` of
@@ -199,18 +204,18 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros_like(scale)
-    triton, kernel, column_sum = _bwd_kernels()
-    block_d = triton.next_power_of_2(d)
-    num_warps = min(16, max(4, block_d // 256))  # ~8 fp32 values of a row per thread
-    rows_per_prog = 16
-    n_parts = triton.cdiv(rows, rows_per_prog)
-    part = torch.empty((n_parts, d), dtype=torch.float32, device=x.device)
-    kernel[(n_parts,)](x, scale, g, dx, part, rows, d, eps,
-                       ROWS=rows_per_prog, BLOCK_D=block_d, num_warps=num_warps)
+    plan = bwd_plan(rows, d, x.element_size(), _sm_count(x.device))
+    part = torch.empty((plan["blocks"], d), dtype=torch.float32, device=x.device)
     dscale = torch.empty_like(scale)
-    block_c = 64
-    column_sum[(triton.cdiv(d, block_c),)](part, dscale, n_parts, d,
-                                           BLOCK_P=32, BLOCK_C=block_c, num_warps=4)
+    lib = _bind_bwd()
+    err = lib.rmsnorm_bwd(
+        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+        part.data_ptr(), int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
+        rows, d, plan["elems"], plan["team_threads"], plan["rows_per_block"], plan["blocks"],
+        eps, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        msg = lib.rmsnorm_bwd_error_string(err).decode()
+        raise RuntimeError(f"rmsnorm_bwd kernel launch failed: {msg} ({err})")
     rmsnorm_bwd.launches += 1
     return dx, dscale
 

@@ -4,9 +4,10 @@ Replaces the Pallas TPU kernel ``_wkv6_kernel`` / ``wkv6`` of
 ``src/repro/kernels/rwkv6_wkv.py``; the kernels are in ``csrc/wkv6.cu``,
 whose head says what bounds them on the H100 and how their design answers
 that.  A sequence of ``CHUNK`` tokens or more (prefill) goes to the chunked
-kernel (3xTF32 tensor-core products over chunks of 32 tokens); a shorter one
-(the decode step) to the token-by-token kernel.  Same contract as the Pallas
-kernel, per (batch, head) with an fp32 state S (K, V):
+kernel (3xTF32 tensor-core products over chunks of 32 tokens); the decode
+step (T = 1) to the decode kernel (the state's columns split over blocks,
+no staging); 1 < T < ``CHUNK`` to the token-by-token kernel.  Same contract
+as the Pallas kernel, per (batch, head) with an fp32 state S (K, V):
 
     y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
     S_t = diag(exp(log_w_t)) S_{t-1} + k_t v_tᵀ
@@ -33,7 +34,7 @@ from . import ref
 from .build import load_library
 
 HEAD_DIMS = (16, 32, 64)
-CHUNK = 32  # the chunked kernel's tokens per chunk (C in csrc/wkv6.cu); below it, the step kernel
+CHUNK = 32  # the chunked kernel's tokens per chunk (C in csrc/wkv6.cu); below it, the step kernels
 # (r/k/v dtype, y dtype) -> the kernel's dtype code
 _DTYPE_CODE = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
                (torch.bfloat16, torch.float32): 2}

@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention, flash_attention_bwd, ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm, rmsnorm_bwd  # noqa: E402
+from repro_torch.kernels.rmsnorm import BWD_PHASES, BWD_THREADS, bwd_plan  # noqa: E402
 
 TOL = 1e-5
 
@@ -200,3 +201,49 @@ def test_rmsnorm_bwd_dtypes_follow_their_inputs():
     assert dx.dtype == torch.float32 and ds.dtype == torch.bfloat16
     with pytest.raises(ValueError):
         rmsnorm_bwd(x, s, g[:3])
+
+
+BLOCKED_SHAPES = [(37, 2048), (300, 896), (50, 3584), (9, 8192), (5, 5), (6, 16384)]
+
+
+@pytest.mark.parametrize("n_sm", [8, 132])
+@pytest.mark.parametrize("elem_size", [2, 4])
+@pytest.mark.parametrize("rows,d", BLOCKED_SHAPES)
+def test_rmsnorm_bwd_plan_takes_every_row_once(rows, d, elem_size, n_sm):
+    """The CUDA backward's split: a team covers a row, a block at most fills
+    its 512 threads, at most one block per SM, and the teams' rows are every
+    row exactly once (ragged row counts included)."""
+    plan = bwd_plan(rows, d, elem_size, n_sm)
+    tt = plan["team_threads"]
+    assert 32 <= tt <= BWD_THREADS and tt & (tt - 1) == 0
+    assert tt * plan["elems"] >= d and plan["teams"] * tt == BWD_THREADS
+    assert plan["rows_per_block"] % (plan["teams"] * plan["rows_per_step"]) == 0
+    assert plan["blocks"] <= n_sm
+    rpb = plan["rows_per_block"]
+    assert (plan["blocks"] - 1) * rpb < rows <= plan["blocks"] * rpb
+    order = ref.rmsnorm_bwd_team_rows(rows, plan["rows_per_block"], plan["teams"],
+                                      plan["rows_per_step"])
+    assert len(order) == plan["blocks"]
+    assert sorted(row for block in order for team in block for row in team) == list(range(rows))
+
+
+@pytest.mark.parametrize("n_sm", [8, 132])
+@pytest.mark.parametrize("rows,d", BLOCKED_SHAPES)
+def test_rmsnorm_bwd_blocked_matches_plain_and_jax_grad(rows, d, n_sm):
+    """dscale summed per team, block and column-sum phase in the kernels' order against
+    the plain backward and jax.vjp of the JAX reference (fp32, sums of up to
+    300 terms in another order: relative to max |dscale|)."""
+    x, s, g = _rms_inputs(4, (rows, d))
+    plan = bwd_plan(rows, d, 4, n_sm)
+    tx, ts, tg = (torch.from_numpy(a) for a in (x, s, g))
+    dx, ds = ref.rmsnorm_backward_blocked(
+        tx, ts, tg, rows_per_block=plan["rows_per_block"], teams=plan["teams"],
+        rows_per_step=plan["rows_per_step"], phases=BWD_PHASES)
+    want_dx, want_ds = ref.rmsnorm_backward_reference(tx, ts, tg)
+    torch.testing.assert_close(dx, want_dx, atol=0, rtol=0)
+    scale = want_ds.abs().max().item()
+    torch.testing.assert_close(ds, want_ds, atol=TOL * scale, rtol=TOL)
+    _, vjp = jax.vjp(jref.rmsnorm_reference, jnp.asarray(x), jnp.asarray(s))
+    jdx, jds = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds), atol=TOL * scale, rtol=TOL)

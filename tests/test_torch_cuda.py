@@ -189,6 +189,14 @@ def test_flash_autograd_runs_both_kernels(gen):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
+def _rmsnorm_bwd_close(dx, ds, want_dx, want_ds, dtype):
+    tol = BWD_TOL[dtype]
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=tol, rtol=tol)
+    # dscale sums `rows` products: relative to its size
+    torch.testing.assert_close(ds.float(), want_ds.float(), atol=tol * want_ds.abs().max().item(),
+                               rtol=tol)
+
+
 @pytest.mark.parametrize("rows,d,dtype", [
     (4096, 2048, torch.bfloat16),  # gemma-2b training
     (4096, 2048, torch.float32),
@@ -196,6 +204,9 @@ def test_flash_autograd_runs_both_kernels(gen):
     (333, 3584, torch.bfloat16),
     (17, 8192, torch.bfloat16),
     (3, 5, torch.float32),
+    (4095, 2048, torch.bfloat16),  # a ragged last slice of rows
+    (64, 16384, torch.bfloat16),  # the widest row: 32 elements a thread
+    (9, 16384, torch.float32),
 ])
 def test_rmsnorm_backward_kernel_matches_plain(gen, rows, d, dtype):
     x, g = _randn(gen, (rows, d), dtype), _randn(gen, (rows, d), dtype)
@@ -206,11 +217,46 @@ def test_rmsnorm_backward_kernel_matches_plain(gen, rows, d, dtype):
     assert rmsnorm_bwd.launches == before + 1
     want_dx, want_ds = ref.rmsnorm_backward_reference(x, s, g)
     assert dx.dtype == ds.dtype == dtype
-    tol = BWD_TOL[dtype]
-    torch.testing.assert_close(dx.float(), want_dx.float(), atol=tol, rtol=tol)
-    # dscale sums `rows` products: relative to its size
-    torch.testing.assert_close(ds.float(), want_ds.float(), atol=tol * want_ds.abs().max().item(),
-                               rtol=tol)
+    _rmsnorm_bwd_close(dx, ds, want_dx, want_ds, dtype)
+
+
+@pytest.mark.parametrize("case", ["unaligned_x", "broadcast_g", "scale_dtype"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_kernel_other_layouts(gen, case, dtype):
+    """An x that does not start on 16 bytes (scalar loads), a broadcast g
+    (autograd's gradient of a sum) and a scale of the other dtype."""
+    rows, d = 300, 2048
+    x, g = _randn(gen, (rows, d), dtype), _randn(gen, (rows, d), dtype)
+    s = _randn(gen, (d,), dtype)
+    if case == "unaligned_x":
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(rows, d)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    elif case == "broadcast_g":
+        g = _randn(gen, (d,), dtype).expand(rows, d)
+    else:
+        s = s.to(torch.bfloat16 if dtype == torch.float32 else torch.float32)
+    dx, ds = rmsnorm_bwd(x, s, g)
+    want_dx, want_ds = ref.rmsnorm_backward_reference(x, s, g)
+    assert dx.dtype == dtype and ds.dtype == s.dtype
+    tol_dtype = torch.bfloat16 if torch.bfloat16 in (dtype, s.dtype) else torch.float32
+    _rmsnorm_bwd_close(dx, ds, want_dx, want_ds, tol_dtype)
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (4096, 2048, torch.bfloat16),  # gemma-2b training
+    (333, 3584, torch.bfloat16),
+    (1000, 896, torch.float32),
+])
+def test_rmsnorm_backward_kernel_is_deterministic(gen, rows, d, dtype):
+    """Two calls give bit-identical dx and dscale: the partial rows of dscale
+    are added in one fixed order, with no floating-point atomics."""
+    x, g = _randn(gen, (rows, d), dtype), _randn(gen, (rows, d), dtype)
+    s = _randn(gen, (d,), dtype)
+    first = rmsnorm_bwd(x, s, g)
+    second = rmsnorm_bwd(x, s, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_rmsnorm_autograd_runs_both_kernels(gen):
@@ -339,6 +385,28 @@ def test_wkv6_kernel_unaligned_inputs(gen, dtype):
     want_y, want_s = ref.wkv6_reference(*args)
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(sf, want_s, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("state", ["new", "in_place", "unaligned"])
+@pytest.mark.parametrize("T,K", [(1, 64), (2, 64), (31, 64), (1, 16), (1, 32), (3, 32)])
+def test_wkv6_step_kernel_matches_plain(gen, T, K, state):
+    """The step kernels (T < wkv6.CHUNK) at T = 1, 2 and 31: into a new
+    state, over s0 (the layer's cache), and from and into a state that does
+    not start on 16 bytes (scalar accesses)."""
+    B, H = 4, 32 if K == 64 else 3
+    r, k, v, lw, u, s0 = _wkv6_inputs(gen, B, H, T, K, torch.bfloat16)
+    if state == "unaligned":  # s0 from a storage offset by 4 bytes
+        s0 = torch.cat([s0.new_zeros(1), s0.flatten()])[1:].view(s0.shape)
+        assert s0.data_ptr() % 16 != 0 and s0.is_contiguous()
+    want_y, want_s = ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=torch.float32)
+    before = (wkv6.launches, wkv6.step_launches)
+    s_out = None if state == "new" else s0
+    y, sf = wkv6(r, k, v, lw, u, s0, s_out=s_out, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (wkv6.launches, wkv6.step_launches) == (before[0] + 1, before[1] + 1)
+    assert state == "new" or sf is s0
+    torch.testing.assert_close(y, want_y, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(sf, want_s, atol=2e-4, rtol=2e-4)
 
 

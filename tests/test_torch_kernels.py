@@ -100,16 +100,40 @@ def _wkv6_inputs(rng, B, H, T, K, dtype="float32", log_w=None, s0=True):
     return [r, k, v, (jnp.asarray(lw), torch.from_numpy(lw)), u, s]
 
 
-@pytest.mark.parametrize("T,chunk", [(64, 16), (96, 32), (50, 32), (16, 64), (1, 32)])
-def test_wkv6_plain_matches_oracle_and_pallas(rng, T, chunk):
-    pairs = _wkv6_inputs(rng, 2, 3, T, 16)
+# (T, Pallas chunk, K); T = 2 and 31 at K = 64 are lengths of the token loop
+WKV6_PLAIN = [(64, 16, 16), (96, 32, 16), (50, 32, 16), (16, 64, 16), (1, 32, 16),
+              (2, 32, 64), (31, 32, 64)]
+
+
+@pytest.mark.parametrize("T,chunk,K", WKV6_PLAIN,
+                         ids=[f"{T}-{c}" + (f"-K{K}" if K != 16 else "") for T, c, K in WKV6_PLAIN])
+def test_wkv6_plain_matches_oracle_and_pallas(rng, T, chunk, K):
+    pairs = _wkv6_inputs(rng, 2, 3, T, K)
     jin, tin = [p[0] for p in pairs], [p[1] for p in pairs]
     y, sf = wkv6(*tin)
-    assert y.shape == (2, 3, T, 16) and sf.dtype == torch.float32
+    assert y.shape == (2, 3, T, K) and sf.dtype == torch.float32
     for want_y, want_s in (jref.wkv6_reference(*jin),
                            pallas_wkv6(*jin, chunk=chunk, interpret=True)):
         _close(y, want_y, 2e-4)
         _close(sf, want_s, 2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [16, 64])
+def test_wkv6_wrapper_updates_the_state_in_place(rng, K, dtype):
+    """The model's decode call (T = 1, s_out = s0, fp32 y): the wrapper
+    writes the final state over s0 and returns it, equal to the JAX oracle
+    and the Pallas kernel on the same (fp32) inputs."""
+    pairs = _wkv6_inputs(rng, 4, 3, 1, K, dtype=dtype)
+    jin = [p[0].astype(jnp.float32) for p in pairs]
+    wants = [jref.wkv6_reference(*jin), pallas_wkv6(*jin, chunk=32, interpret=True)]
+    tin = [p[1] for p in pairs]
+    s0 = tin[5] = tin[5].clone()  # the JAX array may share the numpy buffer of tin[5]
+    y, sf = wkv6(*tin, s_out=s0, out_dtype=torch.float32)
+    assert sf is s0 and y.dtype == torch.float32
+    for want_y, want_s in wants:
+        _close(y, want_y, 2e-4)
+        _close(s0, want_s, 2e-4)
 
 
 def test_wkv6_plain_extreme_decay(rng):
