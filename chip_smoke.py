@@ -12,9 +12,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shapes and at the other options of the TPU kernel it replaces, with times
    of the kernel, the plain version and one PyTorch library call where there
    is one, beside the least time the card could take;
-   The backward kernels of flash attention and RMSNorm are held against
-   their plain versions the same way, at the training path's shapes and at
-   the other options; both give bit-identical gradients in two calls; flash
+   The backward kernels of flash attention, RMSNorm and WKV6 are held
+   against their plain versions the same way, at the training paths' shapes
+   and at the other options; each gives bit-identical gradients in two
+   calls; flash
    attention's backward time is split by launch (torch.profiler), and its
    yardstick is SDPA's backward under the flash backend (or the backend that
    takes the shape where flash refuses it, named).  Two floors of the timing
@@ -23,8 +24,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bytes the kernel must move;
 4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b on the
    card (kernels) against the same weights on the CPU (plain versions):
-   logits and greedy tokens; then one AdamW step of the 2-layer fp32
-   gemma-2b on the card against the same step on the CPU: the loss, every
+   logits and greedy tokens; then one AdamW step of each 2-layer fp32
+   model on the card against the same step on the CPU: the loss, every
    parameter's gradient and the parameter update;
 5. serve: full-width gemma-2b (18 layers) and then rwkv6-1.6b (24 layers),
    bf16, random weights from a fixed seed, each serving batch 4 x prompt
@@ -32,12 +33,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launch counts of each run (flash attention and RMSNorm on gemma-2b's
    path, the chunked WKV6 kernel in rwkv6's prefill and the decode-step
    one in its decode steps);
-6. train: full-width, full-depth gemma-2b in bf16, random weights from a
-   fixed seed, 6 AdamW steps of batch 4 x 1024 tokens of the synthetic
-   affine data through ``train.trainstep.train_step``: the loss of every
-   step, step ms, tok/s, peak device memory, the launches per step of the
-   four kernels on the path (flash attention and RMSNorm, forward and
-   backward) and a profile of one step.
+6. train: full-width, full-depth gemma-2b and then rwkv6-1.6b in bf16,
+   random weights from a fixed seed, each 6 AdamW steps of batch 4 x 1024
+   tokens of the synthetic affine data through
+   ``train.trainstep.train_step``: the loss of every step, step ms, tok/s,
+   peak device memory, the launches per step of the kernels on the path
+   (flash attention and RMSNorm, forward and backward, for gemma-2b; the
+   chunked WKV6 kernel and its backward for rwkv6) and a profile of one
+   step.
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -574,6 +577,113 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
                 bound_by=bound_by, library_ms=library_ms, copy_ms=copy_ms)
 
 
+def wkv6_grads_err(got, want, r) -> tuple:
+    """(largest error of each gradient relative to its largest entry, the
+    largest absolute error of any, ok):
+    dr, dk and dv within WKV_TOL of r's dtype, dlog_w, du and ds0 within the
+    fp32 one.  dlog_w is a difference of suffix sums whose common terms are
+    as large as r dr and cancel where the decay is strong (log_w = -50), so
+    its scale is the larger of its own largest entry and r dr's."""
+    floor = (r.float() * want[0].float()).abs().max().item()
+    errs, abs_err, ok = [], 0.0, True
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = w.float().abs().max().item()
+        if i == 3:
+            scale = max(scale, floor)
+        tol = WKV_TOL[r.dtype] if i < 3 else WKV_TOL[torch.float32]
+        err = (g.float() - w.float()).abs().max().item()
+        errs.append(err / max(scale, 1e-30))
+        abs_err = max(abs_err, err)
+        ok = (ok and g.dtype == w.dtype and bool(torch.isfinite(g.float()).all())
+              and torch.allclose(g.float(), w.float(), atol=tol * scale, rtol=tol))
+    return errs, abs_err, ok
+
+
+def check_wkv6_bwd(gen, cfg) -> dict:
+    """The WKV6 backward kernel against its plain version, timed at
+    rwkv6-1.6b's training shape as the model calls it (zero s0, no gradient
+    of the final state, fp32 dy from the fp32 y)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+
+    K = cfg.rwkv.head_dim
+    H = cfg.d_model // K
+    bf16, f32 = torch.bfloat16, torch.float32
+    model = dict(s0=False, ds_final=False)  # the rwkv6 model's call
+    cases = [  # (B, H, T, K, r/k/v dtype, dy dtype, options)
+        (TRAIN_BATCH, H, TRAIN_SEQ, K, bf16, f32, model),  # rwkv6-1.6b training
+        (TRAIN_BATCH, H, TRAIN_SEQ, K, bf16, f32, {}),
+        (TRAIN_BATCH, H, TRAIN_SEQ, K, f32, f32, {}),
+        (2, 3, 1, K, f32, f32, {}),  # the lengths of a staged chunk's edges
+        (2, 3, 31, 32, f32, f32, {}),
+        (2, 3, 45, 16, f32, f32, {}),
+        (2, 3, 45, K, bf16, bf16, {}),  # a bf16 y
+        (3, 2, 77, 32, bf16, f32, {}),
+        (2, 3, 1, 16, bf16, f32, model),
+        (2, 3, 31, 16, f32, f32, dict(log_w=-50.0)),  # extreme decay
+        (1, 2, 45, 32, f32, f32, dict(log_w=-50.0)),
+        (2, 3, 45, K, f32, f32, dict(layout="(B, H, T, K)")),  # contiguous, not the model's
+    ]
+    main = None
+    for B, Hh, T, Kk, dtype, dy_dtype, kw in cases:
+        def draw(dt, fill=None):
+            x = (randn(gen, (B, T, Hh, Kk), dt) if fill is None
+                 else torch.full((B, T, Hh, Kk), fill, device=DEVICE, dtype=dt))
+            return x.transpose(1, 2).contiguous() if "layout" in kw else x.transpose(1, 2)
+        r, k, v = (draw(dtype) for _ in range(3))
+        lw = draw(f32, kw["log_w"]) if "log_w" in kw else -torch.exp(draw(f32))
+        u = randn(gen, (Hh, Kk), f32)
+        s0 = (randn(gen, (B, Hh, Kk, Kk), f32) if kw.get("s0", True)
+              else torch.zeros((B, Hh, Kk, Kk), device=DEVICE))
+        dy = draw(dy_dtype)
+        ds = randn(gen, (B, Hh, Kk, Kk), f32) if kw.get("ds_final", True) else None
+        args = (r, k, v, lw, u, s0, dy, ds)
+        got = wkv6_bwd(*args)
+        want = ref.wkv6_backward_reference(*args)
+        sync()
+        errs, abs_err, ok = wkv6_grads_err(got, want, r)
+        log(f"  wkv6_bwd B={B} H={Hh} T={T} K=V={Kk} {str(dtype)[6:]} dy {str(dy_dtype)[6:]}"
+            f"{' s0 random' if kw.get('s0', True) else ' s0=0'}"
+            f"{' ds_final random' if ds is not None else ' no ds_final'}"
+            f"{' log_w=-50' if 'log_w' in kw else ''} {kw.get('layout', '(B, T, H, K) view')}: "
+            + " ".join(f"{n}={e:.3g}" for n, e in zip(("dr", "dk", "dv", "dlog_w", "du", "ds0"),
+                                                       errs))
+            + f" (relative to max|g|; tol {WKV_TOL[dtype]} for dr/dk/dv, "
+              f"{WKV_TOL[f32]} for the rest) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"wkv6_bwd disagrees with its plain version: {errs}")
+        if main is None:
+            main = dict(args=args, err=abs_err, dtype=dtype)
+
+    args = main["args"]
+    r, k, v, lw, u, s0, dy, _ = args
+    first, second = wkv6_bwd(*args), wkv6_bwd(*args)
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("wkv6_bwd: two calls on the same inputs differ")
+    log("  wkv6_bwd at the training shape: two calls give bit-identical dr, dk, dv, dlog_w, du "
+        "and ds0")
+    B, Hh, T, Kk = r.shape
+    ms = time_ms(lambda: wkv6_bwd(*args))
+    plain_ms = time_ms(lambda: ref.wkv6_backward_reference(*args), reps=5)
+    # bytes: r, k, v, log_w, u, s0 and dy read once (no ds_final); dr, dk, dv,
+    # dlog_w, du and ds0 written once
+    nbytes = (2 * (r.numel() + k.numel() + v.numel()) * r.element_size() + 2 * lw.numel() * 4
+              + u.numel() * 4 + 2 * s0.numel() * 4 + dy.numel() * dy.element_size()
+              + Hh * Kk * 4)
+    # per token and state entry: S rebuilt (3), S dy (2), G v (2), G^T k (2), G updated (3)
+    flops = 12.0 * B * Hh * T * Kk * Kk
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # the recurrence is fp32
+    log(f"  wkv6_bwd at the training shape (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16 r/k/v, fp32 dy, "
+        f"zero s0, no ds_final): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none "
+        f"(no single PyTorch call computes WKV6's gradient), bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({flops / 1e9:.2f} GFLOP fp32, {nbytes / 1e6:.1f} MB)")
+    return dict(name="wkv6_bwd", route="cuda", source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                replaces="src/repro/kernels/rwkv6_wkv.py:37",
+                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # the model on the card against the same model on the CPU
 # ---------------------------------------------------------------------------
@@ -615,6 +725,8 @@ def check_reference(cfg) -> None:
 
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
 TRAIN_FAMILIES = (  # (family, substrings of kernel names), first match wins
+    ("wkv6 backward", ("wkv6_bwd",)),
+    ("wkv6 forward", ("wkv6_",)),
     ("flash attention backward", ("flash_bwd", "group_sum")),
     ("flash attention forward", ("flash_fwd",)),
     ("rmsnorm", ("rmsnorm",)),
@@ -631,11 +743,16 @@ def check_train_reference(cfg) -> None:
     |g| > 1e-3 max|g| of its leaf (AdamW's first step is close to
     lr sign(g), so an entry near zero that rounds differently flips a whole
     update)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import wkv6_bwd
     from repro_torch.models import get_api
     from repro_torch.train.data import DataConfig, SyntheticData
     from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
     from repro_torch.train.trainstep import _accum_grads, batch_to_torch
 
+    counters = {"flash_attention_bwd": flash_attention_bwd, "rmsnorm_bwd": rmsnorm_bwd,
+                "wkv6_bwd": wkv6_bwd}
     small = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
     cpu_api, gpu_api = get_api(small, device="cpu"), get_api(small, device=DEVICE)
     models = {"cpu": cpu_api.init(seed=1), "card": gpu_api.init(seed=1)}
@@ -646,7 +763,9 @@ def check_train_reference(cfg) -> None:
     for name, api in (("cpu", cpu_api), ("card", gpu_api)):
         model = models[name]
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        launched = {k: f.launches for k, f in counters.items()}
         loss, grads = _accum_grads(model, batch_to_torch(batch, api.device), 1)
+        launched = {k: f.launches - launched[k] for k, f in counters.items()}
         adamw_update(model, grads, adamw_init(model), opt)
         res[name] = dict(loss=loss.item(), grads={n: g.cpu() for n, g in grads.items()},
                          delta={n: (p.detach() - before[n]).cpu()
@@ -667,23 +786,35 @@ def check_train_reference(cfg) -> None:
         f"gradients max_abs_err / max|g| over {len(res['cpu']['grads'])} leaves {g_err:.3g} "
         f"(tol {tol}); update max_abs_err where |g| > 1e-3 max|g| {d_err:.3g} "
         f"(tol {1e-2 * lr0:.3g}, 1e-2 x lr)")
+    log(f"  backward kernel launches in the card's step: {launched}")
     if not (loss_err <= tol * abs(res["cpu"]["loss"]) and g_err <= tol and d_err <= 1e-2 * lr0):
         raise AssertionError("the train step on the card disagrees with the CPU")
+    if not any(launched.values()):
+        raise AssertionError("the train step on the card launched no backward kernel")
+
 
 
 # ---------------------------------------------------------------------------
 # serving, full width
 # ---------------------------------------------------------------------------
 
-def expected_launches(cfg) -> dict:
-    """Kernel launches one generate call implies: one prefill, then one
-    decode step per further token."""
+def expected_launches(cfg, path: str = "serve") -> dict:
+    """Kernel launches the path implies: for "serve", one generate call (one
+    prefill, then one decode step per further token); for "train", one
+    train step (one forward and one backward pass)."""
+    L = cfg.num_layers
+    if path == "train":
+        if cfg.family == "ssm":  # rwkv: one WKV6 per layer each way; LayerNorm is plain torch
+            return {"flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0,
+                    "rmsnorm_bwd": 0, "wkv6": L, "wkv6_step": 0, "wkv6_bwd": L}
+        return {"flash_attention": L, "flash_attention_bwd": L, "rmsnorm": 2 * L + 1,
+                "rmsnorm_bwd": 2 * L + 1, "wkv6": 0, "wkv6_step": 0, "wkv6_bwd": 0}
     passes = 1 + (MAX_NEW - 1)
     if cfg.family == "ssm":  # rwkv: one WKV6 per layer per pass; LayerNorm is plain torch
-        return {"flash_attention": 0, "rmsnorm": 0, "wkv6": cfg.num_layers,  # chunked: prefill
-                "wkv6_step": cfg.num_layers * (passes - 1)}  # one token a step: decode
-    return {"flash_attention": cfg.num_layers,  # prefill only: decode is plain torch
-            "rmsnorm": (2 * cfg.num_layers + 1) * passes, "wkv6": 0, "wkv6_step": 0}
+        return {"flash_attention": 0, "rmsnorm": 0, "wkv6": L,  # chunked: prefill
+                "wkv6_step": L * (passes - 1)}  # one token a step: decode
+    return {"flash_attention": L,  # prefill only: decode is plain torch
+            "rmsnorm": (2 * L + 1) * passes, "wkv6": 0, "wkv6_step": 0}
 
 
 def serve(cfg) -> dict:
@@ -769,6 +900,7 @@ def train(cfg) -> dict:
     returns the kernels' launches in those steps."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
     from repro_torch.models import get_api
     from repro_torch.train.data import DataConfig, SyntheticData
     from repro_torch.train.optimizer import OptConfig, adamw_update
@@ -793,6 +925,7 @@ def train(cfg) -> dict:
 
     flash_attention.launches = flash_attention_bwd.launches = 0
     rmsnorm.launches = rmsnorm_bwd.launches = 0
+    wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = wkv6_bwd.launches = 0
     losses, step_ms = [], []
     for i in range(TRAIN_STEPS):
         if i == 0:
@@ -825,10 +958,13 @@ def train(cfg) -> dict:
                 raise AssertionError(f"parameters unchanged after the first step: {stuck}")
     launches = {"flash_attention": flash_attention.launches,
                 "flash_attention_bwd": flash_attention_bwd.launches,
-                "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches}
+                "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches,
+                "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches,
+                "wkv6_bwd": wkv6_bwd.launches}
+    if wkv6.launches != wkv6.chunk_launches + wkv6.step_launches:
+        raise AssertionError(f"wkv6.launches {wkv6.launches} is not the sum of its kernels'")
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
-    expect = {"flash_attention": cfg.num_layers, "flash_attention_bwd": cfg.num_layers,
-              "rmsnorm": 2 * cfg.num_layers + 1, "rmsnorm_bwd": 2 * cfg.num_layers + 1}
+    expect = expected_launches(cfg, "train")
     med = statistics.median(step_ms[1:])
     tok_s = TRAIN_BATCH * TRAIN_SEQ / med * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -887,8 +1023,8 @@ def profile_train_step(model, opt_state, batch, opt, hp, step_ms: float) -> None
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"    {ms:8.3f} ms  {name[:100]}")
     # the RMSNorm backward's column sum (column_sum_kernel) falls under "other"
-    names = sorted(n for n in by_name if "rmsnorm" in n or "column_sum" in n)
-    log("  rmsnorm kernels and the backward's column sum: " + ", ".join(
+    names = sorted(n for n in by_name if any(x in n for x in ("rmsnorm", "column_sum", "wkv6")))
+    log("  rmsnorm or wkv6 kernels (and the RMSNorm backward's column sum): " + ", ".join(
         f"{by_name[n]:.3f} ms x{sum(e.name == n for e in kern)} {n[:60]}" for n in names))
 
 
@@ -1011,7 +1147,8 @@ def main() -> int:
     log(f"  launch floor: one launch of a one-element kernel (add_) takes {floor_ms:.4f} ms "
         f"in time_ms's window")
     kernels = [check_flash(gen), check_rmsnorm(gen, gemma.d_model), *check_wkv6(gen, rwkv),
-               check_flash_bwd(gen), check_rmsnorm_bwd(gen, gemma.d_model)]
+               check_flash_bwd(gen), check_rmsnorm_bwd(gen, gemma.d_model),
+               check_wkv6_bwd(gen, rwkv)]
     for k in kernels:
         k["launch_floor_ms"] = floor_ms
     torch.cuda.empty_cache()
@@ -1019,8 +1156,9 @@ def main() -> int:
     for cfg in (gemma, rwkv):
         check_reference(cfg)
         torch.cuda.empty_cache()
-    check_train_reference(gemma)
-    torch.cuda.empty_cache()
+    for cfg in (gemma, rwkv):
+        check_train_reference(cfg)
+        torch.cuda.empty_cache()
     log("serve:")
     runs = {}
     for cfg in (gemma, rwkv):
@@ -1029,15 +1167,18 @@ def main() -> int:
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
     log("train:")
-    trained = train(gemma)
+    for cfg in (gemma, rwkv):
+        torch.cuda.empty_cache()
+        runs[f"train {cfg.name}"] = train(cfg)
     # each kernel's launches in the run of the path that drives it; the
-    # forward kernels run in gemma-2b's serving and training alike
+    # forward kernels run in serving and training alike
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],
-             f"train {gemma.name}": trained}
+             f"train {gemma.name}": runs[f"train {gemma.name}"],
+             f"train {rwkv.name}": runs[f"train {rwkv.name}"]}
     driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",
                  "wkv6": f"serve {rwkv.name}", "wkv6_step": f"serve {rwkv.name}",
                  "flash_attention_bwd": f"train {gemma.name}",
-                 "rmsnorm_bwd": f"train {gemma.name}"}
+                 "rmsnorm_bwd": f"train {gemma.name}", "wkv6_bwd": f"train {rwkv.name}"}
     for k in kernels:
         k["launches"] = paths[driven_by[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if n.get(k["name"])}

@@ -315,6 +315,58 @@ def wkv6_reference(
     return y.to(out_dtype or r.dtype), S
 
 
+def wkv6_backward_reference(
+    r: torch.Tensor,  # (B, H, T, K)
+    k: torch.Tensor,  # (B, H, T, K)
+    v: torch.Tensor,  # (B, H, T, V)
+    log_w: torch.Tensor,  # (B, H, T, K)
+    u: torch.Tensor,  # (H, K)
+    s0: torch.Tensor,  # (B, H, K, V)
+    dy: Optional[torch.Tensor],  # (B, H, T, V) the gradient of y, None for zeros
+    ds_final: Optional[torch.Tensor],  # (B, H, K, V) the gradient of S_{T-1}, None for zeros
+) -> Tuple[torch.Tensor, ...]:
+    """(dr, dk, dv in r's dtype; dlog_w, du, ds0 fp32) of
+    :func:`wkv6_reference`, in fp32, by the passes of the backward kernel.
+    With w = exp(log_w), S_{-1} = s0, G_{T-1} = ds_final and a_t = Σ_k r_t u k_t:
+
+    * forward in t, rebuilding S:  dr_t = S_{t-1} dy_t + u ⊙ k_t (dy_t · v_t),
+      Q_t = r_t ⊙ (S_{t-1} dy_t), and at the end Q_T = rowsum(ds_final ⊙ S_{T-1});
+    * backward in t, with G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ:
+      dk_t = r_t ⊙ u (dy_t · v_t) + G_t v_t,  dv_t = a_t dy_t + G_tᵀ k_t,
+      R_t = k_t ⊙ (G_t v_t),  dlog_w_t = Σ_{s>t} Q_s − Σ_{j≥t} R_j, each
+      step adding Q_{t+1} − R_t (no stored state, no division by w);
+    * du = Σ_{b,t} r_t ⊙ k_t (dy_t · v_t), ds0 = G_{-1}."""
+    B, H, T, K = r.shape
+    rf, kf, vf = (a.float() for a in (r, k, v))
+    dyf = torch.zeros_like(vf) if dy is None else dy.float()
+    wf = torch.exp(log_w.float())
+    uf = u.float()[None]  # (1, H, K)
+    dyv = (dyf * vf).sum(-1, keepdim=True)  # (B, H, T, 1)
+    S = s0.float()
+    dr = torch.empty_like(rf)
+    Q = torch.empty_like(rf)
+    for t in range(T):
+        sdy = torch.einsum("bhkv,bhv->bhk", S, dyf[:, :, t])
+        dr[:, :, t] = sdy + uf * kf[:, :, t] * dyv[:, :, t]
+        Q[:, :, t] = rf[:, :, t] * sdy
+        S = wf[:, :, t, :, None] * S + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+    G = torch.zeros_like(S) if ds_final is None else ds_final.float()
+    q_next = (G * S).sum(-1)  # Q_T
+    a = (rf * uf[:, :, None] * kf).sum(-1, keepdim=True)  # (B, H, T, 1)
+    dk, dv, dlog_w = torch.empty_like(kf), torch.empty_like(vf), torch.empty_like(rf)
+    acc = torch.zeros_like(q_next)
+    for t in range(T - 1, -1, -1):
+        gv = torch.einsum("bhkv,bhv->bhk", G, vf[:, :, t])
+        dk[:, :, t] = rf[:, :, t] * uf * dyv[:, :, t] + gv
+        dv[:, :, t] = a[:, :, t] * dyf[:, :, t] + torch.einsum("bhkv,bhk->bhv", G, kf[:, :, t])
+        acc = acc + (q_next - kf[:, :, t] * gv)
+        dlog_w[:, :, t] = acc
+        q_next = Q[:, :, t]
+        G = wf[:, :, t, :, None] * G + rf[:, :, t, :, None] * dyf[:, :, t, None, :]
+    du = (rf * kf * dyv).sum((0, 2))
+    return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlog_w, du, G
+
+
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """Round fp32 to TF32 (10 mantissa bits) to nearest, ties away from zero,
     as ``cvt.rna.tf32.f32`` does."""

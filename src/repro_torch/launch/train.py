@@ -3,11 +3,15 @@
 Runs on the card unless ``--device`` says otherwise:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
       --steps 6 --batch 4 --seq 1024 --lr 3e-4
-  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
+      --steps 6 --batch 4 --seq 1024 --lr 3e-4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke --device cpu
 
-It trains one model on one device with AdamW (``train.trainstep``) on the
-deterministic synthetic data of ``train.data`` and prints the JAX launcher's
-``step … loss … lr … tok/s`` line.  Two parts of the JAX launcher are not
+Every family the port serves trains: the dense ones (gemma-2b, olmo-1b,
+gemma2-9b, qwen2.5-14b) and rwkv6.  It trains one model on one device with
+AdamW (``train.trainstep``) on the deterministic synthetic data of
+``train.data`` and prints the JAX launcher's ``step … loss … lr … tok/s``
+line.  Two parts of the JAX launcher are not
 ported yet, so their flags are not offered: the control-plane line
 (``[control-plane] … LTRR``), which needs the port's own copies of
 ``core.topology``, ``core.decomposition``, ``core.reconfig`` and

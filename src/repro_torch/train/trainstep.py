@@ -4,7 +4,8 @@ of ``repro.train.trainstep``).
 One step is: the loss and its gradients, summed over ``grad_accum``
 microbatches as ``_accum_grads`` does in JAX, then one AdamW update of the
 model's parameters in place.  On the card the model's forward runs the flash
-attention and RMSNorm kernels, and autograd runs their backward kernels.
+attention and RMSNorm kernels (dense families) or the WKV6 kernel (rwkv6),
+and autograd runs their backward kernels.
 
 Of :class:`TrainHparams` only ``grad_accum`` is honoured here.  The
 distributed steps (``hierarchical``, ``compress``, ``zero1``, ``fsdp``) are

@@ -8,7 +8,10 @@ Tolerances: 2e-5 in float32 and 2e-2 in bfloat16, as in
 as the JAX tests hold the Pallas kernel, and 2e-2 in bfloat16.  The backward
 kernels: 1e-4 in float32 (dK and dV sum up to a few thousand products in
 another order than the plain version) and 2e-2 in bfloat16 (both sides
-compute in fp32 from the same bf16 inputs and round once).
+compute in fp32 from the same bf16 inputs and round once); WKV6's backward
+the forward's 2e-4 and 2e-2, relative to each gradient's largest entry
+(dlog_w's to the larger of its own and r ⊙ dr's, as
+``tests/test_torch_wkv6_bwd.py`` explains).
 """
 import pytest
 
@@ -16,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention, flash_attention_bwd, ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm, rmsnorm_bwd, wkv6  # noqa: E402
+from repro_torch.kernels.wkv6 import wkv6_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import _forward as flash_forward  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -430,7 +434,112 @@ def test_wkv6_raises_on_what_the_kernel_does_not_take(gen):
     r, k, v, lw, u, s0 = _wkv6_inputs(gen, 1, 2, 8, 64, torch.float32)
     with pytest.raises(TypeError):
         wkv6(r.half(), k.half(), v.half(), lw, u, s0)
-    with pytest.raises(RuntimeError, match="backward"):
-        wkv6(r.requires_grad_(), k, v, lw, u, s0)
+    with pytest.raises(RuntimeError, match="in place"):  # no gradient through s_out
+        wkv6(r.requires_grad_(), k, v, lw, u, s0, s_out=s0)
     with pytest.raises(ValueError):
         wkv6(r.detach(), k, v, lw, u.cpu(), s0)  # mixed devices
+
+
+WKV_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _wkv6_grads_close(got, want, r, dtype):
+    """Each gradient within the tolerance times its largest entry (dlog_w:
+    the larger of its own and r ⊙ dr's)."""
+    floor = (r.float() * want[0].float()).abs().max().item()
+    for name, g, w in zip(("dr", "dk", "dv", "dlog_w", "du", "ds0"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = WKV_BWD_TOL[dtype] if name in ("dr", "dk", "dv") else WKV_BWD_TOL[torch.float32]
+        scale = w.float().abs().max().item()
+        if name == "dlog_w":
+            scale = max(scale, floor)
+        torch.testing.assert_close(g.float(), w.float(), atol=tol * scale, rtol=tol, msg=name)
+
+
+@pytest.mark.parametrize("B,H,T,K,dtype,dy_dtype,kw", [
+    (4, 32, 1024, 64, torch.bfloat16, torch.float32, {}),  # rwkv6-1.6b training
+    (4, 32, 1024, 64, torch.float32, torch.float32, {}),
+    (2, 3, 1, 64, torch.float32, torch.float32, {}),
+    (2, 3, 31, 32, torch.float32, torch.float32, {}),
+    (2, 3, 45, 16, torch.float32, torch.float32, {}),
+    (2, 3, 45, 64, torch.bfloat16, torch.bfloat16, {}),  # bf16 dy: a bf16 y
+    (2, 3, 40, 16, torch.float32, torch.float32, dict(log_w=-50.0)),  # extreme decay
+    (1, 2, 33, 32, torch.float32, torch.float32, dict(ds_final=False)),  # the model's call
+])
+def test_wkv6_bwd_kernel_matches_plain(gen, B, H, T, K, dtype, dy_dtype, kw):
+    """In the model's strided (B, T, H, K) layout, with a nonzero s0 and
+    ds_final."""
+    r, k, v = (_randn(gen, (B, T, H, K), dtype).transpose(1, 2) for _ in range(3))
+    lw = (-torch.exp(_randn(gen, (B, T, H, K), torch.float32)) if "log_w" not in kw
+          else torch.full((B, T, H, K), kw["log_w"], device="cuda")).transpose(1, 2)
+    u, s0 = _randn(gen, (H, K), torch.float32), _randn(gen, (B, H, K, K), torch.float32)
+    dy = _randn(gen, (B, T, H, K), dy_dtype).transpose(1, 2)
+    ds = _randn(gen, (B, H, K, K), torch.float32) if kw.get("ds_final", True) else None
+    before = wkv6_bwd.launches
+    got = wkv6_bwd(r, k, v, lw, u, s0, dy, ds)
+    torch.cuda.synchronize()
+    assert wkv6_bwd.launches == before + 1
+    _wkv6_grads_close(got, ref.wkv6_backward_reference(r, k, v, lw, u, s0, dy, ds), r, dtype)
+
+
+def test_wkv6_bwd_is_deterministic(gen):
+    r, k, v, lw, u, s0 = _wkv6_inputs(gen, 4, 32, 1024, 64, torch.bfloat16)
+    dy = _randn(gen, (4, 32, 1024, 64), torch.float32)
+    first = wkv6_bwd(r, k, v, lw, u, s0, dy, None)
+    second = wkv6_bwd(r, k, v, lw, u, s0, dy, None)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_wkv6_autograd_runs_both_kernels(gen):
+    """A gradient through ops.wkv6 (model layout, bf16 r/k/v, fp32 y) runs
+    the forward kernel and then the backward kernel, and equals autograd of
+    the plain version on the CPU."""
+    r, k, v, lw, u, _ = _wkv6_inputs(gen, 2, 4, 70, 64, torch.bfloat16)
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (r, k, v, lw)]
+    leaves.append(u.requires_grad_())
+    s0 = torch.zeros(2, 4, 64, 64, device="cuda")
+    before = (wkv6.launches, wkv6_bwd.launches)
+    y, _ = ops.wkv6(*leaves, s0, out_dtype=torch.float32)
+    w = _randn(gen, y.shape, torch.float32)
+    grads = torch.autograd.grad((y * w).sum(), leaves)
+    assert (wkv6.launches, wkv6_bwd.launches) == (before[0] + 1, before[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    want_y, _ = ref.wkv6_reference(*(t.transpose(1, 2) for t in cpu[:4]), cpu[4], s0.cpu(),
+                                   out_dtype=torch.float32)
+    want = torch.autograd.grad((want_y.transpose(1, 2) * w.cpu()).sum(), cpu)
+    for g, x, c in zip(grads, leaves, want):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        tol = WKV_BWD_TOL[x.dtype]
+        torch.testing.assert_close(g.cpu().float(), c.float(), atol=tol * c.float().abs().max().item(),
+                                   rtol=tol)
+
+
+def test_rwkv6_gradient_on_the_card_matches_the_cpu(gen):
+    """lm_loss and every parameter's gradient of a 2-layer, narrow fp32
+    rwkv6-1.6b: the card (WKV6 forward and backward kernels) against the CPU
+    (plain versions), same weights and batch."""
+    from repro_torch.models import get_api, smoke_config
+    from repro_torch.models.transformer import lm_loss
+
+    cfg = smoke_config("rwkv6-1.6b").replace(num_layers=2)
+    cpu_model = get_api(cfg, device="cpu").init(seed=0)
+    gpu_model = get_api(cfg, device="cuda").init(seed=0)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=torch.Generator().manual_seed(0))
+    out = {}
+    for name, model in (("cpu", cpu_model), ("card", gpu_model)):
+        dev = "cpu" if name == "cpu" else "cuda"
+        batch = {"tokens": toks[:, :-1].to(dev), "targets": toks[:, 1:].to(dev)}
+        before = (wkv6.launches, wkv6_bwd.launches)
+        loss = lm_loss(model, batch)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        after = (wkv6.launches, wkv6_bwd.launches)
+        assert after == (before if name == "cpu" else (before[0] + 2, before[1] + 2))
+        out[name] = (loss.item(), {n: g.cpu() for n, g in zip(names, grads)})
+    assert out["card"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    for n, g in out["cpu"][1].items():
+        torch.testing.assert_close(out["card"][1][n], g, atol=1e-3 * g.abs().max().item(),
+                                   rtol=1e-3)

@@ -236,8 +236,11 @@ def _batch(cfg, B=2, S=24, seed=0):
     return d.batch_at(0)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", "gemma2-9b", "qwen2.5-14b", "rwkv6-1.6b"])
 def test_lm_loss_and_every_gradient_match_jax(arch):
+    """rwkv6's WKV6 gradient comes from the backward plain version,
+    ``ref.wkv6_backward_reference`` (the wrapper's autograd function on the
+    CPU); JAX's from XLA's gradient of its chunked scan."""
     jcfg, jparams, cfg, model = _bridged(arch)
     batch = _batch(cfg)
     want, jgrads = jax.value_and_grad(jtransformer.lm_loss)(
@@ -264,7 +267,7 @@ def test_return_hidden_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=MODEL_TOL, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", "rwkv6-1.6b"])
 def test_train_step_matches_jax(arch):
     """One AdamW step.  At step 0 AdamW's update is close to lr sign(g), so a
     gradient entry near zero on which the two stacks round differently flips
@@ -351,6 +354,18 @@ def test_train_cli_smoke(capsys):
                     "--log-every", "1", "--batch", "2", "--seq", "16"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 3, lines
+    for i, line in enumerate(lines):
+        m = re.fullmatch(r"step +(\d+)  loss (\d+\.\d+)  lr (\S+)  ([\d,]+) tok/s", line)
+        assert m and int(m.group(1)) == i and np.isfinite(float(m.group(2))), line
+
+
+def test_train_cli_smoke_rwkv6(capsys):
+    """rwkv6-1.6b through the train CLI on the CPU: its WKV6 gradient goes
+    through the backward plain version."""
+    train_cli.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu", "--steps", "2",
+                    "--log-every", "1", "--batch", "2", "--seq", "16"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2, lines
     for i, line in enumerate(lines):
         m = re.fullmatch(r"step +(\d+)  loss (\d+\.\d+)  lr (\S+)  ([\d,]+) tok/s", line)
         assert m and int(m.group(1)) == i and np.isfinite(float(m.group(2))), line

@@ -91,11 +91,12 @@ def variants(src: str, others: dict) -> dict:
     return {**out, **others}
 
 
-def build_variants(src: str, out_dir: str, others: dict) -> dict:
-    """Compile every variant in parallel; returns {name: (library path, log)}."""
+def build_variants(srcs: dict, out_dir: str) -> dict:
+    """Compile every source ({name: text}) in parallel; returns {name:
+    (library path, log)}."""
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, text in variants(src, others).items():
+    for name, text in srcs.items():
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
@@ -118,7 +119,7 @@ def main() -> int:
         return 1
     src = (build.CSRC / "wkv6.cu").read_text()
     others = {os.path.splitext(os.path.basename(p))[0]: open(p).read() for p in sys.argv[1:]}
-    libs = build_variants(src, os.path.join(ROOT, "build", "ablation_wkv6"), others)
+    libs = build_variants(variants(src, others), os.path.join(ROOT, "build", "ablation_wkv6"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, H, K = 4, 32, 64
     inputs = {}
