@@ -16,7 +16,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against their plain versions the same way, at the training paths' shapes
    and at the other options; each gives bit-identical gradients in two
    calls; flash
-   attention's backward time is split by launch (torch.profiler), and its
+   attention's and WKV6's backward times are split by launch (torch.profiler;
+   WKV6's: the state sweeps, the chunks, the carry of dlog_w), and flash's
    yardstick is SDPA's backward under the flash backend (or the backend that
    takes the shape where flash refuses it, named).  Two floors of the timing
    window are printed: one launch of a one-element kernel, and, beside the
@@ -412,7 +413,7 @@ def check_flash_bwd(gen) -> dict:
     log("  flash_attention_bwd at the training shape: two calls give bit-identical dq, dk, dv")
     ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout))
     plain_ms = time_ms(lambda: ref.mha_backward_reference(q, k, v, out, lse, dout), reps=5)
-    split = bwd_launch_split(main["args"])
+    split = launch_split(lambda: flash_attention_bwd(*main["args"]), "flash_attention_bwd")
     log("  flash_attention_bwd at the training shape, device ms per call by launch "
         "(torch.profiler over 5 back-to-back calls): "
         + ", ".join(f"{name} {t:.4f}" for name, t in split.items()))
@@ -436,19 +437,17 @@ def check_flash_bwd(gen) -> dict:
                 ms_by_launch=split)
 
 
-def bwd_launch_split(args, calls: int = 5) -> dict:
-    """Device ms per call of each kernel that ``flash_attention_bwd(*args)``
-    launches, from torch.profiler over ``calls`` back-to-back calls."""
+def launch_split(fn, what: str, calls: int = 5) -> dict:
+    """Device ms per call of each kernel that ``fn()`` launches, from
+    torch.profiler over ``calls`` back-to-back calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
-
-    flash_attention_bwd(*args)
+    fn()
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            flash_attention_bwd(*args)
+            fn()
         sync()
     split = {}
     for e in prof.events():
@@ -457,7 +456,7 @@ def bwd_launch_split(args, calls: int = 5) -> dict:
             name = hit.group(0) if hit else e.name[:60]
             split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     if not split:
-        raise AssertionError("torch.profiler saw no device time in flash_attention_bwd")
+        raise AssertionError(f"torch.profiler saw no device time in {what}")
     return split
 
 
@@ -623,13 +622,24 @@ def check_wkv6_bwd(gen, cfg) -> dict:
         (2, 3, 31, 16, f32, f32, dict(log_w=-50.0)),  # extreme decay
         (1, 2, 45, 32, f32, f32, dict(log_w=-50.0)),
         (2, 3, 45, K, f32, f32, dict(layout="(B, H, T, K)")),  # contiguous, not the model's
+        (2, 3, 32, K, f32, f32, {}),  # one whole chunk of the kernels' 32 tokens
+        (2, 3, 33, K, bf16, f32, {}),  # a chunk and one token
+        (1, 4, 1000, K, bf16, f32, {}),  # several chunks, a ragged tail
+        (1, 4, 1000, K, f32, f32, dict(log_w=-50.0)),
+        (2, 3, 100, 16, f32, f32, {}),
+        (2, 3, 100, 32, bf16, f32, {}),
+        (2, 3, 77, 32, f32, f32, dict(layout="unaligned")),  # plain loads, not cp.async
+        (2, 3, 77, K, bf16, bf16, dict(layout="unaligned")),
     ]
     main = None
     for B, Hh, T, Kk, dtype, dy_dtype, kw in cases:
         def draw(dt, fill=None):
-            x = (randn(gen, (B, T, Hh, Kk), dt) if fill is None
-                 else torch.full((B, T, Hh, Kk), fill, device=DEVICE, dtype=dt))
-            return x.transpose(1, 2).contiguous() if "layout" in kw else x.transpose(1, 2)
+            n = B * T * Hh * Kk
+            x = (randn(gen, (n + 1,), dt) if fill is None
+                 else torch.full((n + 1,), fill, device=DEVICE, dtype=dt))
+            x = (x[1:] if kw.get("layout") == "unaligned" else x[:n]).view(B, T, Hh, Kk)
+            return x.transpose(1, 2).contiguous() if "layout" in kw and kw["layout"] != "unaligned" \
+                else x.transpose(1, 2)
         r, k, v = (draw(dtype) for _ in range(3))
         lw = draw(f32, kw["log_w"]) if "log_w" in kw else -torch.exp(draw(f32))
         u = randn(gen, (Hh, Kk), f32)
@@ -645,7 +655,8 @@ def check_wkv6_bwd(gen, cfg) -> dict:
         log(f"  wkv6_bwd B={B} H={Hh} T={T} K=V={Kk} {str(dtype)[6:]} dy {str(dy_dtype)[6:]}"
             f"{' s0 random' if kw.get('s0', True) else ' s0=0'}"
             f"{' ds_final random' if ds is not None else ' no ds_final'}"
-            f"{' log_w=-50' if 'log_w' in kw else ''} {kw.get('layout', '(B, T, H, K) view')}: "
+            f"{' log_w=-50' if 'log_w' in kw else ''} "
+            f"{kw.get('layout', '(B, T, H, K) view').replace('unaligned', '(B, T, H, K) view one element in')}: "
             + " ".join(f"{n}={e:.3g}" for n, e in zip(("dr", "dk", "dv", "dlog_w", "du", "ds0"),
                                                        errs))
             + f" (relative to max|g|; tol {WKV_TOL[dtype]} for dr/dk/dv, "
@@ -666,6 +677,9 @@ def check_wkv6_bwd(gen, cfg) -> dict:
     B, Hh, T, Kk = r.shape
     ms = time_ms(lambda: wkv6_bwd(*args))
     plain_ms = time_ms(lambda: ref.wkv6_backward_reference(*args), reps=5)
+    split = launch_split(lambda: wkv6_bwd(*args), "wkv6_bwd")
+    log("  wkv6_bwd at the training shape, device ms per call by launch (torch.profiler over 5 "
+        "back-to-back calls): " + ", ".join(f"{name} {t:.4f}" for name, t in split.items()))
     # bytes: r, k, v, log_w, u, s0 and dy read once (no ds_final); dr, dk, dv,
     # dlog_w, du and ds0 written once
     nbytes = (2 * (r.numel() + k.numel() + v.numel()) * r.element_size() + 2 * lw.numel() * 4
@@ -681,7 +695,7 @@ def check_wkv6_bwd(gen, cfg) -> dict:
     return dict(name="wkv6_bwd", route="cuda", source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
                 replaces="src/repro/kernels/rwkv6_wkv.py:37",
                 max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, ms_by_launch=split)
 
 
 # ---------------------------------------------------------------------------

@@ -374,14 +374,22 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor, tf32x3: bool) -> torch.Tensor:
+def _tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """fp32 cut to TF32's 10 mantissa bits (toward zero), as the tensor cores
+    read an operand that is not already TF32."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, tf32x3: bool, cut: bool = False) -> torch.Tensor:
     """a @ b with the operands rounded as the tensor cores see them: with
     ``tf32x3`` each is split into hi = tf32(x) and lo = tf32(x - hi) and the
-    product is hi·hi + hi·lo + lo·hi; else one TF32 pass."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
+    product is hi·hi + hi·lo + lo·hi; else one TF32 pass.  tf32 rounds to
+    nearest (``cvt.rna``), or with ``cut`` cuts the low bits off."""
+    rnd = _tf32_cut if cut else _tf32
+    a_hi, b_hi = rnd(a), rnd(b)
     if not tf32x3:
         return a_hi @ b_hi
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    a_lo, b_lo = rnd(a - a_hi), rnd(b - b_hi)
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
@@ -452,3 +460,172 @@ def wkv6_chunked_reference(
         S = torch.exp(total).transpose(-1, -2) * S + _mm(kd.transpose(-1, -2), vc, tf32x3)
     y = torch.cat(ys, dim=2)[:, :, :T]
     return y.to(out_dtype or r.dtype), S
+
+
+def chunk_cumsum(lw: torch.Tensor, part: int = 8) -> torch.Tensor:
+    """CL (..., C + 1, K) of a chunk's log_w (..., C, K), as every WKV6
+    backward kernel forms it: CL[0] = 0 and CL[t + 1] = cl_t, the inclusive
+    sum over tokens 0..t, taken within parts of ``part`` tokens and then
+    with the totals of the earlier parts added in order.  So cl_prev_t =
+    CL[t], cl_t = CL[t + 1] and cl_C = CL[C], each one value."""
+    *lead, C, K = lw.shape
+    parts = lw.reshape(*lead, C // part, part, K)
+    inner = torch.cumsum(parts, dim=-2)
+    totals = inner[..., -1, :]
+    pre = torch.cumsum(totals, dim=-2) - totals  # the earlier parts' totals
+    cl = (pre[..., None, :] + inner).reshape(*lead, C, K)
+    return torch.cat([torch.zeros_like(cl[..., :1, :]), cl], dim=-2)
+
+
+def _decays(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """D[t, j] = w_{j+1} ⋯ w_{t−1} for j < t (0 elsewhere) over a sub-chunk's
+    w (..., S, K), twice: multiplied out down each row (from w_{t−1}, for A
+    and dr) and down each column (from w_{j+1}, for dk), as the kernel
+    carries them."""
+    *lead, S, K = w.shape
+    rows = torch.zeros(*lead, S, S, K)
+    cols = torch.zeros(*lead, S, S, K)
+    for t in range(1, S):
+        d = torch.ones(*lead, K)
+        for j in range(t - 1, -1, -1):
+            rows[..., t, j, :] = d
+            d = d * w[..., j, :]
+    for j in range(S - 1):
+        d = torch.ones(*lead, K)
+        for t in range(j + 1, S):
+            cols[..., t, j, :] = d
+            d = d * w[..., t, :]
+    return rows, cols
+
+
+def wkv6_backward_chunked_reference(
+    r: torch.Tensor,  # (B, H, T, K)
+    k: torch.Tensor,  # (B, H, T, K)
+    v: torch.Tensor,  # (B, H, T, V)
+    log_w: torch.Tensor,  # (B, H, T, K)
+    u: torch.Tensor,  # (H, K)
+    s0: torch.Tensor,  # (B, H, K, V)
+    dy: Optional[torch.Tensor],  # (B, H, T, V), None for zeros
+    ds_final: Optional[torch.Tensor],  # (B, H, K, V), None for zeros
+    *,
+    chunk: int = 32,
+    sub: int = 16,
+    tf32x3: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradients of :func:`wkv6_backward_reference` in the chunked form of
+    ``csrc/wkv6_bwd.cu``, step for step, for the tests.  Chunks of ``chunk``
+    tokens (the last one zero-padded, log_w 0), cl as :func:`chunk_cumsum`
+    forms it, w = exp(log_w):
+
+    * two state sweeps: S_in of every chunk from S_out = diag(exp(cl_C)) S_in
+      + (k ⊙ exp(cl_C − cl))ᵀ v, and G_out (the gradient of the state after
+      the chunk; ds_final for the last) from G_in = diag(exp(cl_C)) G_out +
+      (r ⊙ exp(cl_prev))ᵀ dy; ds0 = G_in of chunk 0;
+    * per chunk, with dA = dy vᵀ and A the forward's matrix (off-diagonal
+      sub-chunk block (r ⊙ exp(cl_prev − g)) (k ⊙ exp(g − cl))ᵀ about g =
+      cl_prev at the later sub-chunk's start; diagonal blocks elementwise with
+      the decay carried as a product of w's; r·(u ⊙ k) on the diagonal):
+      dr = exp(cl_prev) ⊙ (dy S_inᵀ) + intra(dA, k) + u ⊙ k (dy·v),
+      dk = exp(cl_C − cl) ⊙ (v G_outᵀ) + intra(dAᵀ, r) + r ⊙ u (dy·v),
+      dv = Aᵀ dy + (k ⊙ exp(cl_C − cl)) G_out;
+    * dlog_w from Q_t = r_t ⊙ (dr_t − u ⊙ k_t (dy_t·v_t)) and R_t = k_t ⊙
+      (dk_t − r_t ⊙ u (dy_t·v_t)): per token Q_{t+1} − R_t summed from the
+      end within the chunk (its last token's pair left out), then a carry
+      pass adds, from the last chunk back, each chunk's cross pair (the next
+      chunk's Q_0, or Q_T = rowsum(ds_final ⊙ S_final), minus its last R) and
+      the later chunks' totals.
+
+    The products run through :func:`_mm` with the kernels' split, hi and lo
+    cut to TF32 (3xTF32 when ``tf32x3``, else one TF32 pass); the diagonal
+    blocks stay in fp32.  Returns (dr, dk, dv in r's dtype; dlog_w, du, ds0
+    fp32)."""
+    B, H, T, K = r.shape
+    C = chunk
+    nc = -(-T // C)
+    pad = nc * C - T
+
+    def mm(a, b):
+        return _mm(a, b, tf32x3, cut=True)
+
+    def chunks(a):
+        a = torch.nn.functional.pad(a.float(), (0, 0, 0, pad))
+        return a.reshape(B, H, nc, C, a.shape[-1])
+
+    rc, kc, vc, lc = (chunks(a) for a in (r, k, v, log_w))
+    dc = chunks(torch.zeros_like(v, dtype=torch.float32) if dy is None else dy)
+    uf = u.float()[None, :, None, None, :]  # (1, H, 1, 1, K)
+    CL = chunk_cumsum(lc)
+    clp, cl, total, g = CL[..., :C, :], CL[..., 1:, :], CL[..., C:, :], CL[..., sub:sub + 1, :]
+    kd = kc * torch.exp(total - cl)  # k ⊙ exp(cl_C − cl)
+    decay = torch.exp(total).transpose(-1, -2)  # (B, H, nc, K, 1)
+
+    S = s0.float()
+    s_in = []
+    for c in range(nc):  # the forward sweep
+        s_in.append(S)
+        S = decay[:, :, c] * S + mm(kd[:, :, c].transpose(-1, -2), vc[:, :, c])
+    G = torch.zeros_like(S) if ds_final is None else ds_final.float()
+    q_last = (G * S).sum(-1)  # Q_T = rowsum(ds_final ⊙ S_final)
+    rd = rc * torch.exp(clp)  # r ⊙ exp(cl_prev)
+    g_out = [None] * nc
+    for c in range(nc - 1, -1, -1):  # the backward sweep
+        g_out[c] = G
+        G = decay[:, :, c] * G + mm(rd[:, :, c].transpose(-1, -2), dc[:, :, c])
+    ds0 = G
+    s_in, g_out = torch.stack(s_in, 2), torch.stack(g_out, 2)  # (B, H, nc, K, V)
+
+    # the chunk-parallel pass
+    lo, hi = slice(0, sub), slice(sub, C)
+    dA = mm(dc, vc.transpose(-1, -2))  # dy vᵀ, (B, H, nc, C, C)
+    bonus = torch.diagonal(dA, dim1=-2, dim2=-1)[..., None]  # dy_t · v_t
+    rq = rc[..., hi, :] * torch.exp(clp[..., hi, :] - g)  # r ⊙ exp(cl_prev − g), later sub-chunk
+    kq = kc[..., lo, :] * torch.exp(g - cl[..., lo, :])  # k ⊙ exp(g − cl), earlier sub-chunk
+    A = torch.zeros(B, H, nc, C, C)
+    A[..., hi, lo] = mm(rq, kq.transpose(-1, -2))
+    intra_dr, intra_dk = torch.zeros_like(rc), torch.zeros_like(kc)
+    below = torch.tril(torch.ones(sub, sub), diagonal=-1)
+    w = torch.exp(lc)
+    for p in (lo, hi):
+        rp, kp = rc[..., p, :], kc[..., p, :]
+        rows, cols = _decays(w[..., p, :])
+        A[..., p, p] = (torch.einsum("...tk,...jk,...tjk->...tj", rp, kp, rows)
+                        + torch.diag_embed((rp * uf * kp).sum(-1)))
+        dap = dA[..., p, p] * below
+        intra_dr[..., p, :] = torch.einsum("...tj,...jk,...tjk->...tk", dap, kp, rows)
+        intra_dk[..., p, :] = torch.einsum("...tj,...tk,...tjk->...jk", dap, rp, cols)
+    drm = torch.exp(clp) * mm(dc, s_in.transpose(-1, -2))
+    drm[..., hi, :] += torch.exp(clp[..., hi, :] - g) * mm(dA[..., hi, lo], kq)
+    dkm = torch.exp(total - cl) * mm(vc, g_out.transpose(-1, -2))
+    dkm[..., lo, :] += (torch.exp(g - cl[..., lo, :])
+                        * mm(dA[..., hi, lo].transpose(-1, -2), rq))
+    dr = drm + intra_dr + uf * kc * bonus
+    dk = dkm + intra_dk + rc * uf * bonus
+    dv = mm(kd, g_out) + mm(A.transpose(-1, -2), dc)
+
+    # dlog_w: per token Q_{t+1} − R_t, summed from the end of each part of 8
+    # tokens, then the later parts' totals; a chunk's last pair is the carry's
+    Q, R = rc * (drm + intra_dr), kc * (dkm + intra_dk)
+    n_last = T - (nc - 1) * C
+    D = torch.zeros_like(Q)
+    D[..., :-1, :] = Q[..., 1:, :] - R[..., :-1, :]
+    D[:, :, -1, n_last - 1:] = 0.0
+    parts = D.reshape(B, H, nc, C // 8, 8, K)
+    local = parts.flip(-2).cumsum(-2).flip(-2)
+    later = local[..., 0, :].flip(-2).cumsum(-2).flip(-2) - local[..., 0, :]
+    P = (local + later[..., None, :]).reshape(B, H, nc, C, K)
+    r_last = R[:, :, :, C - 1].clone()
+    r_last[:, :, -1] = R[:, :, -1, n_last - 1]
+    carry = torch.empty(B, H, nc, K)
+    run = q_last - r_last[:, :, -1]
+    carry[:, :, -1] = run
+    for c in range(nc - 2, -1, -1):
+        run = (Q[:, :, c + 1, 0] - r_last[:, :, c]) + (P[:, :, c + 1, 0] + run)
+        carry[:, :, c] = run
+    dlog_w = P + carry[..., None, :]
+    du = (rc * kc * bonus).sum((0, 2, 3))
+
+    def tokens(a, dtype):
+        return a.reshape(B, H, nc * C, a.shape[-1])[:, :, :T].to(dtype)
+
+    return (tokens(dr, r.dtype), tokens(dk, k.dtype), tokens(dv, v.dtype),
+            tokens(dlog_w, torch.float32), du, ds0)

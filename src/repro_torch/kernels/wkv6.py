@@ -18,8 +18,10 @@ size is a TPU tiling choice and is not part of the contract.  Beyond it,
 rwkv6 model keeps y up to its group norm.
 
 The JAX package leaves WKV6's gradient to XLA (it differentiates
-``ssm.chunked_scan``); the port's backward is its own kernel,
-``csrc/wkv6_bwd.cu`` (:func:`wkv6_bwd`).  :func:`wkv6` is differentiable:
+``ssm.chunked_scan``); the port's backward is its own, ``csrc/wkv6_bwd.cu``
+(:func:`wkv6_bwd`): two sweeps that write the state and its gradient at
+every chunk's edge, then the chunks in parallel on the tensor cores, then a
+carry of dlog_w across chunks.  :func:`wkv6` is differentiable:
 when a gradient is wanted it runs the forward kernel inside a
 ``torch.autograd.Function`` that saves the inputs, and the backward kernel
 rebuilds the states from them.  Without one (serving) the call is the
@@ -69,8 +71,10 @@ def _bind() -> ctypes.CDLL:
 def _bind_bwd() -> ctypes.CDLL:
     lib = load_library("wkv6_bwd")
     fn = lib.wkv6_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
+    lib.wkv6_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.wkv6_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.wkv6_bwd_error_string.argtypes = [ctypes.c_int]
     lib.wkv6_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -206,9 +210,11 @@ def wkv6_bwd(
     ds_final: Optional[torch.Tensor],  # (B, H, K, V) the gradient of s_final, None for zeros
 ) -> Tuple[torch.Tensor, ...]:
     """(dr, dk, dv in r's dtype and the inputs' layouts; dlog_w fp32 in
-    log_w's layout; du (H, K) and ds0 fp32).  The kernel writes one du part
-    per (b, h), summed here over b by a reduction with no atomics, so two
-    calls give bit-identical gradients."""
+    log_w's layout; du (H, K) and ds0 fp32).  On the card: three launches
+    (the two state sweeps, the chunks in parallel, the carry of dlog_w
+    across chunks) counted as one in ``wkv6_bwd.launches``.  They write one
+    du part per (b, h), summed here over b by a reduction with no atomics, so
+    two calls give bit-identical gradients."""
     _check(r, k, v, log_w, u, s0, None, None)
     B, H, T, K = r.shape
     if dy is not None and (dy.shape != v.shape or dy.device != r.device):
@@ -241,15 +247,19 @@ def wkv6_bwd(
     dr, dk, dv, dlog_w = (torch.empty_like(t) for t in (r, k, v, log_w))
     du_part = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
     ds0 = torch.empty_like(s0, memory_format=torch.contiguous_format)
+    lib = _bind_bwd()
+    # the chunks' edge states and summaries, freed on return (the caching
+    # allocator keeps the block for the next call)
+    scratch = torch.empty(lib.wkv6_bwd_scratch_floats(B, H, T, K), dtype=torch.float32,
+                          device=r.device)
     strides = (ctypes.c_longlong * 27)(
         *(s for t in (r, k, v, log_w, dy, dr, dk, dv, dlog_w) for s in t.stride()[:3]))
-    lib = _bind_bwd()
     err = lib.wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
         s0.data_ptr(), dy.data_ptr(), ds_final.data_ptr() if ds_final is not None else None,
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), du_part.data_ptr(),
-        ds0.data_ptr(), _BWD_DTYPE[r.dtype], _BWD_DTYPE[dy.dtype], B, H, T, K, strides,
-        torch.cuda.current_stream(r.device).cuda_stream,
+        ds0.data_ptr(), scratch.data_ptr(), _BWD_DTYPE[r.dtype], _BWD_DTYPE[dy.dtype],
+        B, H, T, K, strides, torch.cuda.current_stream(r.device).cuda_stream,
     )
     if err:
         msg = lib.wkv6_bwd_error_string(err).decode()

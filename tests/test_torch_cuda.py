@@ -465,15 +465,28 @@ def _wkv6_grads_close(got, want, r, dtype):
     (2, 3, 45, 64, torch.bfloat16, torch.bfloat16, {}),  # bf16 dy: a bf16 y
     (2, 3, 40, 16, torch.float32, torch.float32, dict(log_w=-50.0)),  # extreme decay
     (1, 2, 33, 32, torch.float32, torch.float32, dict(ds_final=False)),  # the model's call
+    (2, 3, 32, 64, torch.float32, torch.float32, {}),  # one whole chunk of 32 tokens
+    (2, 3, 33, 64, torch.bfloat16, torch.float32, {}),  # a chunk and one token
+    (1, 4, 1000, 64, torch.bfloat16, torch.float32, {}),  # several chunks, a ragged tail
+    (1, 4, 1000, 64, torch.float32, torch.float32, {}),
+    (2, 3, 100, 16, torch.float32, torch.float32, {}),
+    (2, 3, 100, 32, torch.bfloat16, torch.float32, {}),
+    (2, 3, 77, 32, torch.float32, torch.float32, dict(unaligned=True)),  # plain loads, not cp.async
+    (2, 3, 77, 64, torch.bfloat16, torch.bfloat16, dict(unaligned=True)),
 ])
 def test_wkv6_bwd_kernel_matches_plain(gen, B, H, T, K, dtype, dy_dtype, kw):
     """In the model's strided (B, T, H, K) layout, with a nonzero s0 and
-    ds_final."""
-    r, k, v = (_randn(gen, (B, T, H, K), dtype).transpose(1, 2) for _ in range(3))
-    lw = (-torch.exp(_randn(gen, (B, T, H, K), torch.float32)) if "log_w" not in kw
-          else torch.full((B, T, H, K), kw["log_w"], device="cuda")).transpose(1, 2)
+    ds_final; ``unaligned``: every (B, T, H, K) input starts one element
+    into its buffer."""
+    def draw(dt):
+        x = _randn(gen, (B * T * H * K + 1,), dt)
+        return (x[1:] if kw.get("unaligned") else x[:-1]).view(B, T, H, K).transpose(1, 2)
+
+    r, k, v = (draw(dtype) for _ in range(3))
+    lw = (-torch.exp(draw(torch.float32)) if "log_w" not in kw
+          else torch.full((B, T, H, K), kw["log_w"], device="cuda").transpose(1, 2))
     u, s0 = _randn(gen, (H, K), torch.float32), _randn(gen, (B, H, K, K), torch.float32)
-    dy = _randn(gen, (B, T, H, K), dy_dtype).transpose(1, 2)
+    dy = draw(dy_dtype)
     ds = _randn(gen, (B, H, K, K), torch.float32) if kw.get("ds_final", True) else None
     before = wkv6_bwd.launches
     got = wkv6_bwd(r, k, v, lw, u, s0, dy, ds)
