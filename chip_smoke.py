@@ -41,7 +41,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    peak device memory, the launches per step of the kernels on the path
    (flash attention and RMSNorm, forward and backward, for gemma-2b; the
    chunked WKV6 kernel and its backward for rwkv6) and a profile of one
-   step.
+   step;
+7. launcher: the train launcher (``launch.train``): its control-plane line
+   (job demand, MDMCF, LTRR) for gemma-2b and rwkv6-1.6b at 2 and 4 pods,
+   then its data-plane loop on rwkv6-1.6b at full width cut to 2 layers
+   (bf16, batch 4 x 1024): run A takes steps 0-3 with a background
+   checkpoint after step 1 and the final one after step 3, run B restores a
+   state of another seed from step 1 and takes steps 2-3, and B's losses
+   and every parameter, moment and step must equal A's bit for bit; with
+   the checkpoint's bytes on disk, the snapshot, write and restore times,
+   the step time with and without a background write in flight, and the
+   WKV6 launches of each run.
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -52,9 +62,11 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -74,6 +86,7 @@ WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # 1e-4 at log_w = -50, as
 ARCHS = ("gemma-2b", "rwkv6-1.6b")
 SERVE_BATCH, PROMPT_LEN, MAX_NEW = 4, 1024, 32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+LAUNCH_LAYERS, LAUNCH_STEPS = 2, 4  # the launcher phase: two checkpoints of 4.55 GB
 
 
 def log(msg: str) -> None:
@@ -1106,6 +1119,113 @@ def profile_phases(api, model, tokens, decode_ms: float, steps: int = 8) -> None
             log(f"    {ms:8.3f} ms  {name[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# the train launcher: control plane, checkpoints and resume
+# ---------------------------------------------------------------------------
+
+def launcher(rwkv) -> dict:
+    """The train launcher's control-plane line for both models at 2 and 4
+    pods, then its data-plane loop (``launch.train.train_loop``) on
+    rwkv6-1.6b at full width, cut to LAUNCH_LAYERS layers so that two
+    checkpoints fit a smoke run: run A takes steps 0-3 with a background
+    save after step 1 and the final save after step 3; run B restores a
+    state of another seed from step 1 and takes steps 2-3.  B's losses and
+    final state must equal A's bit for bit.  Returns the WKV6 launches of
+    each run."""
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
+    from repro_torch.launch.train import control_plane, control_plane_line, train_loop
+    from repro_torch.models.transformer import DecoderLM
+
+    for arch in ARCHS:
+        for pods in (2, 4):
+            cp = control_plane(arch, pods)
+            log("  " + control_plane_line(arch, cp))
+            # a ring of n >= 2 pods has n hops of `links` per spine group
+            want = cp["spec"].num_ocs_groups * pods * cp["plan"].ocs_links_per_ring_hop
+            realized = cp["config"].realized_bidirectional().sum() // 2
+            if cp["demand_links"] != want or realized != want or abs(cp["ltrr"] - 1) > 1e-9:
+                raise AssertionError(f"control plane of {arch} on {pods} pods: demand "
+                                     f"{cp['demand_links']}, realized {realized}, LTRR "
+                                     f"{cp['ltrr']}; want {want} links at LTRR 1")
+
+    cfg = rwkv.replace(num_layers=LAUNCH_LAYERS)
+    n_params = sum(p.numel() for p in DecoderLM(cfg, torch.device("meta")).parameters())
+    ckpt_bytes = 3 * 4 * n_params  # params (bf16 stored as f32), m and v in f32
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(ckpt).free
+        log(f"  {cfg.name} cut to {cfg.num_layers} layers: {n_params / 1e9:.3f} B params, "
+            f"{ckpt_bytes / 1e9:.2f} GB a checkpoint; {free / 1e9:.1f} GB free in {ckpt}")
+        if free < 2 * ckpt_bytes:
+            raise RuntimeError(f"two checkpoints ({2 * ckpt_bytes / 1e9:.2f} GB) do not fit "
+                               f"in the {free / 1e9:.1f} GB free in {ckpt}")
+        kw = dict(steps=LAUNCH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_OPT["lr"],
+                  log_every=1, device=DEVICE, ckpt_dir=ckpt, ckpt_every=2)
+        runs, launches = {}, {}
+        for run, seed in (("A", 0), ("B", 1)):
+            if run == "B":  # B resumes from step 1, the latest once A's final is gone
+                for ext in ("npz", "json"):
+                    os.remove(os.path.join(ckpt, f"step_{LAUNCH_STEPS - 1}.{ext}"))
+            torch.cuda.empty_cache()
+            wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = wkv6_bwd.launches = 0
+            runs[run] = train_loop(cfg, seed=seed, **kw)
+            sync()
+            launches[f"launcher {cfg.name} run {run}"] = {
+                "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches,
+                "wkv6_bwd": wkv6_bwd.launches}
+            if run == "A":
+                on_disk = sum(os.path.getsize(os.path.join(ckpt, f"step_1.{ext}"))
+                              for ext in ("npz", "json"))
+        a, b = runs["A"], runs["B"]
+
+        saved = [s["step"] for s in a["saves"]], [s["step"] for s in b["saves"]]
+        if saved != ([1, LAUNCH_STEPS - 1], [LAUNCH_STEPS - 1]) or b["restore_s"] is None:
+            raise AssertionError(f"saves {saved}, restore {b['restore_s']}: not the plan")
+        steps_b = list(range(2, LAUNCH_STEPS))
+        if [r["step"] for r in b["log"]] != steps_b:
+            raise AssertionError(f"run B took steps {[r['step'] for r in b['log']]}")
+        losses_a = [r["loss"] for r in a["log"]]
+        losses_b = [r["loss"] for r in b["log"]]
+        log(f"  run A losses {losses_a}; run B (restored from step 1) losses {losses_b}")
+        if not all(np.isfinite(losses_a)) or losses_b != losses_a[2:]:
+            raise AssertionError(f"run B's losses {losses_b} != run A's {losses_a[2:]}")
+        sa, sb = a["state"], b["state"]
+        pairs = [(f"params/{n}", p, dict(sb["model"].named_parameters())[n])
+                 for n, p in sa["model"].named_parameters()]
+        pairs += [(f"opt/{k}/{n}", t, sb["opt"][k][n]) for k in ("m", "v")
+                  for n, t in sa["opt"][k].items()]
+        pairs.append(("opt/step", sa["opt"]["step"], sb["opt"]["step"]))
+        differ = [name for name, x, y in pairs if not torch.equal(x, y)]
+        if differ:
+            raise AssertionError(f"run B's state differs from run A's in {len(differ)} of "
+                                 f"{len(pairs)} leaves: {differ[:5]}")
+        log(f"  run B equals run A bit for bit: losses of steps {steps_b} and all {len(pairs)} "
+            f"leaves (params, m, v, step)")
+
+        writer = a["saves"][0]["writer"]
+        with_write = [r["ms"] for r in a["log"] if r["writing"]]
+        without = [r["ms"] for r in a["log"][1:] + b["log"] if not r["writing"]]
+        log(f"  checkpoint of step 1: {on_disk} bytes on disk; snapshot (blocking) "
+            f"{a['saves'][0]['blocked_s'] * 1e3:.1f} ms, background write {writer.seconds:.2f} s; "
+            f"final save (blocking) {a['saves'][1]['blocked_s']:.2f} s (A), "
+            f"{b['saves'][0]['blocked_s']:.2f} s (B); restore {b['restore_s']:.2f} s")
+        log(f"  step ms with a background write in flight {[round(x, 1) for x in with_write]}, "
+            f"without {[round(x, 1) for x in without]} (A's steps 1..{LAUNCH_STEPS - 1}, "
+            f"B's {steps_b}; step 0 {a['log'][0]['ms']:.1f} ms)")
+        log(f"  launches: {launches}")
+        for run, n in launches.items():
+            steps = LAUNCH_STEPS if run.endswith("A") else len(steps_b)
+            want = {"wkv6": cfg.num_layers * steps, "wkv6_step": 0,
+                    "wkv6_bwd": cfg.num_layers * steps}
+            if n != want:
+                raise AssertionError(f"{run}: launches {n} != {want} implied by the path")
+        if not with_write:
+            raise AssertionError("no step ran while the background write was in flight")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
 def ptxas_report(build_log: str) -> list:
     """One line per kernel instantiation from ``nvcc -Xptxas -v``: its name
     and template arguments, registers, shared memory and spills."""
@@ -1184,11 +1304,14 @@ def main() -> int:
     for cfg in (gemma, rwkv):
         torch.cuda.empty_cache()
         runs[f"train {cfg.name}"] = train(cfg)
+    log("launcher:")
+    torch.cuda.empty_cache()
+    launched = launcher(rwkv)
     # each kernel's launches in the run of the path that drives it; the
     # forward kernels run in serving and training alike
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],
              f"train {gemma.name}": runs[f"train {gemma.name}"],
-             f"train {rwkv.name}": runs[f"train {rwkv.name}"]}
+             f"train {rwkv.name}": runs[f"train {rwkv.name}"], **launched}
     driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",
                  "wkv6": f"serve {rwkv.name}", "wkv6_step": f"serve {rwkv.name}",
                  "flash_attention_bwd": f"train {gemma.name}",

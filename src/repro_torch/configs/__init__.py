@@ -10,7 +10,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-from .common import ParallelismPlan
+from .common import ParallelismPlan, job_demand
 
 _MODULES: Dict[str, str] = {
     "deepseek-v3-671b": "deepseek_v3_671b",
@@ -44,4 +44,4 @@ def get_plan(arch_id: str) -> ParallelismPlan:
     return arch_module(arch_id).PLAN
 
 
-__all__ = ["ARCH_IDS", "ParallelismPlan", "arch_module", "get_config", "get_plan"]
+__all__ = ["ARCH_IDS", "ParallelismPlan", "arch_module", "get_config", "get_plan", "job_demand"]

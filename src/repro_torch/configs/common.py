@@ -10,11 +10,19 @@ Each ``configs/<arch>.py`` declares:
 
 These modules are data, copied from ``repro.configs`` so that the port
 imports nothing of the JAX package; ``tests/test_torch_configs.py`` holds
-the two copies equal field by field.
+the two copies equal field by field.  :func:`job_demand` is the reference's
+too, through the port's own ``core.logical.ring_demand`` (which asks
+``2 × links`` on a 2-pod ring where the reference asks ``links``; see
+``repro_torch.core.logical``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+from ..core.logical import ring_demand
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,3 +54,17 @@ class ParallelismPlan:
     seq_shard_long: bool = False
     ocs_links_per_ring_hop: int = 4
     notes: str = ""
+
+
+def job_demand(plan: ParallelismPlan, spec, pods: Tuple[int, ...]) -> np.ndarray:
+    """Logical-topology demand this job asks from the control plane.
+
+    The cross-pod traffic of an LLM job under the paper's containment policy
+    is the DP gradient ring over the pods it occupies (PP would add the same
+    chain pattern); TP/EP never leave the pod, so they produce no OCS demand.
+    """
+    if not plan.dp_cross_pod or len(pods) < 2:
+        return np.zeros(
+            (spec.num_ocs_groups, spec.num_pods, spec.num_pods), dtype=np.int64
+        )
+    return ring_demand(spec, list(pods), plan.ocs_links_per_ring_hop)

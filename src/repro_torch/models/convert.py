@@ -1,4 +1,5 @@
-"""The weight bridge: JAX parameters (as numpy arrays) -> a torch state_dict.
+"""The weight bridge between JAX parameters (as numpy arrays) and a torch
+state_dict, both ways.
 
 ``params_from_jax`` takes the JAX package's parameter pytree with numpy
 leaves, or the same tree flattened under the ``"/"``-joined keys that the
@@ -16,7 +17,15 @@ stored as f32).  It
   whatever ``param_dtype`` is (RWKV's decay base ``w0`` and bonus ``u``, as
   the JAX initialiser does).  A checkpoint stores bf16 as f32, so the
   leaf's own dtype cannot say which parameters are bf16.  Widening bf16 to
-  f32 and back is exact, so every value arrives bit for bit.
+  f32 and back is exact, so every value arrives bit for bit.  With
+  ``dtype`` given, every leaf gets that dtype instead: the AdamW moments
+  share the parameters' names and stay fp32 whatever the param dtype.
+
+``params_to_jax`` is its inverse: named tensors (parameters or moments) to
+the ``"/"``-keyed flat tree, ``layers.{i}`` restacked into ``units/l{j}``
+with the leading unit axis, each leaf a numpy array of the tensor's dtype
+(bf16 as f32, which numpy can hold).  The checkpoint manager writes it
+under ``params/`` and ``opt/{m,v}/``.
 """
 from __future__ import annotations
 
@@ -39,14 +48,14 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-def params_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Mapping[str, Any], cfg, dtype=None) -> Dict[str, torch.Tensor]:
     """State dict of :class:`~repro_torch.models.transformer.DecoderLM` (CPU
-    tensors in the dtypes of its parameters) from JAX params, nested or
-    "/"-flattened."""
+    tensors in the dtypes of its parameters, or all in ``dtype``) from JAX
+    params, nested or "/"-flattened."""
     flat = _flatten(params)
     plan = layer_plan(cfg)
     unit_len = len(plan.unit)
-    dtypes = {name: t.dtype
+    dtypes = {name: dtype if dtype is not None else t.dtype
               for name, t in DecoderLM(cfg, torch.device("meta")).state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
 
@@ -67,3 +76,30 @@ def params_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
         else:
             put(".".join(parts), arr)
     return out
+
+
+def params_to_jax(tensors: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
+    """The ``"/"``-keyed flat JAX tree of named tensors of the port's
+    :class:`~repro_torch.models.transformer.DecoderLM` (its parameters, or
+    AdamW moments under the same names): numpy leaves, bf16 widened to f32,
+    the layers stacked per unit element along a leading unit axis.  A leaf
+    of an fp32 CPU tensor outside the layers shares its memory."""
+    plan = layer_plan(cfg)
+    unit_len = len(plan.unit)
+    flat: Dict[str, np.ndarray] = {}
+    units: Dict[str, list] = {}
+    for name, t in tensors.items():
+        t = t.detach().cpu()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            i = int(parts[1])
+            key = f"units/l{i % unit_len}/" + "/".join(parts[2:])
+            units.setdefault(key, [None] * plan.n_units)[i // unit_len] = arr
+        else:
+            flat["/".join(parts)] = arr
+    for key, per_unit in units.items():
+        if any(a is None for a in per_unit):
+            raise ValueError(f"{key}: a layer of the {plan.n_units} units is missing")
+        flat[key] = np.stack(per_unit)
+    return flat

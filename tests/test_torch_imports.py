@@ -27,6 +27,8 @@ def _port_modules():
 def test_port_imports_no_jax_and_no_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.flash_attention" in mods and len(mods) > 15
+    assert {"repro_torch.core", "repro_torch.core.reconfig", "repro_torch.ckpt",
+            "repro_torch.ckpt.manager"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, importlib.util, sys
         for m in {mods!r}:

@@ -353,8 +353,10 @@ def test_train_cli_smoke(capsys):
     train_cli.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", "--steps", "3",
                     "--log-every", "1", "--batch", "2", "--seq", "16"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 3, lines
-    for i, line in enumerate(lines):
+    assert len(lines) == 4, lines
+    assert re.fullmatch(r"\[control-plane\] arch=gemma-2b pods=\(0, 1\) plan\(tp=8, ep=1\) "
+                        r"demand=128 links  LTRR=1\.000 mdmcf=\d+\.\d ms", lines[0]), lines[0]
+    for i, line in enumerate(lines[1:]):
         m = re.fullmatch(r"step +(\d+)  loss (\d+\.\d+)  lr (\S+)  ([\d,]+) tok/s", line)
         assert m and int(m.group(1)) == i and np.isfinite(float(m.group(2))), line
 
@@ -365,7 +367,8 @@ def test_train_cli_smoke_rwkv6(capsys):
     train_cli.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu", "--steps", "2",
                     "--log-every", "1", "--batch", "2", "--seq", "16"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 2, lines
-    for i, line in enumerate(lines):
+    assert len(lines) == 3, lines
+    assert lines[0].startswith("[control-plane] arch=rwkv6-1.6b pods=(0, 1) "), lines[0]
+    for i, line in enumerate(lines[1:]):
         m = re.fullmatch(r"step +(\d+)  loss (\d+\.\d+)  lr (\S+)  ([\d,]+) tok/s", line)
         assert m and int(m.group(1)) == i and np.isfinite(float(m.group(2))), line
