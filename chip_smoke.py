@@ -23,17 +23,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    window are printed: one launch of a one-element kernel, and, beside the
    RMSNorm backward and the WKV6 decode step, a PyTorch call that moves the
    bytes the kernel must move;
-4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b on the
-   card (kernels) against the same weights on the CPU (plain versions):
-   logits and greedy tokens; then one AdamW step of each 2-layer fp32
-   model on the card against the same step on the CPU: the loss, every
-   parameter's gradient and the parameter update;
-5. serve: full-width gemma-2b (18 layers) and then rwkv6-1.6b (24 layers),
-   bf16, random weights from a fixed seed, each serving batch 4 x prompt
-   1024 + 32 new tokens through ``ServeEngine.generate``, with the kernels'
-   launch counts of each run (flash attention and RMSNorm on gemma-2b's
-   path, the chunked WKV6 kernel in rwkv6's prefill and the decode-step
-   one in its decode steps);
+4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b, and
+   deepseek-v3-671b at full width cut to 2 layers (one dense, one MoE) and
+   16 experts (top-8 kept), on the card (kernels) against the same weights
+   on the CPU (plain versions): logits, the decode step's logits and greedy
+   tokens, and for the MoE model the routing decisions that differ; then
+   one AdamW step of the 2-layer fp32 gemma-2b and rwkv6-1.6b on the card
+   against the same step on the CPU: the loss, every parameter's gradient
+   and the parameter update;
+5. serve: full-width gemma-2b (18 layers), rwkv6-1.6b (24 layers),
+   deepseek-v3-671b cut to 4 layers (3 dense, 1 MoE: MLA, 256 experts) and
+   grok-1-314b cut to 2 layers (GQA 48/8 with softcap, 8 experts), bf16,
+   random weights from a fixed seed, each serving batch 4 x prompt 1024 +
+   32 new tokens through ``ServeEngine.generate``, with the kernels' launch
+   counts of each run (flash attention and RMSNorm on gemma-2b's and
+   grok-1's paths, RMSNorm on deepseek-v3's, whose MLA attention is plain
+   torch, the chunked WKV6 kernel in rwkv6's prefill and the decode-step
+   one in its decode steps), ``comm_profile`` against the analytic bytes,
+   and for the MoE models a second run that must give the same tokens;
 6. train: full-width, full-depth gemma-2b and then rwkv6-1.6b in bf16,
    random weights from a fixed seed, each 6 AdamW steps of batch 4 x 1024
    tokens of the synthetic affine data through
@@ -59,6 +66,7 @@ The line before the last is the ``kernels`` JSON summary; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -84,6 +92,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX kernel tests' toler
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # 1e-4 at log_w = -50, as in JAX
 ARCHS = ("gemma-2b", "rwkv6-1.6b")
+MOE_ARCHS = ("deepseek-v3-671b", "grok-1-314b")
+SERVE_LAYERS = {"deepseek-v3-671b": 4, "grok-1-314b": 2}  # depth cut to fit one card
 SERVE_BATCH, PROMPT_LEN, MAX_NEW = 4, 1024, 32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 LAUNCH_LAYERS, LAUNCH_STEPS = 2, 4  # the launcher phase: two checkpoints of 4.55 GB
@@ -164,8 +174,10 @@ def check_flash(gen) -> dict:
         (1, 8, 1, 100, 173, 256, torch.bfloat16, dict(softcap=50.0)),
         (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8)),  # smoke head_dim
         (2, 4, 2, 77, 77, 16, torch.bfloat16, dict(window=8)),
+        (SERVE_BATCH, 48, 8, PROMPT_LEN, PROMPT_LEN, 128, torch.bfloat16,
+         dict(softcap=30.0)),  # grok-1 prefill
     ]
-    main = None
+    main = grok = None
     for B, Hq, Hkv, Sq, Sk, D, dtype, kw in cases:
         # model layout (B, S, H, D) viewed as (B, H, S, D), as ops.attention passes it
         q = randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
@@ -183,6 +195,22 @@ def check_flash(gen) -> dict:
             raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
         if main is None:
             main = dict(q=q, k=k, v=v, err=err, dtype=dtype)
+        if Hq == 48:
+            grok = dict(q=q, k=k, v=v, err=err)
+
+    q, k, v = grok["q"], grok["k"], grok["v"]
+    B, Hq, S, D = q.shape
+    ms = time_ms(lambda: flash_attention(q, k, v, softcap=30.0))
+    plain_ms = time_ms(lambda: ref.mha_reference(q, k, v, softcap=30.0))
+    pairs = B * Hq * S * (S + 1) // 2
+    flops, nbytes = 4.0 * D * pairs, (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+    at_grok = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                   bound_by=bound_by, max_abs_err=grok["err"])
+    log(f"  flash_attention at grok-1's prefill shape (B={B}, Hq={Hq}, Hkv={k.shape[1]}, S={S}, "
+        f"D={D}, bf16, causal, softcap 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library: none (scaled_dot_product_attention has no softcap), bound {bound_ms:.4f} ms "
+        f"by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
 
     q, k, v, dtype = main["q"], main["k"], main["v"], main["dtype"]
     B, Hq, S, D = q.shape
@@ -202,7 +230,7 @@ def check_flash(gen) -> dict:
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:40",
                 max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, at_grok_prefill=at_grok)
 
 
 def check_rmsnorm(gen, d_model: int) -> dict:
@@ -219,8 +247,19 @@ def check_rmsnorm(gen, d_model: int) -> dict:
         (333, 3584, torch.bfloat16),
         (64, 768, torch.float32),
         (17, 8192, torch.bfloat16),
+        (rows_main, 7168, torch.bfloat16),  # deepseek-v3 prefill: ln1, ln2, final
+        (rows_main, 1536, torch.bfloat16),  # its q_norm
+        (rows_main, 512, torch.bfloat16),  # its kv_norm
+        (rows_main, 6144, torch.bfloat16),  # grok-1 prefill
+        (SERVE_BATCH, 7168, torch.bfloat16),  # decode steps
+        (SERVE_BATCH, 1536, torch.bfloat16),
+        (SERVE_BATCH, 512, torch.bfloat16),
+        (SERVE_BATCH, 6144, torch.bfloat16),
+        (300, 512, torch.float32),
+        (300, 1536, torch.float32),
     ]
     main = None
+    widths = {}  # the new paths' widths at the prefill rows
     for rows, d, dtype in cases:
         x = randn(gen, (rows, d), dtype)
         s = randn(gen, (d,), dtype)
@@ -235,6 +274,18 @@ def check_rmsnorm(gen, d_model: int) -> dict:
             raise AssertionError(f"rmsnorm disagrees with its plain version: {err}")
         if main is None:
             main = dict(x=x, s=s, err=err, dtype=dtype)
+        elif rows == rows_main and d in (512, 1536, 6144, 7168):
+            widths[d] = (x, s)
+
+    by_width = {}
+    for d, (x, s) in sorted(widths.items()):
+        nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
+        by_width[d] = dict(ms=time_ms(lambda: rmsnorm(x, s)),
+                           library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6)),
+                           bound_ms=bound(nbytes, 4.0 * x.numel(), x.dtype)[0])
+    log("  rmsnorm at the MoE paths' prefill widths (4096 rows, bf16): " + "; ".join(
+        f"d={d} kernel {t['ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms" for d, t in by_width.items()))
 
     x, s, dtype = main["x"], main["s"], main["dtype"]
     ms = time_ms(lambda: rmsnorm(x, s))
@@ -249,7 +300,7 @@ def check_rmsnorm(gen, d_model: int) -> dict:
     return dict(name="rmsnorm", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
                 replaces="src/repro/kernels/rmsnorm.py:17",
                 max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, by_width=by_width)
 
 
 def check_wkv6(gen, cfg) -> list:
@@ -715,8 +766,15 @@ def check_wkv6_bwd(gen, cfg) -> dict:
 # the model on the card against the same model on the CPU
 # ---------------------------------------------------------------------------
 
-def check_reference(cfg) -> None:
-    from repro_torch.models import get_api
+def moe_reference_config(cfg):
+    """deepseek-v3 at full width for the card-vs-CPU check: fp32 MoE at 256
+    experts is ~46 GB a side, so 2 layers (``first_dense`` 1: one dense, one
+    MoE layer) and 16 experts, top-8 kept."""
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, first_dense=1, num_experts=16))
+
+
+def check_reference(cfg, cut: str = "2-layer") -> None:
+    from repro_torch.models import get_api, moe
     from repro_torch.serve.engine import ServeEngine
 
     small = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
@@ -725,22 +783,40 @@ def check_reference(cfg) -> None:
     gpu_model = gpu_api.init(seed=1)
     gpu_model.load_state_dict(cpu_model.state_dict())
     tokens = np.random.default_rng(1).integers(0, small.vocab_size, size=(2, 128))
-    tol = 1e-3  # fp32 on both sides; sums over d=2048..16384 taken in another order on the card
-    logits = {}
-    with torch.inference_mode():
-        for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
-            toks = torch.from_numpy(tokens).to(api.device)
-            full, _ = model(toks, mode="train")  # the path's kernels on the card
-            _, cache = api.prefill(model, {"tokens": toks[:, :127]}, api.init_cache(2, 128),
-                                   last_only=True)
-            step, _ = api.decode(model, toks[:, 127:], cache)
-            logits[name] = (full.cpu(), step.cpu())
+    tol = 1e-3  # fp32 on both sides; sums over d=2048..18432 taken in another order on the card
+    logits, routed = {}, {"cpu": [], "card": []}
+    route = moe.route
+
+    def recorded_route(mod, xt, cfg_, capacity=None):  # the routing of every MoE call
+        r = route(mod, xt, cfg_, capacity)
+        routed[name].append(r.expert_idx.cpu())
+        return r
+
+    moe.route = recorded_route
+    try:
+        with torch.inference_mode():
+            for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
+                toks = torch.from_numpy(tokens).to(api.device)
+                full, _ = model(toks, mode="train")  # the path's kernels on the card
+                _, cache = api.prefill(model, {"tokens": toks[:, :127]}, api.init_cache(2, 128),
+                                       last_only=True)
+                step, _ = api.decode(model, toks[:, 127:], cache)
+                logits[name] = (full.cpu(), step.cpu())
+    finally:
+        moe.route = route
     for i, what in enumerate(("full-sequence", "decode-step")):
         err = (logits["card"][i] - logits["cpu"][i]).abs().max().item()
-        log(f"  {cfg.name} 2-layer full-width fp32 {what} logits, card vs CPU: "
+        log(f"  {cfg.name} {cut} full-width fp32 {what} logits, card vs CPU: "
             f"max_abs_err={err:.3g} (tol {tol})")
         if not err <= tol:
             raise AssertionError(f"{what} logits on the card disagree with the CPU: {err}")
+    if small.moe is not None:
+        if [t.shape for t in routed["cpu"]] != [t.shape for t in routed["card"]]:
+            raise AssertionError("the card and the CPU routed different numbers of tokens")
+        differ = sum(int((a != b).sum()) for a, b in zip(routed["cpu"], routed["card"]))
+        total = sum(t.numel() for t in routed["cpu"])
+        log(f"  routing decisions (token, k) of {len(routed['cpu'])} MoE calls that differ "
+            f"between card and CPU: {differ} of {total}")
     out = {}
     for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
         out[name] = ServeEngine(api, model, batch=2, s_max=140).generate(
@@ -840,6 +916,9 @@ def expected_launches(cfg, path: str = "serve") -> dict:
     if cfg.family == "ssm":  # rwkv: one WKV6 per layer per pass; LayerNorm is plain torch
         return {"flash_attention": 0, "rmsnorm": 0, "wkv6": L,  # chunked: prefill
                 "wkv6_step": L * (passes - 1)}  # one token a step: decode
+    if cfg.attn_kind == "mla":  # attention plain torch; q_norm and kv_norm beside ln1, ln2
+        return {"flash_attention": 0, "rmsnorm": (4 * L + 1) * passes, "wkv6": 0,
+                "wkv6_step": 0}
     return {"flash_attention": L,  # prefill only: decode is plain torch
             "rmsnorm": (2 * L + 1) * passes, "wkv6": 0, "wkv6_step": 0}
 
@@ -856,8 +935,12 @@ def serve(cfg) -> dict:
     model = api.init(seed=0)
     sync()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B params "
-        f"in {str(cfg.pdtype)[6:]}, initialised in {time.perf_counter() - t0:.1f} s")
+    cut = (f" (cut to {cfg.num_layers} layers: {sum(not b.moe for b in model.layers)} dense, "
+           f"{sum(b.moe for b in model.layers)} MoE of {cfg.moe.num_experts} experts, "
+           f"top-{cfg.moe.top_k})" if cfg.moe is not None else "")
+    log(f"  {cfg.name}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params in {str(cfg.pdtype)[6:]}, initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int64)
     eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=PROMPT_LEN + MAX_NEW)
@@ -894,6 +977,11 @@ def serve(cfg) -> dict:
         raise AssertionError(f"prefill logits not finite or of shape {tuple(logits.shape)}")
     if not np.array_equal(logits[:, -1].argmax(-1).cpu().numpy(), out[:, 0]):
         raise AssertionError("a second prefill picks other first tokens")
+    if cfg.moe is not None:  # the combine adds in one fixed order: no atomics
+        again = eng.generate({"tokens": tokens}, max_new_tokens=MAX_NEW)
+        if not np.array_equal(again, out):
+            raise AssertionError("two MoE serve runs gave different tokens")
+        log(f"  a second run gives the same {out.size} tokens")
     prof = eng.comm_profile()
     kv, fixed = prof["kv_bytes_per_token"], prof["fixed_state_bytes"]
     if cfg.family == "ssm":  # a recurrent state: x_prev twice in cdtype, the fp32 wkv state
@@ -901,6 +989,10 @@ def serve(cfg) -> dict:
         expect_kv = 0.0
         expect_fixed = cfg.num_layers * (2 * cfg.d_model * cfg.cdtype.itemsize
                                          + (cfg.d_model // K) * K * K * 4)
+    elif cfg.attn_kind == "mla":  # the compressed cache: c_kv and k_rope
+        expect_kv = cfg.num_layers * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) \
+            * cfg.cdtype.itemsize
+        expect_fixed = 0.0
     else:
         expect_kv = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * cfg.cdtype.itemsize
         expect_fixed = 0.0
@@ -908,10 +1000,50 @@ def serve(cfg) -> dict:
         raise AssertionError(f"comm_profile kv_bytes_per_token {kv}, fixed_state_bytes {fixed} "
                              f"!= {expect_kv}, {expect_fixed}")
     log(f"  kv_bytes_per_token {kv:.0f}, fixed_state_bytes {fixed:.0f}")
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  a decode step reads every weight at least once (every expert's too: all E slots "
+        f"are computed, as in JAX): {weight_bytes / 1e9:.2f} GB, "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     if cfg.family == "ssm":
         wkv_y_rounding_shift(api, model, torch.from_numpy(tokens).to(DEVICE))
+    if cfg.attn_kind == "mla":
+        mla_attention_ms(cfg)
     profile_phases(api, model, torch.from_numpy(tokens).to(DEVICE), decode_ms)
     return launches
+
+
+def mla_attention_ms(cfg) -> None:
+    """MLA's expanded attention at the prefill shape, one layer: the port's
+    plain torch (``_sdpa_chunked``: fp32 scores, causal mask, softmax, P·V)
+    against scaled_dot_product_attention on the same inputs and the bound.
+    The flash kernel takes only v.shape == k.shape (Dq 192, Dv 128 here)."""
+    from repro_torch.models.attention import _sdpa_chunked
+
+    m, H = cfg.mla, cfg.num_heads
+    dq, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    q, k = (randn(gen, (SERVE_BATCH, PROMPT_LEN, H, dq), torch.bfloat16) for _ in range(2))
+    v = randn(gen, (SERVE_BATCH, PROMPT_LEN, H, dv), torch.bfloat16)
+    scale = dq ** -0.5
+    ms = time_ms(lambda: _sdpa_chunked(q, k, v, scale), reps=10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+
+    try:
+        err = (sdpa().transpose(1, 2).float() - _sdpa_chunked(q, k, v, scale).float()).abs().max()
+        library = f"{time_ms(sdpa, reps=10):.4f} ms (max_abs_diff {err.item():.3g})"
+    except RuntimeError as e:  # no backend takes the shape
+        library = f"refused ({str(e)[:120]})"
+    pairs = SERVE_BATCH * H * PROMPT_LEN * (PROMPT_LEN + 1) // 2
+    flops = 2.0 * pairs * (dq + dv)  # q.k and p.v
+    nbytes = (q.numel() + k.numel() + 2 * v.numel()) * 2  # q, k, v read; the output (v's shape) written
+    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+    log(f"  MLA attention at the prefill shape, one layer (B={SERVE_BATCH}, H={H}, S={PROMPT_LEN}, "
+        f"Dq={dq}, Dv={dv}, bf16, causal): plain torch (the port's path) {ms:.4f} ms, library "
+        f"(scaled_dot_product_attention) {library}, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({flops / 1e9:.2f} GFLOP)")
 
 
 def bf16_absorbs(p: torch.Tensor, bound: float) -> bool:
@@ -1275,6 +1407,8 @@ def main() -> int:
             log(f"    {source}: {line}")
 
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
+    deepseek, grok = (configs.get_config(a).replace(num_layers=SERVE_LAYERS[a])
+                      for a in MOE_ARCHS)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     log("kernels:")
     floor_ms = launch_floor_ms()
@@ -1290,12 +1424,15 @@ def main() -> int:
     for cfg in (gemma, rwkv):
         check_reference(cfg)
         torch.cuda.empty_cache()
+    check_reference(moe_reference_config(deepseek),
+                    "cut to 2 layers (first_dense 1) and 16 experts (top-8 kept),")
+    torch.cuda.empty_cache()
     for cfg in (gemma, rwkv):
         check_train_reference(cfg)
         torch.cuda.empty_cache()
     log("serve:")
     runs = {}
-    for cfg in (gemma, rwkv):
+    for cfg in (gemma, rwkv, deepseek, grok):
         torch.cuda.reset_peak_memory_stats()
         runs[cfg.name] = serve(cfg)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1310,6 +1447,8 @@ def main() -> int:
     # each kernel's launches in the run of the path that drives it; the
     # forward kernels run in serving and training alike
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],
+             f"serve {deepseek.name} ({deepseek.num_layers} layers)": runs[deepseek.name],
+             f"serve {grok.name} ({grok.num_layers} layers)": runs[grok.name],
              f"train {gemma.name}": runs[f"train {gemma.name}"],
              f"train {rwkv.name}": runs[f"train {rwkv.name}"], **launched}
     driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",

@@ -1,13 +1,15 @@
-"""GQA/MQA attention (PyTorch twin of the GQA part of ``repro.models.attention``).
+"""GQA/MQA and MLA attention (PyTorch twin of the GQA and MLA parts of
+``repro.models.attention``).
 
 Cache-polymorphic like the JAX version:
 
 * ``cache=None``            — training / scoring over a full sequence
-* ``cache=(k, v), pos=None`` — prefill: full sequence, cache slots [0:S] written
-* ``cache=(k, v), pos=int``  — decode: one token at position ``pos``
+* ``cache=(…), pos=None``   — prefill: full sequence, cache slots [0:S] written
+* ``cache=(…), pos=int``    — decode: one token at position ``pos``
 
-Shapes: x (B, S, d); cache k/v (B, S_max, Hkv, Dh), the JAX layout.  The
-cache is updated in place with index writes (JAX's cache is functional).
+Shapes: x (B, S, d); GQA cache k/v (B, S_max, Hkv, Dh), the JAX layout; MLA
+cache (c_kv (B, S_max, R), k_rope (B, S_max, Dr)).  The cache is updated in
+place with index writes (JAX's cache is functional).
 
 Train and prefill attention go through :func:`repro_torch.kernels.ops.attention`
 (the CUDA flash-attention kernel on the card), where the JAX model path uses
@@ -15,6 +17,13 @@ XLA's ``sdpa_chunked``; the kernel keeps the probabilities in fp32 before
 P·V, where ``sdpa_chunked`` casts them to the compute dtype.  Decode at
 ``pos > 0`` is outside the kernel's contract (its q and k positions both
 start at 0), so it is plain torch here, as it is XLA in JAX.
+
+MLA (DeepSeek-V3) trains and prefills in the expanded form, with query and
+key heads of nope + rope = 192 and value heads of 128: the flash kernel
+takes only v.shape == k.shape, so that attention is plain torch
+(:func:`_sdpa_chunked`, JAX's ``sdpa_chunked``), and a Dq != Dv kernel is
+ROADMAP B.1's.  Decode is the absorbed form over the compressed cache.
+Its two RMSNorms (``q_norm``, ``kv_norm``) go through the RMSNorm kernel.
 """
 from __future__ import annotations
 
@@ -25,14 +34,18 @@ import torch
 from torch import nn
 
 from ..kernels import ops
-from .layers import _param, apply_rope, dense_init, softcap
+from .layers import Norm, _param, apply_rope, dense_init, softcap
+
+ATTN_Q_CHUNK = 1024  # query block of _sdpa_chunked, as JAX's
 
 
-def _mask_bias(q_pos, kv_pos, window, valid_len=None) -> torch.Tensor:
-    """Additive fp32 mask: causal + sliding window + cache validity."""
+def _mask_bias(q_pos, kv_pos, window=None, valid_len=None) -> torch.Tensor:
+    """Additive fp32 mask: causal + sliding window (None: none) + cache validity."""
     q = q_pos[:, None]
     k = kv_pos[None, :]
-    ok = (k <= q) & (k > q - window)
+    ok = k <= q
+    if window is not None:
+        ok &= k > q - window
     if valid_len is not None:
         ok &= k < valid_len
     return torch.where(ok, 0.0, -1e30).float()
@@ -133,3 +146,115 @@ class GQAAttention(nn.Module):
 
     def forward(self, x, *, window=None, cache=None, pos=None):
         return gqa_attention(self, x, self.cfg, window=window, cache=cache, pos=pos)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def _sdpa_chunked(q, k, v, scale: float, chunk: int = ATTN_Q_CHUNK) -> torch.Tensor:
+    """Exact causal attention over query blocks of ``chunk`` rows, q and k
+    positions both 0..S-1: q (B, S, H, Dq), k (B, S, H, Dq), v (B, S, H, Dv)
+    -> (B, S, H, Dv).  fp32 scores (JAX's ``preferred_element_type``), the
+    probabilities cast to q's dtype before P·V, as ``sdpa_chunked``.  A
+    block attends to keys 0..q0+chunk-1 only: the keys past it carry JAX's
+    -1e30 mask, a weight of exactly zero."""
+    B, S, H, _ = q.shape
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, S, D)
+    out = []
+    for q0 in range(0, S, chunk):
+        q1 = min(q0 + chunk, S)
+        sc = (qh[:, :, q0:q1].float() @ kh[:, :, :q1].float().transpose(-1, -2)) * scale
+        sc.add_(_mask_bias(torch.arange(q0, q1, device=q.device),
+                           torch.arange(q1, device=q.device)))
+        pr = torch.softmax(sc, dim=-1).to(q.dtype)
+        del sc
+        out.append(pr @ vh[:, :, :q1])
+    return torch.cat(out, dim=2).permute(0, 2, 1, 3)
+
+
+def mla_attention(
+    mod: "MLAAttention",
+    x: torch.Tensor,
+    cfg,
+    *,
+    cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    pos: Optional[int] = None,
+) -> torch.Tensor:
+    """Returns y (B, S, d); ``cache`` (c_kv, k_rope) is written in place.
+    Train and prefill use the expanded form; decode the absorbed form over
+    the compressed cache."""
+    m = cfg.mla
+    B, S, d = x.shape
+    h = cfg.num_heads
+    R, nope, rdim, vdim = m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    scale = 1.0 / math.sqrt(nope + rdim)
+
+    cq = mod.q_norm(x @ mod.wdq.to(x.dtype))
+    qfull = (cq @ mod.wuq.to(x.dtype)).reshape(B, S, h, nope + rdim)
+    q_nope, q_rope = qfull[..., :nope], qfull[..., nope:]
+
+    dkv = x @ mod.wdkv.to(x.dtype)
+    # c_kv is a slice of rows R + rdim wide; the RMSNorm kernel takes contiguous rows
+    c_kv = mod.kv_norm(dkv[..., :R].contiguous())
+    k_rope = dkv[..., R:]
+
+    if pos is None:
+        q_pos = torch.arange(S, device=x.device)
+    else:
+        q_pos = torch.arange(pos, pos + 1, device=x.device)
+    q_rope = apply_rope(q_rope, q_pos, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[..., None, :], q_pos, cfg.rope_theta)[..., 0, :]
+
+    if cache is not None:
+        cc, cr = cache
+        start = 0 if pos is None else pos
+        cc[:, start : start + S] = c_kv.to(cc.dtype)
+        cr[:, start : start + S] = k_rope.to(cr.dtype)
+
+    if pos is not None:  # decode: absorbed, over the cache's first pos+1 slots
+        kv_c = cc[:, : pos + 1].to(x.dtype)
+        kv_r = cr[:, : pos + 1].to(x.dtype)
+        wuk = mod.wuk.to(x.dtype).reshape(R, h, nope)
+        q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, wuk)
+        sc = torch.einsum("bqhr,bkr->bhqk", q_abs.float(), kv_c.float())
+        sc = sc + torch.einsum("bqhr,bkr->bhqk", q_rope.float(), kv_r.float())
+        pr = torch.softmax(sc * scale, dim=-1).to(x.dtype)
+        out_c = torch.einsum("bhqk,bkr->bqhr", pr, kv_c)
+        wuv = mod.wuv.to(x.dtype).reshape(R, h, vdim)
+        out = torch.einsum("bqhr,rhv->bqhv", out_c, wuv)
+    else:  # train / prefill: expanded
+        k_nope = (c_kv @ mod.wuk.to(x.dtype)).reshape(B, S, h, nope)
+        v = (c_kv @ mod.wuv.to(x.dtype)).reshape(B, S, h, vdim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, rdim)], dim=-1)
+        out = _sdpa_chunked(q, k, v, scale)
+    return out.reshape(B, S, h * vdim) @ mod.wo.to(x.dtype)
+
+
+class MLAAttention(nn.Module):
+    """Parameters named as JAX's ``init_mla``: ``wdq``, ``q_norm.scale``,
+    ``wuq``, ``wdkv``, ``kv_norm.scale``, ``wuk``, ``wuv``, ``wo``."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        self.cfg = cfg
+        m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        self.wdq = _param((d, m.q_lora_rank), cfg, device)
+        self.q_norm = Norm(cfg, device, width=m.q_lora_rank, kind="rmsnorm")
+        self.wuq = _param((m.q_lora_rank, h * qk), cfg, device)
+        self.wdkv = _param((d, m.kv_lora_rank + m.qk_rope_head_dim), cfg, device)
+        self.kv_norm = Norm(cfg, device, width=m.kv_lora_rank, kind="rmsnorm")
+        self.wuk = _param((m.kv_lora_rank, h * m.qk_nope_head_dim), cfg, device)
+        self.wuv = _param((m.kv_lora_rank, h * m.v_head_dim), cfg, device)
+        self.wo = _param((h * m.v_head_dim, d), cfg, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """The projections (the two norms are reset as modules of their own)."""
+        for w in (self.wdq, self.wuq, self.wdkv, self.wuk, self.wuv, self.wo):
+            dense_init(w.data, gen)
+
+    def forward(self, x, *, window=None, cache=None, pos=None):
+        """``window`` is accepted for the GQA signature; MLA has none."""
+        return mla_attention(self, x, self.cfg, cache=cache, pos=pos)

@@ -6,24 +6,25 @@ leaves, or the same tree flattened under the ``"/"``-joined keys that the
 JAX checkpoint manager writes (``ckpt/manager.py:_flatten``, where bf16 is
 stored as f32).  It
 
-* unstacks the leading layer axis of ``params["units"]["l{j}"]``: unit
-  ``u``, element ``j`` becomes ``layers.{i}`` with ``i = u * len(unit) + j``,
-  the order of :meth:`repro_torch.models.transformer.LayerPlan.layers` (the
-  dense family has no prologue);
+* unstacks the leading layer axis of ``params["pro"]`` (the prologue, e.g.
+  deepseek-v3's leading dense layers: its layer ``p`` becomes ``layers.{p}``)
+  and of ``params["units"]["l{j}"]``: unit ``u``, element ``j`` becomes
+  ``layers.{i}`` with ``i = len(prologue) + u * len(unit) + j``, the order
+  of :meth:`repro_torch.models.transformer.LayerPlan.layers`;
 * keeps every weight's (in, out) orientation, because the port's layers
   compute ``x @ W`` as JAX does (no transpose, no ``nn.Linear``);
 * gives each leaf the dtype of the port's parameter of that name: the
   config's param dtype, except where the model keeps a parameter in fp32
-  whatever ``param_dtype`` is (RWKV's decay base ``w0`` and bonus ``u``, as
-  the JAX initialiser does).  A checkpoint stores bf16 as f32, so the
+  whatever ``param_dtype`` is (RWKV's decay base ``w0`` and bonus ``u``, and
+  the MoE ``router``, as the JAX initialisers do).  A checkpoint stores bf16 as f32, so the
   leaf's own dtype cannot say which parameters are bf16.  Widening bf16 to
   f32 and back is exact, so every value arrives bit for bit.  With
   ``dtype`` given, every leaf gets that dtype instead: the AdamW moments
   share the parameters' names and stay fp32 whatever the param dtype.
 
 ``params_to_jax`` is its inverse: named tensors (parameters or moments) to
-the ``"/"``-keyed flat tree, ``layers.{i}`` restacked into ``units/l{j}``
-with the leading unit axis, each leaf a numpy array of the tensor's dtype
+the ``"/"``-keyed flat tree, ``layers.{i}`` restacked into ``pro`` and
+``units/l{j}`` with the leading layer or unit axis, each leaf a numpy array of the tensor's dtype
 (bf16 as f32, which numpy can hold).  The checkpoint manager writes it
 under ``params/`` and ``opt/{m,v}/``.
 """
@@ -54,7 +55,7 @@ def params_from_jax(params: Mapping[str, Any], cfg, dtype=None) -> Dict[str, tor
     params, nested or "/"-flattened."""
     flat = _flatten(params)
     plan = layer_plan(cfg)
-    unit_len = len(plan.unit)
+    n_pro, unit_len = len(plan.prologue), len(plan.unit)
     dtypes = {name: dtype if dtype is not None else t.dtype
               for name, t in DecoderLM(cfg, torch.device("meta")).state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
@@ -66,13 +67,19 @@ def params_from_jax(params: Mapping[str, Any], cfg, dtype=None) -> Dict[str, tor
 
     for key, arr in flat.items():
         parts = key.split("/")
-        if parts[0] == "units":
+        if parts[0] == "pro":
+            rest = ".".join(parts[1:])
+            if arr.shape[0] != n_pro:
+                raise ValueError(f"{key}: leading axis {arr.shape[0]} != {n_pro} prologue layers")
+            for p in range(n_pro):
+                put(f"layers.{p}.{rest}", arr[p])
+        elif parts[0] == "units":
             j = int(parts[1].removeprefix("l"))
             rest = ".".join(parts[2:])
             if arr.shape[0] != plan.n_units:
                 raise ValueError(f"{key}: leading axis {arr.shape[0]} != {plan.n_units} units")
             for u in range(plan.n_units):
-                put(f"layers.{u * unit_len + j}.{rest}", arr[u])
+                put(f"layers.{n_pro + u * unit_len + j}.{rest}", arr[u])
         else:
             put(".".join(parts), arr)
     return out
@@ -82,24 +89,28 @@ def params_to_jax(tensors: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.ndar
     """The ``"/"``-keyed flat JAX tree of named tensors of the port's
     :class:`~repro_torch.models.transformer.DecoderLM` (its parameters, or
     AdamW moments under the same names): numpy leaves, bf16 widened to f32,
-    the layers stacked per unit element along a leading unit axis.  A leaf
-    of an fp32 CPU tensor outside the layers shares its memory."""
+    the prologue's layers stacked along a leading layer axis and the units'
+    per unit element along a leading unit axis.  A leaf of an fp32 CPU
+    tensor outside the layers shares its memory."""
     plan = layer_plan(cfg)
-    unit_len = len(plan.unit)
+    n_pro, unit_len = len(plan.prologue), len(plan.unit)
     flat: Dict[str, np.ndarray] = {}
-    units: Dict[str, list] = {}
+    stacks: Dict[str, list] = {}
     for name, t in tensors.items():
         t = t.detach().cpu()
         arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         parts = name.split(".")
         if parts[0] == "layers":
-            i = int(parts[1])
-            key = f"units/l{i % unit_len}/" + "/".join(parts[2:])
-            units.setdefault(key, [None] * plan.n_units)[i // unit_len] = arr
+            i, rest = int(parts[1]), "/".join(parts[2:])
+            if i < n_pro:
+                stacks.setdefault(f"pro/{rest}", [None] * n_pro)[i] = arr
+            else:
+                u, j = divmod(i - n_pro, unit_len)
+                stacks.setdefault(f"units/l{j}/{rest}", [None] * plan.n_units)[u] = arr
         else:
             flat["/".join(parts)] = arr
-    for key, per_unit in units.items():
-        if any(a is None for a in per_unit):
-            raise ValueError(f"{key}: a layer of the {plan.n_units} units is missing")
-        flat[key] = np.stack(per_unit)
+    for key, per_layer in stacks.items():
+        if any(a is None for a in per_layer):
+            raise ValueError(f"{key}: a layer of the {len(per_layer)} stacked is missing")
+        flat[key] = np.stack(per_layer)
     return flat

@@ -35,6 +35,15 @@ def dense_init(t: torch.Tensor, gen: torch.Generator, scale: Optional[float] = N
     t.copy_(w.mul_(s))
 
 
+def stacked_init(t: torch.Tensor, gen: torch.Generator) -> None:
+    """normal x 1/sqrt(in) for an (E, in, out) stack of expert weights (JAX's
+    ``init_moe`` ``stack``): the fan-in is the second axis, and each expert
+    is drawn in fp32 on its own, so no fp32 copy of the whole stack is made."""
+    s = 1.0 / math.sqrt(t.shape[1])
+    for w in t:
+        dense_init(w, gen, s)
+
+
 def embed_init(t: torch.Tensor, gen: torch.Generator) -> None:
     w = torch.randn(t.shape, generator=gen, device=t.device, dtype=torch.float32)
     t.copy_(w.mul_(0.02))
@@ -63,10 +72,13 @@ def norm(x: torch.Tensor, kind: str, scale=None, bias=None, eps: float = 1e-6) -
 
 
 class Norm(nn.Module):
-    def __init__(self, cfg, device):
+    """The config's norm over d_model, or ``kind`` over ``width`` (MLA's
+    ``q_norm`` and ``kv_norm`` are RMSNorms of the latent widths)."""
+
+    def __init__(self, cfg, device, width: Optional[int] = None, kind: Optional[str] = None):
         super().__init__()
-        self.kind = cfg.norm_kind
-        d = cfg.d_model
+        self.kind = kind or cfg.norm_kind
+        d = width or cfg.d_model
         if self.kind in ("rmsnorm", "layernorm"):
             self.scale = _param((d,), cfg, device)
         if self.kind == "layernorm":

@@ -7,14 +7,21 @@ a unit); here it is unrolled into one ``nn.ModuleList`` in place of the
 
 Families ported so far: dense GQA/MQA decoders, including gemma2's
 local/global alternation (sliding-window layers share the attention path),
-and the rwkv family (``block_pattern`` of ``rwkv`` layers: RWKV-6 time mix
-and channel mix).  MoE, MLA, hybrid (mamba), audio (whisper) and vlm raise
-``NotImplementedError`` naming the arch.
+the MoE family (``models/moe.py``: grok-1's GQA + MoE, deepseek-v3's MLA +
+MoE after a prologue of dense layers) and the rwkv family
+(``block_pattern`` of ``rwkv`` layers: RWKV-6 time mix and channel mix).
+Hybrid (mamba), audio (whisper) and vlm raise ``NotImplementedError``
+naming the arch.
 
 Caches are a dict ``{"pos": int, "layers": [entry, ...]}`` with one entry
-per layer, as JAX's ``_cache_shapes``: an attention layer's (k, v) pair of
-(B, S_max, Hkv, Dh), an rwkv layer's (x_prev (B,1,d), wkv (B,H,K,K) fp32,
-x_prev (B,1,d)).  Prefill and decode write it in place.
+per layer, as JAX's ``_cache_shapes``: a GQA layer's (k, v) pair of
+(B, S_max, Hkv, Dh), an MLA layer's (c_kv (B, S_max, R), k_rope (B, S_max,
+Dr)), an rwkv layer's (x_prev (B,1,d), wkv (B,H,K,K) fp32, x_prev (B,1,d)).
+Prefill and decode write it in place.
+
+The forward sums the MoE layers' auxiliary losses (zero without MoE);
+``return_aux`` returns the sum, and ``lm_loss`` adds 0.01 x it for MoE
+configs, as JAX's ``lm_loss`` does.
 """
 from __future__ import annotations
 
@@ -24,8 +31,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from .attention import GQAAttention
+from .attention import GQAAttention, MLAAttention
 from .layers import MLP, Embed, Norm, cross_entropy_fused
+from .moe import MoE
 from .rwkv import RWKVChannelMix, RWKVTimeMix, rwkv_state_shapes
 
 
@@ -87,9 +95,7 @@ def check_supported(cfg) -> None:
     kinds = {spec.kind for spec in layer_plan(cfg).layers()}
     if kinds - {"attn", "rwkv"}:
         missing.append(f"layers {sorted(kinds - {'attn', 'rwkv'})}")
-    if cfg.moe is not None:
-        missing.append("MoE")
-    if "attn" in kinds and cfg.attn_kind != "gqa":
+    if "attn" in kinds and cfg.attn_kind not in ("gqa", "mla"):
         missing.append(f"attention {cfg.attn_kind!r}")
     if missing:
         raise NotImplementedError(
@@ -103,6 +109,9 @@ def _cache_shapes(spec: LayerSpec, cfg, batch: int, s_max: int):
     if spec.kind == "rwkv":
         s1, s2, s3 = rwkv_state_shapes(cfg, batch)
         return ((s1, dt), (s2, torch.float32), (s3, dt))
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return (((batch, s_max, m.kv_lora_rank), dt), ((batch, s_max, m.qk_rope_head_dim), dt))
     kv = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
     return ((kv, dt), (kv, dt))
 
@@ -119,7 +128,8 @@ def init_cache(cfg, batch: int, s_max: int, device) -> Dict[str, Any]:
 
 
 class Block(nn.Module):
-    """Pre-norm layer: attention + MLP, or RWKV time mix + channel mix."""
+    """Pre-norm layer: attention (GQA or MLA) + MLP or MoE, or RWKV time mix
+    + channel mix.  Returns (x, the MoE auxiliary loss or None)."""
 
     def __init__(self, spec: LayerSpec, cfg, device):
         super().__init__()
@@ -131,15 +141,20 @@ class Block(nn.Module):
             self.mix = RWKVTimeMix(cfg, device)
             self.ffn = RWKVChannelMix(cfg, device)
         else:
-            self.mix = GQAAttention(cfg, device)
-            self.ffn = MLP(cfg, device)
+            self.mix = (MLAAttention if cfg.attn_kind == "mla" else GQAAttention)(cfg, device)
+            # prologue layers of an MoE model use the dense d_ff
+            self.ffn = MoE(cfg, device) if spec.moe else MLP(cfg, device)
+        self.moe = spec.moe
 
     def forward(self, x, cache=None, pos=None):
         if self.kind == "rwkv":
             x = x + self.mix(self.ln1(x), state=cache[:2] if cache is not None else None)
-            return x + self.ffn(self.ln2(x), cache[2] if cache is not None else None)
+            return x + self.ffn(self.ln2(x), cache[2] if cache is not None else None), None
         x = x + self.mix(self.ln1(x), window=self.window, cache=cache, pos=pos)
-        return x + self.ffn(self.ln2(x))
+        if self.moe:
+            y, aux = self.ffn(self.ln2(x))
+            return x + y, aux
+        return x + self.ffn(self.ln2(x)), None
 
 
 class DecoderLM(nn.Module):
@@ -166,10 +181,11 @@ class DecoderLM(nn.Module):
                 m.reset_parameters(gen)
 
     def forward(self, tokens, cache=None, mode: str = "train", last_only: bool = False,
-                return_hidden: bool = False):
+                return_hidden: bool = False, return_aux: bool = False):
         """Returns (logits fp32 (B, S, V), new_cache), or with
         ``return_hidden`` (the hidden state after the final norm (B, S, d),
-        new_cache).
+        new_cache); with ``return_aux`` the summed MoE auxiliary loss (fp32
+        scalar) comes second: (out, aux, new_cache).
 
         * mode="train":   cache ignored
         * mode="prefill": cache required; writes positions [0:S], pos := S
@@ -183,35 +199,39 @@ class DecoderLM(nn.Module):
             raise ValueError(f"mode={mode!r} requires a cache")
         pos = cache["pos"] if mode == "decode" else None
         x = self.embed.embed(tokens)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
-            x = layer(x, cache["layers"][i] if cache is not None else None, pos)
+            x, aux = layer(x, cache["layers"][i] if cache is not None else None, pos)
+            if aux is not None:
+                aux_total = aux_total + aux
         x = self.final_norm(x)
         new_cache = None
         if cache is not None:
             new_pos = cache["pos"] + (1 if mode == "decode" else tokens.shape[1])
             new_cache = {"pos": new_pos, "layers": cache["layers"]}
-        if return_hidden:
-            return x, new_cache
-        if last_only:
-            x = x[:, -1:, :]
-        return self.embed.unembed(x), new_cache
+        if not return_hidden:
+            if last_only:
+                x = x[:, -1:, :]
+            x = self.embed.unembed(x)
+        return (x, aux_total, new_cache) if return_aux else (x, new_cache)
 
 
 def apply_lm(model: DecoderLM, tokens, cache=None, mode: str = "train",
-             last_only: bool = False, return_hidden: bool = False):
+             last_only: bool = False, return_hidden: bool = False, return_aux: bool = False):
     """Functional entry point in the JAX ``apply_lm`` argument order; returns
-    (logits, new_cache), or (hidden, new_cache) with ``return_hidden`` (the
-    ported families have no auxiliary loss)."""
+    (logits, new_cache), or (hidden, new_cache) with ``return_hidden``, and
+    with ``return_aux`` JAX's triple (out, aux, new_cache)."""
     return model(tokens, cache=cache, mode=mode, last_only=last_only,
-                 return_hidden=return_hidden)
+                 return_hidden=return_hidden, return_aux=return_aux)
 
 
 def lm_loss(model: DecoderLM, batch) -> torch.Tensor:
     """Mean next-token NLL of ``batch`` = {"tokens" (B,S), "targets" (B,S),
     optional "mask"}: the fused, chunked loss on the hidden state after the
-    final norm, as JAX's ``lm_loss``.  JAX adds 0.01 x the MoE auxiliary
-    loss; the port's families have no MoE yet (it raises
-    ``NotImplementedError`` at model construction), so the term does not
-    arise."""
-    h, _ = model(batch["tokens"], mode="train", return_hidden=True)
-    return cross_entropy_fused(h, model.embed, batch["targets"], batch.get("mask"))
+    final norm, plus 0.01 x the MoE auxiliary loss for an MoE config, as
+    JAX's ``lm_loss``."""
+    h, aux, _ = model(batch["tokens"], mode="train", return_hidden=True, return_aux=True)
+    loss = cross_entropy_fused(h, model.embed, batch["targets"], batch.get("mask"))
+    if model.cfg.moe is not None:
+        loss = loss + 0.01 * aux
+    return loss

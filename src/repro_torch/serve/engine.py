@@ -37,7 +37,8 @@ class ServeEngine:
         """Per-request communication profile, measured off the engine's own
         cache tensors (every tensor of every layer's entry):
         ``kv_bytes_per_token`` is the byte growth of ``api.init_cache`` per
-        context slot (0 for a recurrent state, which does not grow), and
+        context slot (MLA's compressed cache grows by c_kv and k_rope,
+        L (R + Dr) entries; 0 for a recurrent state, which does not grow), and
         ``fixed_state_bytes`` is what does not grow.  Its analytic twin is
         ``repro.dist.demand.kv_bytes_per_token`` (the tests pin the two).
         The JAX engine's fixed bytes also count its int32 ``pos`` leaf; the
