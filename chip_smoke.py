@@ -9,7 +9,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: each hand-written kernel (flash attention, RMSNorm, the chunked
    and the short-sequence WKV6) against its plain PyTorch version on CUDA
    tensors, at the serving paths'
-   shapes and at the other options of the TPU kernel it replaces, with times
+   shapes (flash attention also at grok-1's and jamba's prefill, RMSNorm
+   at the MoE and hybrid models' widths) and at the other options of the
+   TPU kernel it replaces, with times
    of the kernel, the plain version and one PyTorch library call where there
    is one, beside the least time the card could take;
    The backward kernels of flash attention, RMSNorm and WKV6 are held
@@ -23,24 +25,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    window are printed: one launch of a one-element kernel, and, beside the
    RMSNorm backward and the WKV6 decode step, a PyTorch call that moves the
    bytes the kernel must move;
-4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b, and
+4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b,
    deepseek-v3-671b at full width cut to 2 layers (one dense, one MoE) and
-   16 experts (top-8 kept), on the card (kernels) against the same weights
+   16 experts (top-8 kept), and jamba-1.5-large-398b at full width cut to
+   one unit (8 layers) and 2 experts (top-2 kept; drawn on the card and
+   copied to the CPU), on the card (kernels) against the same weights
    on the CPU (plain versions): logits, the decode step's logits and greedy
-   tokens, and for the MoE model the routing decisions that differ; then
+   tokens, and for the MoE models the routing decisions that differ; then
    one AdamW step of the 2-layer fp32 gemma-2b and rwkv6-1.6b on the card
    against the same step on the CPU: the loss, every parameter's gradient
    and the parameter update;
 5. serve: full-width gemma-2b (18 layers), rwkv6-1.6b (24 layers),
-   deepseek-v3-671b cut to 4 layers (3 dense, 1 MoE: MLA, 256 experts) and
-   grok-1-314b cut to 2 layers (GQA 48/8 with softcap, 8 experts), bf16,
+   deepseek-v3-671b cut to 4 layers (3 dense, 1 MoE: MLA, 256 experts),
+   grok-1-314b cut to 2 layers (GQA 48/8 with softcap, 8 experts) and
+   jamba-1.5-large-398b cut to one unit (1 GQA + 7 Mamba layers, MoE on 4)
+   and 8 of its 16 experts (top-2 kept), bf16,
    random weights from a fixed seed, each serving batch 4 x prompt 1024 +
    32 new tokens through ``ServeEngine.generate``, with the kernels' launch
-   counts of each run (flash attention and RMSNorm on gemma-2b's and
-   grok-1's paths, RMSNorm on deepseek-v3's, whose MLA attention is plain
-   torch, the chunked WKV6 kernel in rwkv6's prefill and the decode-step
-   one in its decode steps), ``comm_profile`` against the analytic bytes,
-   and for the MoE models a second run that must give the same tokens;
+   counts of each run (flash attention and RMSNorm on gemma-2b's,
+   grok-1's and jamba's paths, RMSNorm on deepseek-v3's, whose MLA
+   attention is plain torch, the chunked WKV6 kernel in rwkv6's prefill and
+   the decode-step one in its decode steps), ``comm_profile`` against the
+   analytic bytes, and for the MoE models a second run that must give the
+   same tokens; for jamba the plain selective scan of one layer against its
+   bound and the Mamba mixers' share of the prefill;
 6. train: full-width, full-depth gemma-2b and then rwkv6-1.6b in bf16,
    random weights from a fixed seed, each 6 AdamW steps of batch 4 x 1024
    tokens of the synthetic affine data through
@@ -93,7 +101,11 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # 1e-4 at log_w = -50, as in JAX
 ARCHS = ("gemma-2b", "rwkv6-1.6b")
 MOE_ARCHS = ("deepseek-v3-671b", "grok-1-314b")
-SERVE_LAYERS = {"deepseek-v3-671b": 4, "grok-1-314b": 2}  # depth cut to fit one card
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# depth cut to fit one card (jamba: one 8-layer unit of its 72 layers)
+SERVE_LAYERS = {"deepseek-v3-671b": 4, "grok-1-314b": 2, HYBRID_ARCH: 8}
+# experts cut to fit one card, top-k kept (jamba: 8 of 16, 25.4 B params in bf16)
+SERVE_EXPERTS = {HYBRID_ARCH: 8}
 SERVE_BATCH, PROMPT_LEN, MAX_NEW = 4, 1024, 32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 LAUNCH_LAYERS, LAUNCH_STEPS = 2, 4  # the launcher phase: two checkpoints of 4.55 GB
@@ -176,8 +188,9 @@ def check_flash(gen) -> dict:
         (2, 4, 2, 77, 77, 16, torch.bfloat16, dict(window=8)),
         (SERVE_BATCH, 48, 8, PROMPT_LEN, PROMPT_LEN, 128, torch.bfloat16,
          dict(softcap=30.0)),  # grok-1 prefill
+        (SERVE_BATCH, 64, 8, PROMPT_LEN, PROMPT_LEN, 128, torch.bfloat16, {}),  # jamba prefill
     ]
-    main = grok = None
+    main = grok = jamba = None
     for B, Hq, Hkv, Sq, Sk, D, dtype, kw in cases:
         # model layout (B, S, H, D) viewed as (B, H, S, D), as ops.attention passes it
         q = randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
@@ -197,6 +210,8 @@ def check_flash(gen) -> dict:
             main = dict(q=q, k=k, v=v, err=err, dtype=dtype)
         if Hq == 48:
             grok = dict(q=q, k=k, v=v, err=err)
+        if Hq == 64:
+            jamba = dict(q=q, k=k, v=v, err=err)
 
     q, k, v = grok["q"], grok["k"], grok["v"]
     B, Hq, S, D = q.shape
@@ -211,6 +226,22 @@ def check_flash(gen) -> dict:
         f"D={D}, bf16, causal, softcap 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library: none (scaled_dot_product_attention has no softcap), bound {bound_ms:.4f} ms "
         f"by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+
+    q, k, v = jamba["q"], jamba["k"], jamba["v"]
+    B, Hq, S, D = q.shape
+    ms = time_ms(lambda: flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: ref.mha_reference(q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    pairs = B * Hq * S * (S + 1) // 2
+    flops, nbytes = 4.0 * D * pairs, (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+    at_jamba = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=jamba["err"])
+    log(f"  flash_attention at jamba's prefill shape (B={B}, Hq={Hq}, Hkv={k.shape[1]}, S={S}, "
+        f"D={D}, bf16, causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"(scaled_dot_product_attention, enable_gqa=True) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
 
     q, k, v, dtype = main["q"], main["k"], main["v"], main["dtype"]
     B, Hq, S, D = q.shape
@@ -230,7 +261,8 @@ def check_flash(gen) -> dict:
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:40",
                 max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, at_grok_prefill=at_grok)
+                bound_by=bound_by, library_ms=library_ms, at_grok_prefill=at_grok,
+                at_jamba_prefill=at_jamba)
 
 
 def check_rmsnorm(gen, d_model: int) -> dict:
@@ -255,6 +287,8 @@ def check_rmsnorm(gen, d_model: int) -> dict:
         (SERVE_BATCH, 1536, torch.bfloat16),
         (SERVE_BATCH, 512, torch.bfloat16),
         (SERVE_BATCH, 6144, torch.bfloat16),
+        (rows_main, 8192, torch.bfloat16),  # jamba prefill: ln1, ln2, final
+        (SERVE_BATCH, 8192, torch.bfloat16),  # its decode steps
         (300, 512, torch.float32),
         (300, 1536, torch.float32),
     ]
@@ -274,7 +308,7 @@ def check_rmsnorm(gen, d_model: int) -> dict:
             raise AssertionError(f"rmsnorm disagrees with its plain version: {err}")
         if main is None:
             main = dict(x=x, s=s, err=err, dtype=dtype)
-        elif rows == rows_main and d in (512, 1536, 6144, 7168):
+        elif rows == rows_main and d in (512, 1536, 6144, 7168, 8192):
             widths[d] = (x, s)
 
     by_width = {}
@@ -283,7 +317,7 @@ def check_rmsnorm(gen, d_model: int) -> dict:
         by_width[d] = dict(ms=time_ms(lambda: rmsnorm(x, s)),
                            library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6)),
                            bound_ms=bound(nbytes, 4.0 * x.numel(), x.dtype)[0])
-    log("  rmsnorm at the MoE paths' prefill widths (4096 rows, bf16): " + "; ".join(
+    log("  rmsnorm at the MoE and hybrid paths' prefill widths (4096 rows, bf16): " + "; ".join(
         f"d={d} kernel {t['ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.4f} ms" for d, t in by_width.items()))
 
@@ -773,15 +807,49 @@ def moe_reference_config(cfg):
     return cfg.replace(moe=dataclasses.replace(cfg.moe, first_dense=1, num_experts=16))
 
 
-def check_reference(cfg, cut: str = "2-layer") -> None:
+def hybrid_reference_config(cfg):
+    """jamba at full width for the card-vs-CPU check, which runs one unit (8
+    layers, the least its pattern allows): 2 experts, top-2 kept, 10.9 B
+    fp32 parameters, 43.5 GB a side."""
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=2))
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable line")
+
+
+def check_reference(cfg, cut: str = "2-layer", init_on_card: bool = False) -> None:
+    """The model, cut to 2 layers or one unit of its block pattern if that
+    is longer, on the card against the same weights on the CPU.  With
+    ``init_on_card`` the weights are drawn on the card and copied to the CPU
+    (drawing ~10 B fp32 values on the host is slow)."""
     from repro_torch.models import get_api, moe
+    from repro_torch.models.transformer import DecoderLM
     from repro_torch.serve.engine import ServeEngine
 
-    small = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    small = cfg.replace(num_layers=max(2, len(cfg.block_pattern or ())),
+                        param_dtype="float32", compute_dtype="float32")
     cpu_api, gpu_api = get_api(small, device="cpu"), get_api(small, device=DEVICE)
-    cpu_model = cpu_api.init(seed=1)
-    gpu_model = gpu_api.init(seed=1)
-    gpu_model.load_state_dict(cpu_model.state_dict())
+    if init_on_card:
+        need = 4 * sum(p.numel() for p in DecoderLM(small, torch.device("meta")).parameters())
+        free = host_available_bytes()
+        log(f"  {cfg.name} {cut} fp32: {need / 1e9:.2f} GB of weights a side; host memory "
+            f"available {free / 1e9:.1f} GB")
+        if free < 1.25 * need:
+            raise RuntimeError(f"the CPU side needs {need / 1e9:.2f} GB and more for its "
+                               f"activations; the host has {free / 1e9:.1f} GB available")
+        gpu_model = gpu_api.init(seed=1)
+        cpu_model = DecoderLM(small, torch.device("cpu"))
+        cpu_model.load_state_dict(gpu_model.state_dict())
+    else:
+        cpu_model = cpu_api.init(seed=1)
+        gpu_model = gpu_api.init(seed=1)
+        gpu_model.load_state_dict(cpu_model.state_dict())
     tokens = np.random.default_rng(1).integers(0, small.vocab_size, size=(2, 128))
     tol = 1e-3  # fp32 on both sides; sums over d=2048..18432 taken in another order on the card
     logits, routed = {}, {"cpu": [], "card": []}
@@ -824,6 +892,7 @@ def check_reference(cfg, cut: str = "2-layer") -> None:
     log(f"  greedy tokens card {out['card'].tolist()} / CPU {out['cpu'].tolist()}")
     if not np.array_equal(out["cpu"], out["card"]):
         raise AssertionError("greedy tokens on the card differ from the CPU")
+    log(f"  {cfg.name} reference: {time.perf_counter() - t0:.1f} s")
 
 
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
@@ -919,11 +988,21 @@ def expected_launches(cfg, path: str = "serve") -> dict:
     if cfg.attn_kind == "mla":  # attention plain torch; q_norm and kv_norm beside ln1, ln2
         return {"flash_attention": 0, "rmsnorm": (4 * L + 1) * passes, "wkv6": 0,
                 "wkv6_step": 0}
+    if cfg.family == "hybrid":  # flash in the attention layers' prefill; mamba is plain torch
+        return {"flash_attention": attention_layers(cfg), "rmsnorm": (2 * L + 1) * passes,
+                "wkv6": 0, "wkv6_step": 0}
     return {"flash_attention": L,  # prefill only: decode is plain torch
             "rmsnorm": (2 * L + 1) * passes, "wkv6": 0, "wkv6_step": 0}
 
 
+def attention_layers(cfg) -> int:
+    """Layers of a hybrid pattern that hold a KV cache (jamba: 1 in 8)."""
+    return sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "attn"
+               for i in range(cfg.num_layers))
+
+
 def serve(cfg) -> dict:
+    from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.wkv6 import wkv6
@@ -938,6 +1017,11 @@ def serve(cfg) -> dict:
     cut = (f" (cut to {cfg.num_layers} layers: {sum(not b.moe for b in model.layers)} dense, "
            f"{sum(b.moe for b in model.layers)} MoE of {cfg.moe.num_experts} experts, "
            f"top-{cfg.moe.top_k})" if cfg.moe is not None else "")
+    if cfg.family == "hybrid":
+        full = configs.get_config(cfg.name)
+        cut += (f" [{cfg.num_layers - attention_layers(cfg)} Mamba and "
+                f"{attention_layers(cfg)} attention layers; cuts: depth {full.num_layers} -> "
+                f"{cfg.num_layers}, experts {full.moe.num_experts} -> {cfg.moe.num_experts}]")
     log(f"  {cfg.name}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params in {str(cfg.pdtype)[6:]}, initialised in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -989,6 +1073,13 @@ def serve(cfg) -> dict:
         expect_kv = 0.0
         expect_fixed = cfg.num_layers * (2 * cfg.d_model * cfg.cdtype.itemsize
                                          + (cfg.d_model // K) * K * K * 4)
+    elif cfg.family == "hybrid":  # KV in the attention layers; conv_buf and fp32 scan state
+        mc = cfg.mamba
+        d_in = mc.expand * cfg.d_model
+        n_attn = attention_layers(cfg)
+        expect_kv = n_attn * 2 * cfg.num_kv_heads * cfg.head_dim * cfg.cdtype.itemsize
+        expect_fixed = (cfg.num_layers - n_attn) * ((mc.d_conv - 1) * d_in * cfg.cdtype.itemsize
+                                                    + d_in * mc.d_state * 4)
     elif cfg.attn_kind == "mla":  # the compressed cache: c_kv and k_rope
         expect_kv = cfg.num_layers * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) \
             * cfg.cdtype.itemsize
@@ -1008,6 +1099,8 @@ def serve(cfg) -> dict:
         wkv_y_rounding_shift(api, model, torch.from_numpy(tokens).to(DEVICE))
     if cfg.attn_kind == "mla":
         mla_attention_ms(cfg)
+    if cfg.family == "hybrid":
+        mamba_scan_ms(cfg)
     profile_phases(api, model, torch.from_numpy(tokens).to(DEVICE), decode_ms)
     return launches
 
@@ -1044,6 +1137,38 @@ def mla_attention_ms(cfg) -> None:
         f"Dq={dq}, Dv={dv}, bf16, causal): plain torch (the port's path) {ms:.4f} ms, library "
         f"(scaled_dot_product_attention) {library}, bound {bound_ms:.4f} ms by {bound_by} "
         f"({flops / 1e9:.2f} GFLOP)")
+
+
+def mamba_scan_ms(cfg) -> None:
+    """The selective scan of one Mamba layer at the prefill shape, fp32:
+    the port's plain ``selective_scan`` (chunks of 64, a doubling scan in
+    each) against the bound of a one-pass scan that reads dt, dt·x, B and C
+    once and writes y once.  No single PyTorch call computes it."""
+    from repro_torch.models.ssm import selective_scan
+
+    mc = cfg.mamba
+    d_in, N = mc.expand * cfg.d_model, mc.d_state
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    shape = (SERVE_BATCH, PROMPT_LEN)
+    dt = F.softplus(randn(gen, shape + (d_in,), torch.float32) - 4.0)  # dt_bias 0, small dt
+    dtx = dt * randn(gen, shape + (d_in,), torch.float32)
+    Bm, Cm = (randn(gen, shape + (N,), torch.float32) for _ in range(2))
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=DEVICE).expand(d_in, N)
+    h0 = torch.zeros((SERVE_BATCH, d_in, N), device=DEVICE)
+    y, h = selective_scan(dt, dtx, Bm, Cm, A, h0)
+    sync()
+    if not (torch.isfinite(y).all() and torch.isfinite(h).all()):
+        raise AssertionError("the selective scan gave values that are not finite")
+    ms = time_ms(lambda: selective_scan(dt, dtx, Bm, Cm, A, h0), reps=5)
+    nbytes = (3 * dt.numel() + 2 * Bm.numel()) * 4  # dt, dt·x, B, C read; y written
+    flops = 7.0 * dt.numel() * N  # dt·A, exp, dt·x·B, the recurrence's mul-add, C·h mul-add
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+    layers = cfg.num_layers - attention_layers(cfg)
+    log(f"  mamba selective scan at the prefill shape, one layer (B={SERVE_BATCH}, "
+        f"S={PROMPT_LEN}, d_in={d_in}, N={N}, fp32, chunks of 64): plain torch (the port's path) "
+        f"{ms:.4f} ms, {layers} layers {layers * ms:.3f} ms; library: none (no single PyTorch "
+        f"call); bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP fp32)")
 
 
 def bf16_absorbs(p: torch.Tensor, bound: float) -> bool:
@@ -1216,24 +1341,48 @@ def profile_phases(api, model, tokens, decode_ms: float, steps: int = 8) -> None
     """torch.profiler over one prefill and ``steps`` decode steps (outside the
     counted run): device-busy time, kernels launched, and the top kernels by
     device time.  The idle share of a decode step is taken against the
-    unprofiled decode time of the counted run."""
+    unprofiled decode time of the counted run.  For a model with Mamba
+    layers, CUDA events around each Mamba mixer in the profiled prefill give
+    the mixers' share of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.ssm import Mamba
 
     def kernels_of(prof):
         return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
+    spans, hooks = [], []
+
+    def opened(mod, args):
+        spans.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+        spans[-1][0].record()
+
+    def closed(mod, args, out):
+        spans[-1][1].record()
+
+    mixers = [m for m in model.modules() if isinstance(m, Mamba)]
     with torch.inference_mode():
         cache = api.init_cache(tokens.shape[0], tokens.shape[1] + steps)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pre:
-            logits, cache = api.prefill(model, {"tokens": tokens}, cache, last_only=True)
-            tok = logits[:, -1].argmax(dim=-1)
-            sync()
+        whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for m in mixers:
+            hooks += [m.register_forward_pre_hook(opened), m.register_forward_hook(closed)]
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pre:
+                whole[0].record()
+                logits, cache = api.prefill(model, {"tokens": tokens}, cache, last_only=True)
+                whole[1].record()
+                tok = logits[:, -1].argmax(dim=-1)
+                sync()
+        finally:
+            for h in hooks:
+                h.remove()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as dec:
             for _ in range(steps):
                 logits, cache = api.decode(model, tok[:, None], cache)
                 tok = logits[:, -1].argmax(dim=-1)
             sync()
+    busy_of = {}
     for what, prof, n in (("prefill", pre, 1), ("decode step", dec, steps)):
         kern = kernels_of(prof)
         if not kern:
@@ -1249,6 +1398,15 @@ def profile_phases(api, model, tokens, decode_ms: float, steps: int = 8) -> None
         log(f"  profile {what}: {len(kern) / n:.0f} kernels, device busy {busy:.3f} ms{extra}")
         for name, ms in top:
             log(f"    {ms:8.3f} ms  {name[:100]}")
+        busy_of[what] = busy
+    if mixers:
+        mixer_ms = sum(a.elapsed_time(b) for a, b in spans)
+        prefill_ms = whole[0].elapsed_time(whole[1])
+        busy = busy_of.get("prefill")
+        log(f"  the {len(spans)} Mamba mixers in the profiled prefill (CUDA events around each): "
+            f"{mixer_ms:.3f} ms of the prefill's {prefill_ms:.3f} ms from its first launch to "
+            f"its last, a share of {mixer_ms / prefill_ms:.3f}"
+            + (f"; {mixer_ms / busy:.3f} of its device busy" if busy else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -1409,6 +1567,9 @@ def main() -> int:
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     deepseek, grok = (configs.get_config(a).replace(num_layers=SERVE_LAYERS[a])
                       for a in MOE_ARCHS)
+    jamba = configs.get_config(HYBRID_ARCH)
+    jamba = jamba.replace(num_layers=SERVE_LAYERS[HYBRID_ARCH], moe=dataclasses.replace(
+        jamba.moe, num_experts=SERVE_EXPERTS[HYBRID_ARCH]))
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     log("kernels:")
     floor_ms = launch_floor_ms()
@@ -1427,12 +1588,15 @@ def main() -> int:
     check_reference(moe_reference_config(deepseek),
                     "cut to 2 layers (first_dense 1) and 16 experts (top-8 kept),")
     torch.cuda.empty_cache()
+    check_reference(hybrid_reference_config(jamba),
+                    "cut to one unit (8 layers) and 2 experts (top-2 kept),", init_on_card=True)
+    torch.cuda.empty_cache()
     for cfg in (gemma, rwkv):
         check_train_reference(cfg)
         torch.cuda.empty_cache()
     log("serve:")
     runs = {}
-    for cfg in (gemma, rwkv, deepseek, grok):
+    for cfg in (gemma, rwkv, deepseek, grok, jamba):
         torch.cuda.reset_peak_memory_stats()
         runs[cfg.name] = serve(cfg)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1449,6 +1613,8 @@ def main() -> int:
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],
              f"serve {deepseek.name} ({deepseek.num_layers} layers)": runs[deepseek.name],
              f"serve {grok.name} ({grok.num_layers} layers)": runs[grok.name],
+             f"serve {jamba.name} ({jamba.num_layers} layers, {jamba.moe.num_experts} experts)":
+                 runs[jamba.name],
              f"train {gemma.name}": runs[f"train {gemma.name}"],
              f"train {rwkv.name}": runs[f"train {rwkv.name}"], **launched}
     driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",

@@ -5,6 +5,7 @@ Runs on the card unless ``--device`` says otherwise:
       --batch 4 --prompt-len 1024 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -15,8 +15,9 @@ stored as f32).  It
   compute ``x @ W`` as JAX does (no transpose, no ``nn.Linear``);
 * gives each leaf the dtype of the port's parameter of that name: the
   config's param dtype, except where the model keeps a parameter in fp32
-  whatever ``param_dtype`` is (RWKV's decay base ``w0`` and bonus ``u``, and
-  the MoE ``router``, as the JAX initialisers do).  A checkpoint stores bf16 as f32, so the
+  whatever ``param_dtype`` is (RWKV's decay base ``w0`` and bonus ``u``, the
+  MoE ``router``, and Mamba's ``A_log`` and ``D``, as the JAX initialisers
+  do).  A checkpoint stores bf16 as f32, so the
   leaf's own dtype cannot say which parameters are bf16.  Widening bf16 to
   f32 and back is exact, so every value arrives bit for bit.  With
   ``dtype`` given, every leaf gets that dtype instead: the AdamW moments

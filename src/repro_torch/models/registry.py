@@ -2,8 +2,8 @@
 
 The reduced smoke variants of the 10 architectures, and a
 uniform :class:`ModelAPI` (init / prefill / decode / init_cache) for the
-ported decoder-only families (dense GQA/MQA, MoE with GQA or MLA, and
-rwkv).  Entry points run on ``cuda`` unless the caller passes another
+ported decoder-only families (dense GQA/MQA, MoE with GQA or MLA, rwkv,
+and jamba's hybrid of GQA and Mamba layers).  Entry points run on ``cuda`` unless the caller passes another
 device.
 """
 from __future__ import annotations

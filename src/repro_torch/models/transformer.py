@@ -8,15 +8,17 @@ a unit); here it is unrolled into one ``nn.ModuleList`` in place of the
 Families ported so far: dense GQA/MQA decoders, including gemma2's
 local/global alternation (sliding-window layers share the attention path),
 the MoE family (``models/moe.py``: grok-1's GQA + MoE, deepseek-v3's MLA +
-MoE after a prologue of dense layers) and the rwkv family
-(``block_pattern`` of ``rwkv`` layers: RWKV-6 time mix and channel mix).
-Hybrid (mamba), audio (whisper) and vlm raise ``NotImplementedError``
-naming the arch.
+MoE after a prologue of dense layers), the rwkv family
+(``block_pattern`` of ``rwkv`` layers: RWKV-6 time mix and channel mix) and
+the hybrid family (jamba: a ``block_pattern`` of one GQA layer and seven
+Mamba layers, ``models/ssm.py``, with MoE on every other layer).  Audio
+(whisper) and vlm raise ``NotImplementedError`` naming the arch.
 
 Caches are a dict ``{"pos": int, "layers": [entry, ...]}`` with one entry
 per layer, as JAX's ``_cache_shapes``: a GQA layer's (k, v) pair of
 (B, S_max, Hkv, Dh), an MLA layer's (c_kv (B, S_max, R), k_rope (B, S_max,
-Dr)), an rwkv layer's (x_prev (B,1,d), wkv (B,H,K,K) fp32, x_prev (B,1,d)).
+Dr)), an rwkv layer's (x_prev (B,1,d), wkv (B,H,K,K) fp32, x_prev (B,1,d)),
+a mamba layer's (conv_buf (B, d_conv-1, d_in), ssm_state (B, d_in, N) fp32).
 Prefill and decode write it in place.
 
 The forward sums the MoE layers' auxiliary losses (zero without MoE);
@@ -35,6 +37,7 @@ from .attention import GQAAttention, MLAAttention
 from .layers import MLP, Embed, Norm, cross_entropy_fused
 from .moe import MoE
 from .rwkv import RWKVChannelMix, RWKVTimeMix, rwkv_state_shapes
+from .ssm import Mamba, mamba_state_shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,11 +93,11 @@ def layer_plan(cfg) -> LayerPlan:
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run yet."""
     missing = []
-    if cfg.family in ("audio", "vlm", "hybrid"):
+    if cfg.family in ("audio", "vlm"):
         missing.append(f"family {cfg.family!r}")
     kinds = {spec.kind for spec in layer_plan(cfg).layers()}
-    if kinds - {"attn", "rwkv"}:
-        missing.append(f"layers {sorted(kinds - {'attn', 'rwkv'})}")
+    if kinds - {"attn", "mamba", "rwkv"}:
+        missing.append(f"layers {sorted(kinds - {'attn', 'mamba', 'rwkv'})}")
     if "attn" in kinds and cfg.attn_kind not in ("gqa", "mla"):
         missing.append(f"attention {cfg.attn_kind!r}")
     if missing:
@@ -109,6 +112,9 @@ def _cache_shapes(spec: LayerSpec, cfg, batch: int, s_max: int):
     if spec.kind == "rwkv":
         s1, s2, s3 = rwkv_state_shapes(cfg, batch)
         return ((s1, dt), (s2, torch.float32), (s3, dt))
+    if spec.kind == "mamba":
+        s1, s2 = mamba_state_shape(cfg, batch)
+        return ((s1, dt), (s2, torch.float32))
     if cfg.attn_kind == "mla":
         m = cfg.mla
         return (((batch, s_max, m.kv_lora_rank), dt), ((batch, s_max, m.qk_rope_head_dim), dt))
@@ -128,8 +134,8 @@ def init_cache(cfg, batch: int, s_max: int, device) -> Dict[str, Any]:
 
 
 class Block(nn.Module):
-    """Pre-norm layer: attention (GQA or MLA) + MLP or MoE, or RWKV time mix
-    + channel mix.  Returns (x, the MoE auxiliary loss or None)."""
+    """Pre-norm layer: attention (GQA or MLA) or Mamba + MLP or MoE, or RWKV
+    time mix + channel mix.  Returns (x, the MoE auxiliary loss or None)."""
 
     def __init__(self, spec: LayerSpec, cfg, device):
         super().__init__()
@@ -141,7 +147,12 @@ class Block(nn.Module):
             self.mix = RWKVTimeMix(cfg, device)
             self.ffn = RWKVChannelMix(cfg, device)
         else:
-            self.mix = (MLAAttention if cfg.attn_kind == "mla" else GQAAttention)(cfg, device)
+            if spec.kind == "mamba":
+                self.mix = Mamba(cfg, device)
+            elif cfg.attn_kind == "mla":
+                self.mix = MLAAttention(cfg, device)
+            else:
+                self.mix = GQAAttention(cfg, device)
             # prologue layers of an MoE model use the dense d_ff
             self.ffn = MoE(cfg, device) if spec.moe else MLP(cfg, device)
         self.moe = spec.moe
@@ -150,7 +161,10 @@ class Block(nn.Module):
         if self.kind == "rwkv":
             x = x + self.mix(self.ln1(x), state=cache[:2] if cache is not None else None)
             return x + self.ffn(self.ln2(x), cache[2] if cache is not None else None), None
-        x = x + self.mix(self.ln1(x), window=self.window, cache=cache, pos=pos)
+        if self.kind == "mamba":
+            x = x + self.mix(self.ln1(x), state=cache)
+        else:
+            x = x + self.mix(self.ln1(x), window=self.window, cache=cache, pos=pos)
         if self.moe:
             y, aux = self.ffn(self.ln2(x))
             return x + y, aux

@@ -556,3 +556,39 @@ def test_rwkv6_gradient_on_the_card_matches_the_cpu(gen):
     for n, g in out["cpu"][1].items():
         torch.testing.assert_close(out["card"][1][n], g, atol=1e-3 * g.abs().max().item(),
                                    rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_block_on_the_card_matches_the_cpu(gen, dtype):
+    """One narrow Mamba block (plain torch on both devices: the JAX package
+    has no Pallas kernel for the scan): a 100-token prefill through a zero
+    state (chunks of 4), then 3 decode steps, on the card against the CPU,
+    the same weights, inputs and state.  fp32: 1e-4 (sums over d_in in
+    another order; TF32 off); bf16: 2e-2 of the largest entry."""
+    from repro_torch.models import smoke_config
+    from repro_torch.models.ssm import Mamba, mamba_state_shape
+
+    cfg = smoke_config("jamba-1.5-large-398b").replace(
+        d_model=256, param_dtype=str(dtype)[6:], compute_dtype=str(dtype)[6:])
+    mods = {dev: Mamba(cfg, torch.device(dev)) for dev in ("cpu", "cuda")}
+    mods["cpu"].reset_parameters(torch.Generator().manual_seed(0))
+    mods["cuda"].load_state_dict(mods["cpu"].state_dict())
+    x = torch.randn((2, 103, cfg.d_model), generator=torch.Generator().manual_seed(1)).to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev, mod in mods.items():
+            s1, s2 = mamba_state_shape(cfg, 2)
+            state = (torch.zeros(s1, dtype=dtype, device=dev), torch.zeros(s2, device=dev))
+            with torch.no_grad():
+                ys = [mod(x[:, :100].to(dev), state=state)]
+                ys += [mod(x[:, t:t + 1].to(dev), state=state) for t in range(100, 103)]
+            out[dev] = [y.cpu() for y in ys] + [s.cpu() for s in state]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=tol * max(1.0, want.float().abs().max().item()), rtol=tol)

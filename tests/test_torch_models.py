@@ -2,8 +2,12 @@
 ``api.init(PRNGKey(0))`` params into the port, and train-mode, prefill and
 decode logits agree with ``repro.models`` ``apply_lm`` at atol 1e-4 (both
 stacks in float32 on the CPU; sums over d_model and d_ff are taken in
-another order, the port's attention keeps its probabilities in fp32, and
-the port's WKV6 steps token by token where JAX scans in chunks)."""
+another order, the port's attention keeps its probabilities in fp32, the
+port's WKV6 steps token by token where JAX scans in chunks, and the port's
+Mamba scan doubles where JAX's ``associative_scan`` recurses).  jamba's
+hybrid smoke model (one unit: a GQA layer and seven Mamba layers, MoE on
+the odd ones) also holds its ``lm_loss`` and gradients, and its weights
+through the bridge both ways bit for bit."""
 import numpy as np
 import pytest
 
@@ -18,13 +22,16 @@ from repro.models import smoke_config as jsmoke  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import get_api, make_smoke_batch, smoke_config  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import ssm, transformer  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from tests.test_torch_moe import (  # noqa: E402
+    check_bridge_round_trip, check_lm_loss, check_lm_loss_gradients)
 
 DENSE = ["gemma-2b", "olmo-1b", "gemma2-9b", "qwen2.5-14b"]
 RWKV = "rwkv6-1.6b"
-PORTED = DENSE + [RWKV]
-NOT_PORTED = ["internvl2-1b", "jamba-1.5-large-398b", "whisper-small"]
+HYBRID = "jamba-1.5-large-398b"
+PORTED = DENSE + [RWKV, HYBRID]
+NOT_PORTED = ["internvl2-1b", "whisper-small"]
 ATOL = 1e-4
 
 
@@ -50,7 +57,7 @@ def _close(t, j):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV, HYBRID])
 def test_bridge_takes_pytree_and_checkpoint_layouts(arch):
     jcfg, jparams, cfg, model = _bridged(arch)
     flat = ckpt_flatten(jparams)
@@ -59,11 +66,13 @@ def test_bridge_takes_pytree_and_checkpoint_layouts(arch):
     for name, t in model.state_dict().items():
         assert sd[name].dtype == t.dtype
         torch.testing.assert_close(sd[name], t, atol=0, rtol=0)
-    # layer i of the port is unit i of the stacked JAX params
+    # layer u * len(unit) of the port is unit u, element 0 of the stacked JAX params
     key = "wq" if "wq" in jparams["units"]["l0"]["mix"] else "wr"
     w = np.asarray(jparams["units"]["l0"]["mix"][key])
-    for i in range(cfg.num_layers):
-        np.testing.assert_array_equal(getattr(model.layers[i].mix, key).detach().numpy(), w[i])
+    unit_len = len(transformer.layer_plan(cfg).unit)
+    for u in range(cfg.num_layers // unit_len):
+        np.testing.assert_array_equal(
+            getattr(model.layers[u * unit_len].mix, key).detach().numpy(), w[u])
 
 
 def _bits(a: np.ndarray) -> np.ndarray:
@@ -261,3 +270,42 @@ def test_bf16_rwkv_time_mix_normalises_an_fp32_y(monkeypatch):
         train, _ = model(toks, mode="train")
     assert seen == [(torch.bfloat16, torch.float32, torch.float32)] * (3 * cfg.num_layers)
     assert torch.isfinite(logits).all() and torch.isfinite(train).all()
+
+
+def test_jamba_layers_in_the_plan():
+    """One unit of jamba: GQA attention at position 0, Mamba at 1..7; a
+    dense SwiGLU MLP on the attention layer and MoE on the odd positions."""
+    model = get_api(smoke_config(HYBRID), device="cpu").init(seed=0)
+    assert [b.kind for b in model.layers] == ["attn"] + ["mamba"] * 7
+    assert [b.moe for b in model.layers] == [i % 2 == 1 for i in range(8)]
+    assert isinstance(model.layers[1].mix, ssm.Mamba)
+
+
+def test_jamba_lm_loss_matches_jax():
+    check_lm_loss(HYBRID)
+
+
+def test_jamba_lm_loss_gradients_match_jax():
+    check_lm_loss_gradients(HYBRID)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jamba_bridge_round_trips(dtype):
+    """JAX -> port -> JAX bit for bit, from the checkpoint's flat layout;
+    from the pytree too, with ``A_log`` and ``D`` fp32 (as JAX's
+    ``init_mamba`` keeps them) and the rest of the Mamba block in the param
+    dtype."""
+    check_bridge_round_trip(HYBRID, dtype)
+    kw = dict(param_dtype=dtype, compute_dtype=dtype)
+    jparams = jget_api(jsmoke(HYBRID).replace(**kw)).init(jax.random.PRNGKey(0))
+    jmix = jax.tree_util.tree_map(np.asarray, jparams["units"]["l1"]["mix"])
+    assert jmix["A_log"].dtype == jmix["D"].dtype == np.float32
+    sd = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                         smoke_config(HYBRID).replace(**kw))
+    for name, leaf in jmix.items():
+        t = sd[f"layers.1.mix.{name}"]
+        fp32 = name in ("A_log", "D")
+        assert t.dtype == (torch.float32 if fp32 else getattr(torch, dtype)), name
+        got = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+        want = leaf[0] if leaf.dtype == np.float32 else leaf[0].view(np.int16)
+        np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=name)

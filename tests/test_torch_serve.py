@@ -1,7 +1,7 @@
 """The port's serving engine against the JAX engine: identical greedy
 tokens from identical weights, the same KV bytes per token as the
 simulator's analytic formula (and the JAX engine's recurrent-state bytes
-for rwkv6), and the CLI on the CPU."""
+for rwkv6 and jamba's hybrid stack), and the CLI on the CPU."""
 import numpy as np
 import pytest
 
@@ -19,9 +19,10 @@ from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 DENSE = ["gemma-2b", "olmo-1b", "gemma2-9b", "qwen2.5-14b"]
 RWKV = "rwkv6-1.6b"
+HYBRID = "jamba-1.5-large-398b"
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV, HYBRID])
 def test_greedy_tokens_equal_jax(arch):
     jcfg = jsmoke(arch)
     japi = jget_api(jcfg)
@@ -68,6 +69,26 @@ def test_rwkv_comm_profile_matches_jax(dtype):
         assert got[key] == want[key]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_comm_profile_matches_jax(dtype):
+    """jamba's one attention layer in 8 grows the cache (2 x Hkv x Dh a
+    token, as the simulator's formula counts it); its 7 Mamba layers hold
+    a fixed state (the conv buffer in cdtype, the fp32 scan state), the
+    JAX engine's fixed bytes less its 4-byte ``pos``."""
+    jcfg = jsmoke(HYBRID).replace(compute_dtype=dtype)
+    want = JServeEngine(jget_api(jcfg), None, batch=2, s_max=32).comm_profile()
+    cfg = smoke_config(HYBRID).replace(compute_dtype=dtype)
+    got = ServeEngine(get_api(cfg, device="cpu"), None, batch=2, s_max=32).comm_profile()
+    item = 4 if dtype == "float32" else 2
+    assert got["kv_bytes_per_token"] == want["kv_bytes_per_token"] == kv_bytes_per_token(jcfg) \
+        == 2 * cfg.num_kv_heads * cfg.head_dim * item
+    d_in, mc = cfg.mamba.expand * cfg.d_model, cfg.mamba
+    assert got["fixed_state_bytes"] == want["fixed_state_bytes"] - 4 \
+        == 7 * ((mc.d_conv - 1) * d_in * item + d_in * mc.d_state * 4)
+    for key in ("dtype_bytes", "num_layers", "batch_slots"):
+        assert got[key] == want[key]
+
+
 def test_generate_refuses_to_overrun_the_cache():
     cfg = smoke_config("gemma-2b")
     api = get_api(cfg, device="cpu")
@@ -76,7 +97,7 @@ def test_generate_refuses_to_overrun_the_cache():
         eng.generate({"tokens": np.zeros((1, 8), np.int64)}, max_new_tokens=4)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV, HYBRID])
 def test_cli_runs_on_the_cpu(arch, capsys):
     serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                     "--prompt-len", "8", "--max-new", "4"])
