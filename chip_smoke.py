@@ -28,10 +28,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b,
    deepseek-v3-671b at full width cut to 2 layers (one dense, one MoE) and
    16 experts (top-8 kept), and jamba-1.5-large-398b at full width cut to
-   one unit (8 layers) and 2 experts (top-2 kept; drawn on the card and
-   copied to the CPU), on the card (kernels) against the same weights
+   one unit (8 layers) and 3 experts (top-2 kept), each drawn on the card
+   and copied to the CPU, on the card (kernels) against the same weights
    on the CPU (plain versions): logits, the decode step's logits and greedy
-   tokens, and for the MoE models the routing decisions that differ; then
+   tokens, and for the MoE models the routing decisions and the picks
+   dropped at capacity that differ; then
    one AdamW step of the 2-layer fp32 gemma-2b and rwkv6-1.6b on the card
    against the same step on the CPU: the loss, every parameter's gradient
    and the parameter update;
@@ -809,9 +810,10 @@ def moe_reference_config(cfg):
 
 def hybrid_reference_config(cfg):
     """jamba at full width for the card-vs-CPU check, which runs one unit (8
-    layers, the least its pattern allows): 2 experts, top-2 kept, 10.9 B
-    fp32 parameters, 43.5 GB a side."""
-    return cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=2))
+    layers, the least its pattern allows): 3 experts, top-2 kept, so that the
+    router chooses and capacity can drop picks; 13.3 B fp32 parameters,
+    53.2 GB a side."""
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=3))
 
 
 def host_available_bytes() -> int:
@@ -822,11 +824,11 @@ def host_available_bytes() -> int:
     raise RuntimeError("/proc/meminfo has no MemAvailable line")
 
 
-def check_reference(cfg, cut: str = "2-layer", init_on_card: bool = False) -> None:
+def check_reference(cfg, cut: str = "2-layer") -> None:
     """The model, cut to 2 layers or one unit of its block pattern if that
-    is longer, on the card against the same weights on the CPU.  With
-    ``init_on_card`` the weights are drawn on the card and copied to the CPU
-    (drawing ~10 B fp32 values on the host is slow)."""
+    is longer, on the card against the same weights on the CPU.  The weights
+    are drawn on the card and copied to the CPU (drawing ~10 B fp32 values
+    on the host is slow), after a check that the host can hold them."""
     from repro_torch.models import get_api, moe
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serve.engine import ServeEngine
@@ -835,21 +837,16 @@ def check_reference(cfg, cut: str = "2-layer", init_on_card: bool = False) -> No
     small = cfg.replace(num_layers=max(2, len(cfg.block_pattern or ())),
                         param_dtype="float32", compute_dtype="float32")
     cpu_api, gpu_api = get_api(small, device="cpu"), get_api(small, device=DEVICE)
-    if init_on_card:
-        need = 4 * sum(p.numel() for p in DecoderLM(small, torch.device("meta")).parameters())
-        free = host_available_bytes()
-        log(f"  {cfg.name} {cut} fp32: {need / 1e9:.2f} GB of weights a side; host memory "
-            f"available {free / 1e9:.1f} GB")
-        if free < 1.25 * need:
-            raise RuntimeError(f"the CPU side needs {need / 1e9:.2f} GB and more for its "
-                               f"activations; the host has {free / 1e9:.1f} GB available")
-        gpu_model = gpu_api.init(seed=1)
-        cpu_model = DecoderLM(small, torch.device("cpu"))
-        cpu_model.load_state_dict(gpu_model.state_dict())
-    else:
-        cpu_model = cpu_api.init(seed=1)
-        gpu_model = gpu_api.init(seed=1)
-        gpu_model.load_state_dict(cpu_model.state_dict())
+    need = 4 * sum(p.numel() for p in DecoderLM(small, torch.device("meta")).parameters())
+    free = host_available_bytes()
+    log(f"  {cfg.name} {cut} fp32: {need / 1e9:.2f} GB of weights a side; host memory "
+        f"available {free / 1e9:.1f} GB")
+    if free < 1.25 * need:
+        raise RuntimeError(f"the CPU side needs {need / 1e9:.2f} GB and more for its "
+                           f"activations; the host has {free / 1e9:.1f} GB available")
+    gpu_model = gpu_api.init(seed=1)
+    cpu_model = DecoderLM(small, torch.device("cpu"))
+    cpu_model.load_state_dict(gpu_model.state_dict())
     tokens = np.random.default_rng(1).integers(0, small.vocab_size, size=(2, 128))
     tol = 1e-3  # fp32 on both sides; sums over d=2048..18432 taken in another order on the card
     logits, routed = {}, {"cpu": [], "card": []}
@@ -857,7 +854,8 @@ def check_reference(cfg, cut: str = "2-layer", init_on_card: bool = False) -> No
 
     def recorded_route(mod, xt, cfg_, capacity=None):  # the routing of every MoE call
         r = route(mod, xt, cfg_, capacity)
-        routed[name].append(r.expert_idx.cpu())
+        dropped = r.slot == r.dispatch.numel()  # picks past their expert's capacity
+        routed[name].append((r.expert_idx.cpu(), dropped.cpu()))
         return r
 
     moe.route = recorded_route
@@ -879,12 +877,16 @@ def check_reference(cfg, cut: str = "2-layer", init_on_card: bool = False) -> No
         if not err <= tol:
             raise AssertionError(f"{what} logits on the card disagree with the CPU: {err}")
     if small.moe is not None:
-        if [t.shape for t in routed["cpu"]] != [t.shape for t in routed["card"]]:
+        if [t.shape for t, _ in routed["cpu"]] != [t.shape for t, _ in routed["card"]]:
             raise AssertionError("the card and the CPU routed different numbers of tokens")
-        differ = sum(int((a != b).sum()) for a, b in zip(routed["cpu"], routed["card"]))
-        total = sum(t.numel() for t in routed["cpu"])
+        pairs = list(zip(routed["cpu"], routed["card"]))
+        differ = sum(int((a != b).sum()) for (a, _), (b, _) in pairs)
+        drop_differ = sum(int((a != b).sum()) for (_, a), (_, b) in pairs)
+        total = sum(t.numel() for t, _ in routed["cpu"])
+        drops = [sum(int(d.sum()) for _, d in routed[n]) for n in ("card", "cpu")]
         log(f"  routing decisions (token, k) of {len(routed['cpu'])} MoE calls that differ "
-            f"between card and CPU: {differ} of {total}")
+            f"between card and CPU: {differ} of {total}; picks dropped at capacity: card "
+            f"{drops[0]}, CPU {drops[1]}, {drop_differ} of them differ")
     out = {}
     for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
         out[name] = ServeEngine(api, model, batch=2, s_max=140).generate(
@@ -1589,7 +1591,7 @@ def main() -> int:
                     "cut to 2 layers (first_dense 1) and 16 experts (top-8 kept),")
     torch.cuda.empty_cache()
     check_reference(hybrid_reference_config(jamba),
-                    "cut to one unit (8 layers) and 2 experts (top-2 kept),", init_on_card=True)
+                    "cut to one unit (8 layers) and 3 experts (top-2 kept),")
     torch.cuda.empty_cache()
     for cfg in (gemma, rwkv):
         check_train_reference(cfg)

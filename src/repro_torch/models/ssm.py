@@ -31,6 +31,8 @@ from torch import nn
 
 from .layers import _param, dense_init
 
+CHUNK = 64  # tokens a chunk of the selective scan: JAX's apply_lm(scan_chunk_size=64)
+
 
 def scan_chunk(decay: torch.Tensor, inp: torch.Tensor, h0: torch.Tensor):
     """h_t = decay_t * h_{t-1} + inp_t within a chunk (axis 1).
@@ -64,9 +66,10 @@ def chunked_scan(aux: Sequence[torch.Tensor], h0: torch.Tensor, chunk_fn: Callab
 
 
 def selective_scan(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-                   A: torch.Tensor, h0: torch.Tensor, chunk: int = 64):
+                   A: torch.Tensor, h0: torch.Tensor):
     """The selective scan of ``mamba_block``, in fp32: per channel d and
-    state n, h_t = exp(dt_t A) h_{t-1} + dtx_t B_t and y_t = h_t · C_t.
+    state n, h_t = exp(dt_t A) h_{t-1} + dtx_t B_t and y_t = h_t · C_t,
+    in chunks of ``CHUNK`` tokens (JAX's rule when it does not divide S).
 
     dt, dtx: (B, S, d_in); Bm, Cm: (B, S, N); A: (d_in, N); h0: (B, d_in, N).
     Returns (y (B, S, d_in), h_S)."""
@@ -77,7 +80,7 @@ def selective_scan(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: to
         states, h2 = scan_chunk(decay, binp, h)
         return h2, torch.einsum("bqdn,bqn->bqd", states, c_c)
 
-    return chunked_scan((dt, dtx, Bm, Cm), h0, chunk_fn, chunk)
+    return chunked_scan((dt, dtx, Bm, Cm), h0, chunk_fn, CHUNK)
 
 
 def mamba_dims(cfg):
@@ -130,8 +133,7 @@ class Mamba(nn.Module):
         nn.init.ones_(self.D)
 
     def forward(self, x: torch.Tensor,
-                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                chunk: int = 64) -> torch.Tensor:
+                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         """x (B, S, d) -> y (B, S, d).  ``state`` = (conv_buf, ssm_state),
         written in place; without it the conv sees zeros before the first
         token and the scan starts from a zero state."""
@@ -160,7 +162,7 @@ class Mamba(nn.Module):
         Bm = dbc[..., dt_rank:dt_rank + mc.d_state].float()
         Cm = dbc[..., dt_rank + mc.d_state:].float()
         xcf = xc.float()
-        y, final = selective_scan(dt, dt * xcf, Bm, Cm, -torch.exp(self.A_log), ssm_state, chunk)
+        y, final = selective_scan(dt, dt * xcf, Bm, Cm, -torch.exp(self.A_log), ssm_state)
         if state is not None:
             conv_buf.copy_(xcat[:, -(mc.d_conv - 1):] if mc.d_conv > 1 else xcat[:, :0])
             ssm_state.copy_(final)

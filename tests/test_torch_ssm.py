@@ -88,7 +88,7 @@ def test_chunked_scan_matches_jax(S, chunks):
     want, want_h = jssm.chunked_scan(tuple(jnp.asarray(a) for a in (dt, dtx, bm, cm)),
                                      jnp.asarray(h0), jchunk, 64)
     got, h = ssm.chunked_scan(tuple(torch.from_numpy(a) for a in (dt, dtx, bm, cm)),
-                              torch.from_numpy(h0), tchunk, 64)
+                              torch.from_numpy(h0), tchunk, ssm.CHUNK)
     assert seen == chunks
     assert got.shape == (B, S, D)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=SCAN_ATOL, rtol=0)
