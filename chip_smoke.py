@@ -9,8 +9,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: each hand-written kernel (flash attention, RMSNorm, the chunked
    and the short-sequence WKV6) against its plain PyTorch version on CUDA
    tensors, at the serving paths'
-   shapes (flash attention also at grok-1's and jamba's prefill, RMSNorm
-   at the MoE and hybrid models' widths) and at the other options of the
+   shapes (flash attention also at grok-1's and jamba's prefill, whisper's
+   encoder (4 x 12 heads x 1500 frames, full attention), its cross-attention
+   over 1500 frames from a 416-token prefill and from a decode step, and
+   internvl2's prefill of 256 patches + 1024 tokens (GQA 14/2); RMSNorm at
+   the MoE, hybrid and VLM models' widths) and at the other options of the
    TPU kernel it replaces, with times
    of the kernel, the plain version and one PyTorch library call where there
    is one, beside the least time the card could take;
@@ -28,7 +31,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b,
    deepseek-v3-671b at full width cut to 2 layers (one dense, one MoE) and
    16 experts (top-8 kept), and jamba-1.5-large-398b at full width cut to
-   one unit (8 layers) and 3 experts (top-2 kept), each drawn on the card
+   one unit (8 layers) and 3 experts (top-2 kept), and whisper-small (with
+   1500 frames) and internvl2-1b (with 256 patches) at full width and full
+   depth, each drawn on the card
    and copied to the CPU, on the card (kernels) against the same weights
    on the CPU (plain versions): logits, the decode step's logits and greedy
    tokens, and for the MoE models the routing decisions and the picks
@@ -40,16 +45,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    deepseek-v3-671b cut to 4 layers (3 dense, 1 MoE: MLA, 256 experts),
    grok-1-314b cut to 2 layers (GQA 48/8 with softcap, 8 experts) and
    jamba-1.5-large-398b cut to one unit (1 GQA + 7 Mamba layers, MoE on 4)
-   and 8 of its 16 experts (top-2 kept), bf16,
+   and 8 of its 16 experts (top-2 kept), and whisper-small and internvl2-1b
+   at full width and depth, bf16,
    random weights from a fixed seed, each serving batch 4 x prompt 1024 +
-   32 new tokens through ``ServeEngine.generate``, with the kernels' launch
+   32 new tokens through ``ServeEngine.generate`` (whisper: 1500 frames
+   and a prompt of 416, which fills its 448-token text context; internvl2:
+   256 patches before the prompt), with the kernels' launch
    counts of each run (flash attention and RMSNorm on gemma-2b's,
-   grok-1's and jamba's paths, RMSNorm on deepseek-v3's, whose MLA
+   grok-1's, jamba's and internvl2's paths, flash attention on whisper's
+   encoder, prefill and every decode step's cross-attention, RMSNorm on
+   deepseek-v3's, whose MLA
    attention is plain torch, the chunked WKV6 kernel in rwkv6's prefill and
    the decode-step one in its decode steps), ``comm_profile`` against the
-   analytic bytes, and for the MoE models a second run that must give the
-   same tokens; for jamba the plain selective scan of one layer against its
-   bound and the Mamba mixers' share of the prefill;
+   analytic bytes (whisper's encoder output and internvl2's vision-prefix
+   slots as fixed bytes), whisper's and internvl2's parameter counts
+   against the config, and for the MoE models a second run that must give
+   the same tokens; for jamba the plain selective scan of one layer against
+   its bound and the Mamba mixers' share of the prefill;
 6. train: full-width, full-depth gemma-2b and then rwkv6-1.6b in bf16,
    random weights from a fixed seed, each 6 AdamW steps of batch 4 x 1024
    tokens of the synthetic affine data through
@@ -103,11 +115,14 @@ WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # 1e-4 at log_w = -50, as
 ARCHS = ("gemma-2b", "rwkv6-1.6b")
 MOE_ARCHS = ("deepseek-v3-671b", "grok-1-314b")
 HYBRID_ARCH = "jamba-1.5-large-398b"
+WHISPER_ARCH, VLM_ARCH = "whisper-small", "internvl2-1b"
 # depth cut to fit one card (jamba: one 8-layer unit of its 72 layers)
 SERVE_LAYERS = {"deepseek-v3-671b": 4, "grok-1-314b": 2, HYBRID_ARCH: 8}
 # experts cut to fit one card, top-k kept (jamba: 8 of 16, 25.4 B params in bf16)
 SERVE_EXPERTS = {HYBRID_ARCH: 8}
 SERVE_BATCH, PROMPT_LEN, MAX_NEW = 4, 1024, 32
+# whisper's prompt and new tokens fill its real 448-token text context
+SERVE_PROMPT = {WHISPER_ARCH: 448 - MAX_NEW}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 LAUNCH_LAYERS, LAUNCH_STEPS = 2, 4  # the launcher phase: two checkpoints of 4.55 GB
 
@@ -164,35 +179,85 @@ def randn(gen, shape, dtype):
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def flash_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(q, k) pairs one head attends: all Sq x Sk, or under the causal mask
+    (q and k positions both from 0) min(i + 1, Sk) for query i."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + (Sq - n) * Sk
+
+
+def time_flash(case: dict, what: str, library: bool = True, **kw) -> dict:
+    """The kernel, its plain version and SDPA (``is_causal`` as the case,
+    ``enable_gqa=True``) on one checked case, beside the bound: q.k and p.v
+    over the pairs this input needs, q, k, v read and o written once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = case["q"], case["k"], case["v"]
+    B, Hq, Sq, D = q.shape
+    Sk, causal = k.shape[2], kw.get("causal", True)
+    ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+    plain_ms = time_ms(lambda: ref.mha_reference(q, k, v, **kw))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True)) if library else None
+    flops = 4.0 * D * B * Hq * flash_pairs(Sq, Sk, causal)  # 2 flops per multiply-add
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+    lib = (f"library (scaled_dot_product_attention, enable_gqa=True) {library_ms:.4f} ms"
+           if library else "library: none (scaled_dot_product_attention has no softcap)")
+    log(f"  flash_attention at {what} (B={B}, Hq={Hq}, Hkv={k.shape[1]}, Sq={Sq}, Sk={Sk}, "
+        f"D={D}, {str(q.dtype)[6:]}, {kw or 'causal'}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {lib}, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=case["err"])
+
+
 def check_flash(gen) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
-    cases = [  # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
-        (SERVE_BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, torch.bfloat16, {}),  # gemma-2b prefill
-        (SERVE_BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, torch.float32, {}),
-        (1, 4, 2, 256, 256, 64, torch.float32, dict(causal=False)),
-        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(causal=False)),
-        (1, 4, 2, 256, 256, 64, torch.float32, dict(window=64)),
-        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=64)),
-        (1, 4, 2, 256, 256, 64, torch.float32, dict(softcap=30.0)),
-        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(softcap=30.0)),
-        (1, 4, 2, 256, 256, 64, torch.float32, dict(window=32, softcap=50.0)),
-        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=32, softcap=50.0)),
-        (2, 4, 2, 256, 256, 64, torch.bfloat16, {}),
-        (1, 8, 2, 128, 256, 128, torch.float32, {}),  # GQA, cross lengths
-        (1, 8, 2, 128, 256, 128, torch.bfloat16, dict(window=100)),
-        (1, 2, 2, 100, 100, 32, torch.float32, {}),  # ragged Sq/Sk
-        (1, 2, 2, 100, 100, 32, torch.bfloat16, {}),
-        (1, 8, 1, 100, 173, 256, torch.bfloat16, dict(softcap=50.0)),
-        (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8)),  # smoke head_dim
-        (2, 4, 2, 77, 77, 16, torch.bfloat16, dict(window=8)),
+    from repro_torch import configs
+
+    full = dict(causal=False)
+    enc, nv = configs.get_config(WHISPER_ARCH).encoder_seq, configs.get_config(VLM_ARCH).vision_tokens
+    prompt = SERVE_PROMPT[WHISPER_ARCH]
+    cases = [  # (B, Hq, Hkv, Sq, Sk, D, dtype, options, the path it times or None)
+        (SERVE_BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, torch.bfloat16, {}, "main"),
+        (SERVE_BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, torch.float32, {}, None),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(causal=False), None),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(causal=False), None),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(window=64), None),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=64), None),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(softcap=30.0), None),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(softcap=30.0), None),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(window=32, softcap=50.0), None),
+        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=32, softcap=50.0), None),
+        (2, 4, 2, 256, 256, 64, torch.bfloat16, {}, None),
+        (1, 8, 2, 128, 256, 128, torch.float32, {}, None),  # GQA, cross lengths
+        (1, 8, 2, 128, 256, 128, torch.bfloat16, dict(window=100), None),
+        (1, 2, 2, 100, 100, 32, torch.float32, {}, None),  # ragged Sq/Sk
+        (1, 2, 2, 100, 100, 32, torch.bfloat16, {}, None),
+        (1, 8, 1, 100, 173, 256, torch.bfloat16, dict(softcap=50.0), None),
+        (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8), None),  # smoke head_dim
+        (2, 4, 2, 77, 77, 16, torch.bfloat16, dict(window=8), None),
         (SERVE_BATCH, 48, 8, PROMPT_LEN, PROMPT_LEN, 128, torch.bfloat16,
-         dict(softcap=30.0)),  # grok-1 prefill
-        (SERVE_BATCH, 64, 8, PROMPT_LEN, PROMPT_LEN, 128, torch.bfloat16, {}),  # jamba prefill
+         dict(softcap=30.0), "grok-1's prefill"),
+        (SERVE_BATCH, 64, 8, PROMPT_LEN, PROMPT_LEN, 128, torch.bfloat16, {},
+         "jamba's prefill"),
+        (SERVE_BATCH, 12, 12, enc, enc, 64, torch.bfloat16, full, "whisper's encoder"),
+        (SERVE_BATCH, 12, 12, prompt, enc, 64, torch.bfloat16, full,
+         "whisper's prefill cross-attention"),
+        (SERVE_BATCH, 12, 12, 1, enc, 64, torch.bfloat16, full,
+         "whisper's decode-step cross-attention"),
+        (1, 4, 2, 100, 300, 64, torch.float32, full, None),  # full attention, Sq != Sk
+        (SERVE_BATCH, 14, 2, nv + PROMPT_LEN, nv + PROMPT_LEN, 64,
+         torch.bfloat16, {}, "internvl2's prefill"),
     ]
-    main = grok = jamba = None
-    for B, Hq, Hkv, Sq, Sk, D, dtype, kw in cases:
+    timed = {}
+    for B, Hq, Hkv, Sq, Sk, D, dtype, kw, what in cases:
         # model layout (B, S, H, D) viewed as (B, H, S, D), as ops.attention passes it
         q = randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
         k = randn(gen, (B, Sk, Hkv, D), dtype).transpose(1, 2)
@@ -207,70 +272,31 @@ def check_flash(gen) -> dict:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
-        if main is None:
-            main = dict(q=q, k=k, v=v, err=err, dtype=dtype)
-        if Hq == 48:
-            grok = dict(q=q, k=k, v=v, err=err)
-        if Hq == 64:
-            jamba = dict(q=q, k=k, v=v, err=err)
+        if what is not None:
+            timed[what] = (dict(q=q, k=k, v=v, err=err), kw)
+        del q, k, v, out, expect
 
-    q, k, v = grok["q"], grok["k"], grok["v"]
-    B, Hq, S, D = q.shape
-    ms = time_ms(lambda: flash_attention(q, k, v, softcap=30.0))
-    plain_ms = time_ms(lambda: ref.mha_reference(q, k, v, softcap=30.0))
-    pairs = B * Hq * S * (S + 1) // 2
-    flops, nbytes = 4.0 * D * pairs, (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
-    at_grok = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                   bound_by=bound_by, max_abs_err=grok["err"])
-    log(f"  flash_attention at grok-1's prefill shape (B={B}, Hq={Hq}, Hkv={k.shape[1]}, S={S}, "
-        f"D={D}, bf16, causal, softcap 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library: none (scaled_dot_product_attention has no softcap), bound {bound_ms:.4f} ms "
-        f"by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-
-    q, k, v = jamba["q"], jamba["k"], jamba["v"]
-    B, Hq, S, D = q.shape
-    ms = time_ms(lambda: flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: ref.mha_reference(q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    pairs = B * Hq * S * (S + 1) // 2
-    flops, nbytes = 4.0 * D * pairs, (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
-    at_jamba = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, max_abs_err=jamba["err"])
-    log(f"  flash_attention at jamba's prefill shape (B={B}, Hq={Hq}, Hkv={k.shape[1]}, S={S}, "
-        f"D={D}, bf16, causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"(scaled_dot_product_attention, enable_gqa=True) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-
-    q, k, v, dtype = main["q"], main["k"], main["v"], main["dtype"]
-    B, Hq, S, D = q.shape
-    ms = time_ms(lambda: flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: ref.mha_reference(q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    pairs = B * Hq * S * (S + 1) // 2  # causal (q, k) pairs this input needs
-    flops = 4.0 * D * pairs  # q.k and p.v, 2 flops per multiply-add
-    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()  # q, k, v read; o written
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
-    log(f"  flash_attention at the prefill shape (B={B}, Hq={Hq}, Hkv={k.shape[1]}, S={S}, D={D}, "
-        f"bf16, causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library (scaled_dot_product_attention) {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    at = {what: time_flash(case, what, library="softcap" not in kw, **kw)
+          for what, (case, kw) in timed.items() if what != "main"}
+    main = time_flash(timed["main"][0], "the prefill shape")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:40",
-                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, at_grok_prefill=at_grok,
-                at_jamba_prefill=at_jamba)
+                replaces="src/repro/kernels/flash_attention.py:40", **main,
+                at_grok_prefill=at["grok-1's prefill"], at_jamba_prefill=at["jamba's prefill"],
+                at_whisper_encoder=at["whisper's encoder"],
+                at_whisper_cross_prefill=at["whisper's prefill cross-attention"],
+                at_whisper_cross_decode=at["whisper's decode-step cross-attention"],
+                at_internvl2_prefill=at["internvl2's prefill"])
 
 
 def check_rmsnorm(gen, d_model: int) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import rmsnorm
 
+    from repro_torch import configs
+
     rows_main = SERVE_BATCH * PROMPT_LEN
+    vlm_rows = SERVE_BATCH * (configs.get_config(VLM_ARCH).vision_tokens + PROMPT_LEN)
     cases = [  # (rows, d, dtype)
         (rows_main, d_model, torch.bfloat16),  # gemma-2b prefill
         (rows_main, d_model, torch.float32),
@@ -292,9 +318,11 @@ def check_rmsnorm(gen, d_model: int) -> dict:
         (SERVE_BATCH, 8192, torch.bfloat16),  # its decode steps
         (300, 512, torch.float32),
         (300, 1536, torch.float32),
+        (vlm_rows, 896, torch.bfloat16),  # internvl2 prefill: 256 patches + 1024 tokens
+        (SERVE_BATCH, 896, torch.bfloat16),  # its decode steps
     ]
     main = None
-    widths = {}  # the new paths' widths at the prefill rows
+    widths = {}  # the new paths' widths at their prefill rows
     for rows, d, dtype in cases:
         x = randn(gen, (rows, d), dtype)
         s = randn(gen, (d,), dtype)
@@ -309,7 +337,8 @@ def check_rmsnorm(gen, d_model: int) -> dict:
             raise AssertionError(f"rmsnorm disagrees with its plain version: {err}")
         if main is None:
             main = dict(x=x, s=s, err=err, dtype=dtype)
-        elif rows == rows_main and d in (512, 1536, 6144, 7168, 8192):
+        elif (rows == rows_main and d in (512, 1536, 6144, 7168, 8192)
+              or (rows, d) == (vlm_rows, 896)):
             widths[d] = (x, s)
 
     by_width = {}
@@ -318,9 +347,9 @@ def check_rmsnorm(gen, d_model: int) -> dict:
         by_width[d] = dict(ms=time_ms(lambda: rmsnorm(x, s)),
                            library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6)),
                            bound_ms=bound(nbytes, 4.0 * x.numel(), x.dtype)[0])
-    log("  rmsnorm at the MoE and hybrid paths' prefill widths (4096 rows, bf16): " + "; ".join(
-        f"d={d} kernel {t['ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
-        f"{t['bound_ms']:.4f} ms" for d, t in by_width.items()))
+    log("  rmsnorm at the MoE, hybrid and VLM paths' prefill widths (bf16): " + "; ".join(
+        f"d={d} ({widths[d][0].shape[0]} rows) kernel {t['ms']:.4f} ms, library "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms" for d, t in by_width.items()))
 
     x, s, dtype = main["x"], main["s"], main["dtype"]
     ms = time_ms(lambda: rmsnorm(x, s))
@@ -824,20 +853,36 @@ def host_available_bytes() -> int:
     raise RuntimeError("/proc/meminfo has no MemAvailable line")
 
 
-def check_reference(cfg, cut: str = "2-layer") -> None:
+def modality_inputs(cfg, rng, batch: int) -> dict:
+    """whisper's frames or the VLM's patches (the JAX package's frontend
+    stubs, random), drawn from ``rng`` after the tokens as JAX's serve
+    command line draws them; {} for a decoder-only model."""
+    if cfg.family == "audio":
+        return {"frames": rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": rng.normal(size=(batch, cfg.vision_tokens, cfg.vision_dim)).astype(
+            np.float32)}
+    return {}
+
+
+def check_reference(cfg, cut: str = "2-layer", full_depth: bool = False) -> None:
     """The model, cut to 2 layers or one unit of its block pattern if that
-    is longer, on the card against the same weights on the CPU.  The weights
-    are drawn on the card and copied to the CPU (drawing ~10 B fp32 values
-    on the host is slow), after a check that the host can hold them."""
+    is longer (or at ``full_depth``), on the card against the same weights
+    on the CPU.  The weights are drawn on the card and copied to the CPU
+    (drawing ~10 B fp32 values on the host is slow), after a check that the
+    host can hold them."""
     from repro_torch.models import get_api, moe
-    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.models.registry import model_class
     from repro_torch.serve.engine import ServeEngine
 
     t0 = time.perf_counter()
-    small = cfg.replace(num_layers=max(2, len(cfg.block_pattern or ())),
-                        param_dtype="float32", compute_dtype="float32")
+    small = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    if not full_depth:
+        small = small.replace(num_layers=max(2, len(cfg.block_pattern or ())))
     cpu_api, gpu_api = get_api(small, device="cpu"), get_api(small, device=DEVICE)
-    need = 4 * sum(p.numel() for p in DecoderLM(small, torch.device("meta")).parameters())
+    cls = model_class(small)
+    need = 4 * sum(p.numel() for p in cls(small, torch.device("meta")).parameters())
     free = host_available_bytes()
     log(f"  {cfg.name} {cut} fp32: {need / 1e9:.2f} GB of weights a side; host memory "
         f"available {free / 1e9:.1f} GB")
@@ -845,9 +890,11 @@ def check_reference(cfg, cut: str = "2-layer") -> None:
         raise RuntimeError(f"the CPU side needs {need / 1e9:.2f} GB and more for its "
                            f"activations; the host has {free / 1e9:.1f} GB available")
     gpu_model = gpu_api.init(seed=1)
-    cpu_model = DecoderLM(small, torch.device("cpu"))
+    cpu_model = cls(small, torch.device("cpu"))
     cpu_model.load_state_dict(gpu_model.state_dict())
-    tokens = np.random.default_rng(1).integers(0, small.vocab_size, size=(2, 128))
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, small.vocab_size, size=(2, 128))
+    extra = modality_inputs(small, rng, 2)
     tol = 1e-3  # fp32 on both sides; sums over d=2048..18432 taken in another order on the card
     logits, routed = {}, {"cpu": [], "card": []}
     route = moe.route
@@ -863,9 +910,10 @@ def check_reference(cfg, cut: str = "2-layer") -> None:
         with torch.inference_mode():
             for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
                 toks = torch.from_numpy(tokens).to(api.device)
-                full, _ = model(toks, mode="train")  # the path's kernels on the card
-                _, cache = api.prefill(model, {"tokens": toks[:, :127]}, api.init_cache(2, 128),
-                                       last_only=True)
+                inputs = {k: torch.from_numpy(v).to(api.device) for k, v in extra.items()}
+                full, _ = model(toks, mode="train", **inputs)  # the path's kernels on the card
+                _, cache = api.prefill(model, {"tokens": toks[:, :127], **inputs},
+                                       api.init_cache(2, 128), last_only=True)
                 step, _ = api.decode(model, toks[:, 127:], cache)
                 logits[name] = (full.cpu(), step.cpu())
     finally:
@@ -890,7 +938,7 @@ def check_reference(cfg, cut: str = "2-layer") -> None:
     out = {}
     for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
         out[name] = ServeEngine(api, model, batch=2, s_max=140).generate(
-            {"tokens": tokens}, max_new_tokens=8)
+            {"tokens": tokens, **extra}, max_new_tokens=8)
     log(f"  greedy tokens card {out['card'].tolist()} / CPU {out['cpu'].tolist()}")
     if not np.array_equal(out["cpu"], out["card"]):
         raise AssertionError("greedy tokens on the card differ from the CPU")
@@ -984,6 +1032,10 @@ def expected_launches(cfg, path: str = "serve") -> dict:
         return {"flash_attention": L, "flash_attention_bwd": L, "rmsnorm": 2 * L + 1,
                 "rmsnorm_bwd": 2 * L + 1, "wkv6": 0, "wkv6_step": 0, "wkv6_bwd": 0}
     passes = 1 + (MAX_NEW - 1)
+    if cfg.family == "audio":  # flash: the encoder, then each decoder layer's self- and
+        # cross-attention in prefill, and its cross-attention at every decode step
+        return {"flash_attention": cfg.encoder_layers + 2 * L + L * (passes - 1),
+                "rmsnorm": 0, "wkv6": 0, "wkv6_step": 0}  # LayerNorm is plain torch
     if cfg.family == "ssm":  # rwkv: one WKV6 per layer per pass; LayerNorm is plain torch
         return {"flash_attention": 0, "rmsnorm": 0, "wkv6": L,  # chunked: prefill
                 "wkv6_step": L * (passes - 1)}  # one token a step: decode
@@ -993,8 +1045,25 @@ def expected_launches(cfg, path: str = "serve") -> dict:
     if cfg.family == "hybrid":  # flash in the attention layers' prefill; mamba is plain torch
         return {"flash_attention": attention_layers(cfg), "rmsnorm": (2 * L + 1) * passes,
                 "wkv6": 0, "wkv6_step": 0}
-    return {"flash_attention": L,  # prefill only: decode is plain torch
+    return {"flash_attention": L,  # prefill only (the VLM's too): decode is plain torch
             "rmsnorm": (2 * L + 1) * passes, "wkv6": 0, "wkv6_step": 0}
+
+
+def analytic_params(cfg) -> int:
+    """Parameters of whisper's and the VLM's trees counted from the config:
+    attention (q, k, v, o and the qkv bias), MLP, norms, embedding tables
+    (whisper's 32768-row position table too) and the VLM's projector."""
+    d, hd, hq, hkv = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    attn = d * hd * (2 * hq + 2 * hkv) + (hd * (hq + 2 * hkv) if cfg.qkv_bias else 0)
+    mlp = (3 if cfg.mlp_kind in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    norm = 2 * d if cfg.norm_kind == "layernorm" else d
+    if cfg.family == "audio":
+        cross = 4 * d * hq * hd
+        return ((cfg.vocab_size + cfg.max_target_positions) * d
+                + cfg.encoder_layers * (attn + mlp + 2 * norm) + norm
+                + cfg.num_layers * (attn + cross + mlp + 3 * norm) + norm)
+    return (cfg.vision_dim * d + d * d + cfg.vocab_size * d
+            + cfg.num_layers * (attn + mlp + 2 * norm) + norm)
 
 
 def attention_layers(cfg) -> int:
@@ -1024,18 +1093,29 @@ def serve(cfg) -> dict:
         cut += (f" [{cfg.num_layers - attention_layers(cfg)} Mamba and "
                 f"{attention_layers(cfg)} attention layers; cuts: depth {full.num_layers} -> "
                 f"{cfg.num_layers}, experts {full.moe.num_experts} -> {cfg.moe.num_experts}]")
+    if cfg.family == "audio":
+        cut = f" (decoder) + {cfg.encoder_layers} encoder layers, full depth"
+    if cfg.family == "vlm":
+        cut = f" (the LM, full depth) + the projector {cfg.vision_dim} -> {cfg.d_model}"
     log(f"  {cfg.name}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params in {str(cfg.pdtype)[6:]}, initialised in "
         f"{time.perf_counter() - t0:.1f} s")
-    tokens = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int64)
-    eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=PROMPT_LEN + MAX_NEW)
-    eng.generate({"tokens": tokens[:, :64]}, max_new_tokens=2)  # warm-up (Triton JIT, cuBLAS)
+    if cfg.family in ("audio", "vlm") and n_params != analytic_params(cfg):
+        raise AssertionError(f"{n_params} parameters != {analytic_params(cfg)} from the config")
+    prompt = SERVE_PROMPT.get(cfg.name, PROMPT_LEN)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, prompt)).astype(np.int64)
+    extra = modality_inputs(cfg, rng, SERVE_BATCH)
+    batch = {"tokens": torch.from_numpy(tokens).to(DEVICE),  # as generate moves them
+             **{k: torch.from_numpy(v).to(DEVICE, cfg.cdtype) for k, v in extra.items()}}
+    eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=prompt + MAX_NEW)
+    eng.generate({"tokens": tokens[:, :64], **extra},  # warm-up (Triton JIT, cuBLAS)
+                 max_new_tokens=2)
 
     flash_attention.launches = rmsnorm.launches = 0
     wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = 0
     t0 = time.perf_counter()
-    out = eng.generate({"tokens": tokens}, max_new_tokens=MAX_NEW)
+    out = eng.generate({"tokens": tokens, **extra}, max_new_tokens=MAX_NEW)
     total_s = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches, "rmsnorm": rmsnorm.launches,
                 "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches}
@@ -1056,15 +1136,14 @@ def serve(cfg) -> dict:
         raise AssertionError(f"generated ids out of range: shape {out.shape}, "
                              f"[{out.min()}, {out.max()}]")
     with torch.inference_mode():
-        cache = api.init_cache(SERVE_BATCH, PROMPT_LEN)
-        logits, _ = api.prefill(model, {"tokens": torch.from_numpy(tokens).to(DEVICE)}, cache,
+        logits, _ = api.prefill(model, batch, api.init_cache(SERVE_BATCH, prompt),
                                 last_only=True)
     if logits.shape != (SERVE_BATCH, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits not finite or of shape {tuple(logits.shape)}")
     if not np.array_equal(logits[:, -1].argmax(-1).cpu().numpy(), out[:, 0]):
         raise AssertionError("a second prefill picks other first tokens")
     if cfg.moe is not None:  # the combine adds in one fixed order: no atomics
-        again = eng.generate({"tokens": tokens}, max_new_tokens=MAX_NEW)
+        again = eng.generate({"tokens": tokens, **extra}, max_new_tokens=MAX_NEW)
         if not np.array_equal(again, out):
             raise AssertionError("two MoE serve runs gave different tokens")
         log(f"  a second run gives the same {out.size} tokens")
@@ -1082,6 +1161,12 @@ def serve(cfg) -> dict:
         expect_kv = n_attn * 2 * cfg.num_kv_heads * cfg.head_dim * cfg.cdtype.itemsize
         expect_fixed = (cfg.num_layers - n_attn) * ((mc.d_conv - 1) * d_in * cfg.cdtype.itemsize
                                                     + d_in * mc.d_state * 4)
+    elif cfg.family == "audio":  # decoder KV; the encoder output is fixed
+        expect_kv = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * cfg.cdtype.itemsize
+        expect_fixed = float(cfg.encoder_seq * cfg.d_model * cfg.cdtype.itemsize)
+    elif cfg.family == "vlm":  # the vision prefix's slots are fixed
+        expect_kv = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * cfg.cdtype.itemsize
+        expect_fixed = float(cfg.vision_tokens * expect_kv)
     elif cfg.attn_kind == "mla":  # the compressed cache: c_kv and k_rope
         expect_kv = cfg.num_layers * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) \
             * cfg.cdtype.itemsize
@@ -1094,16 +1179,24 @@ def serve(cfg) -> dict:
                              f"!= {expect_kv}, {expect_fixed}")
     log(f"  kv_bytes_per_token {kv:.0f}, fixed_state_bytes {fixed:.0f}")
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log(f"  a decode step reads every weight at least once (every expert's too: all E slots "
-        f"are computed, as in JAX): {weight_bytes / 1e9:.2f} GB, "
-        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    if cfg.family in ("audio", "vlm"):  # the encoder, the position table, the projector
+        unread = ("enc_layers.", "enc_ln.", "pos", "proj.")
+        read = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                   if not n.startswith(unread))
+        log(f"  weights {weight_bytes / 1e9:.3f} GB; a decode step reads the decoder's "
+            f"{read / 1e9:.3f} GB at least once: {read / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    else:
+        log(f"  a decode step reads every weight at least once (every expert's too: all E "
+            f"slots are computed, as in JAX): {weight_bytes / 1e9:.2f} GB, "
+            f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     if cfg.family == "ssm":
-        wkv_y_rounding_shift(api, model, torch.from_numpy(tokens).to(DEVICE))
+        wkv_y_rounding_shift(api, model, batch["tokens"])
     if cfg.attn_kind == "mla":
         mla_attention_ms(cfg)
     if cfg.family == "hybrid":
         mamba_scan_ms(cfg)
-    profile_phases(api, model, torch.from_numpy(tokens).to(DEVICE), decode_ms)
+    profile_phases(api, model, batch, decode_ms)
     return launches
 
 
@@ -1339,7 +1432,7 @@ def wkv_y_rounding_shift(api, model, tokens) -> None:
         f"argmax equal at {same:.4f} of positions")
 
 
-def profile_phases(api, model, tokens, decode_ms: float, steps: int = 8) -> None:
+def profile_phases(api, model, batch, decode_ms: float, steps: int = 8) -> None:
     """torch.profiler over one prefill and ``steps`` decode steps (outside the
     counted run): device-busy time, kernels launched, and the top kernels by
     device time.  The idle share of a decode step is taken against the
@@ -1365,14 +1458,14 @@ def profile_phases(api, model, tokens, decode_ms: float, steps: int = 8) -> None
 
     mixers = [m for m in model.modules() if isinstance(m, Mamba)]
     with torch.inference_mode():
-        cache = api.init_cache(tokens.shape[0], tokens.shape[1] + steps)
+        cache = api.init_cache(batch["tokens"].shape[0], batch["tokens"].shape[1] + steps)
         whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         for m in mixers:
             hooks += [m.register_forward_pre_hook(opened), m.register_forward_hook(closed)]
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pre:
                 whole[0].record()
-                logits, cache = api.prefill(model, {"tokens": tokens}, cache, last_only=True)
+                logits, cache = api.prefill(model, batch, cache, last_only=True)
                 whole[1].record()
                 tok = logits[:, -1].argmax(dim=-1)
                 sync()
@@ -1572,6 +1665,7 @@ def main() -> int:
     jamba = configs.get_config(HYBRID_ARCH)
     jamba = jamba.replace(num_layers=SERVE_LAYERS[HYBRID_ARCH], moe=dataclasses.replace(
         jamba.moe, num_experts=SERVE_EXPERTS[HYBRID_ARCH]))
+    whisper, internvl2 = configs.get_config(WHISPER_ARCH), configs.get_config(VLM_ARCH)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     log("kernels:")
     floor_ms = launch_floor_ms()
@@ -1593,12 +1687,17 @@ def main() -> int:
     check_reference(hybrid_reference_config(jamba),
                     "cut to one unit (8 layers) and 3 experts (top-2 kept),")
     torch.cuda.empty_cache()
+    check_reference(whisper, "at full depth (12 encoder + 12 decoder layers, 1500 frames),",
+                    full_depth=True)
+    torch.cuda.empty_cache()
+    check_reference(internvl2, "at full depth (24 layers, 256 patches),", full_depth=True)
+    torch.cuda.empty_cache()
     for cfg in (gemma, rwkv):
         check_train_reference(cfg)
         torch.cuda.empty_cache()
     log("serve:")
     runs = {}
-    for cfg in (gemma, rwkv, deepseek, grok, jamba):
+    for cfg in (gemma, rwkv, deepseek, grok, jamba, whisper, internvl2):
         torch.cuda.reset_peak_memory_stats()
         runs[cfg.name] = serve(cfg)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1617,6 +1716,8 @@ def main() -> int:
              f"serve {grok.name} ({grok.num_layers} layers)": runs[grok.name],
              f"serve {jamba.name} ({jamba.num_layers} layers, {jamba.moe.num_experts} experts)":
                  runs[jamba.name],
+             f"serve {whisper.name}": runs[whisper.name],
+             f"serve {internvl2.name}": runs[internvl2.name],
              f"train {gemma.name}": runs[f"train {gemma.name}"],
              f"train {rwkv.name}": runs[f"train {rwkv.name}"], **launched}
     driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",

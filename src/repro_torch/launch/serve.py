@@ -6,6 +6,12 @@ Runs on the card unless ``--device`` says otherwise:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b --smoke --device cpu
+
+whisper-small takes random frame embeddings and internvl2-1b random patch
+embeddings (the JAX package's frontend stubs), drawn after the prompt from
+one generator, as JAX's command line draws them.
 """
 from __future__ import annotations
 
@@ -38,7 +44,15 @@ def main(argv=None) -> None:
             0, cfg.vocab_size, size=(args.batch, args.prompt_len)
         ).astype(np.int64)
     }
-    eng = ServeEngine(api, model, batch=args.batch, s_max=args.prompt_len + args.max_new)
+    if cfg.family == "audio":
+        inputs["frames"] = rng.normal(
+            size=(args.batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        inputs["patches"] = rng.normal(
+            size=(args.batch, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)
+    s_max = args.prompt_len + args.max_new + (
+        cfg.vision_tokens if cfg.family == "vlm" else 0) + 2
+    eng = ServeEngine(api, model, batch=args.batch, s_max=s_max)
 
     t0 = time.perf_counter()
     out = eng.generate(inputs, max_new_tokens=args.max_new)

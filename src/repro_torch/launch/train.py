@@ -21,8 +21,10 @@ Runs on the card unless ``--device`` says otherwise:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke \
       --device cpu --steps 4 --ckpt-dir /tmp/ckpt     # twice: the second resumes
 
-Every family the port serves trains: the dense ones (gemma-2b, olmo-1b,
-gemma2-9b, qwen2.5-14b) and rwkv6.  The distributed steps
+The decoder-only families train: the dense ones (gemma-2b, olmo-1b,
+gemma2-9b, qwen2.5-14b) and rwkv6.  whisper-small and internvl2-1b serve
+but do not train yet (ROADMAP A.1) and raise ``NotImplementedError``.
+The distributed steps
 (``--hierarchical``, ``--compress``, ``--zero1``) wait for ROADMAP A.7.
 """
 from __future__ import annotations

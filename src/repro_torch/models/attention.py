@@ -1,4 +1,4 @@
-"""GQA/MQA and MLA attention (PyTorch twin of the GQA and MLA parts of
+"""GQA/MQA, cross- and MLA attention (PyTorch twin of
 ``repro.models.attention``).
 
 Cache-polymorphic like the JAX version:
@@ -17,6 +17,13 @@ XLA's ``sdpa_chunked``; the kernel keeps the probabilities in fp32 before
 P·V, where ``sdpa_chunked`` casts them to the compute dtype.  Decode at
 ``pos > 0`` is outside the kernel's contract (its q and k positions both
 start at 0), so it is plain torch here, as it is XLA in JAX.
+
+``causal=False`` (whisper's encoder) is full attention through the same
+kernel.  Whisper's cross-attention (:func:`cross_attention`) attends from
+the decoder to the encoder's output, Sq != Sk, always through the kernel
+with ``causal=False``: in prefill and at every decode step, where the
+cross K/V are recomputed from the encoder output as JAX's
+``whisper.decode`` does.
 
 MLA (DeepSeek-V3) trains and prefills in the expanded form, with query and
 key heads of nope + rope = 192 and value heads of 128: the flash kernel
@@ -82,11 +89,13 @@ def gqa_attention(
     cfg,
     *,
     window: Optional[int] = None,
+    causal: bool = True,
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     pos: Optional[int] = None,
 ) -> torch.Tensor:
     """Returns y (B, S, d); ``cache`` is written in place.  ``window`` None
-    means no sliding window."""
+    means no sliding window; ``causal=False`` is full attention (train and
+    prefill; a decode step attends to the slots before it)."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -116,7 +125,7 @@ def gqa_attention(
         cv[:, start : start + S] = v.to(cv.dtype)
 
     if pos is None:
-        out = ops.attention(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap)
+        out = ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
     else:
         out = _decode_attention(q, ck, cv, pos, window, cfg.attn_softcap)
     out = out.reshape(B, S, hq * hd)
@@ -144,8 +153,47 @@ class GQAAttention(nn.Module):
             for b in (self.bq, self.bk, self.bv):
                 nn.init.zeros_(b)
 
-    def forward(self, x, *, window=None, cache=None, pos=None):
-        return gqa_attention(self, x, self.cfg, window=window, cache=cache, pos=pos)
+    def forward(self, x, *, window=None, causal=True, cache=None, pos=None):
+        return gqa_attention(self, x, self.cfg, window=window, causal=causal, cache=cache,
+                             pos=pos)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper's decoder over the encoder output)
+# ---------------------------------------------------------------------------
+
+def cross_attention(mod: "CrossAttention", x: torch.Tensor, enc: torch.Tensor, cfg) -> torch.Tensor:
+    """x (B, S, d) attends to all of enc (B, Se, d): no mask, no cache, no
+    position; returns (B, S, d)."""
+    B, S, _ = x.shape
+    Se = enc.shape[1]
+    hq, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ mod.wq.to(x.dtype)).reshape(B, S, hq, hd)
+    k = (enc @ mod.wk.to(x.dtype)).reshape(B, Se, hq, hd)
+    v = (enc @ mod.wv.to(x.dtype)).reshape(B, Se, hq, hd)
+    out = ops.attention(q, k, v, causal=False)
+    return out.reshape(B, S, hq * hd) @ mod.wo.to(x.dtype)
+
+
+class CrossAttention(nn.Module):
+    """Parameters named as JAX's ``init_cross``: ``wq``, ``wk``, ``wv``
+    (d -> Hq·Dh) and ``wo``, no bias."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        self.cfg = cfg
+        d, hdim = cfg.d_model, cfg.num_heads * cfg.head_dim
+        self.wq = _param((d, hdim), cfg, device)
+        self.wk = _param((d, hdim), cfg, device)
+        self.wv = _param((d, hdim), cfg, device)
+        self.wo = _param((hdim, d), cfg, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            dense_init(w.data, gen)
+
+    def forward(self, x, enc):
+        return cross_attention(self, x, enc, self.cfg)
 
 
 # ---------------------------------------------------------------------------

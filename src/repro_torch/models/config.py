@@ -2,8 +2,9 @@
 
 The PyTorch twin of ``repro.models.config``: the same frozen dataclasses and
 the same ``param_counts``, with ``pdtype``/``cdtype`` returning
-``torch.dtype``s.  One config drives every family; the port runs the dense
-decoder-only family so far (``models/transformer.py``).
+``torch.dtype``s.  One config drives every family: the decoder-only ones
+(``models/transformer.py``), whisper's encoder-decoder
+(``models/whisper.py``) and the VLM (``models/vlm.py``).
 """
 from __future__ import annotations
 

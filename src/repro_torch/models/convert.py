@@ -23,20 +23,29 @@ stored as f32).  It
   ``dtype`` given, every leaf gets that dtype instead: the AdamW moments
   share the parameters' names and stay fp32 whatever the param dtype.
 
+The other families' trees (``cfg.family``): whisper's (``audio``) stacks
+``enc_layers/*`` along ``encoder_layers`` and ``dec_layers/*`` along
+``num_layers`` (``enc_layers.{i}``, ``dec_layers.{i}`` in the port), with
+``tok``, ``pos``, ``enc_ln`` and ``dec_ln`` unstacked; the VLM's holds the
+projector ``proj/w1``, ``proj/w2`` and, under ``lm/``, a decoder-only tree
+as above (``lm.layers.{i}`` in the port).
+
 ``params_to_jax`` is its inverse: named tensors (parameters or moments) to
 the ``"/"``-keyed flat tree, ``layers.{i}`` restacked into ``pro`` and
-``units/l{j}`` with the leading layer or unit axis, each leaf a numpy array of the tensor's dtype
-(bf16 as f32, which numpy can hold).  The checkpoint manager writes it
-under ``params/`` and ``opt/{m,v}/``.
+``units/l{j}`` with the leading layer or unit axis (whisper's
+``enc_layers.{i}`` and ``dec_layers.{i}`` along theirs), each leaf a numpy
+array of the tensor's dtype (bf16 as f32, which numpy can hold).  The
+checkpoint manager writes it under ``params/`` and ``opt/{m,v}/``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .transformer import DecoderLM, layer_plan
+from .registry import model_class
+from .transformer import layer_plan
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -50,15 +59,46 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-def params_from_jax(params: Mapping[str, Any], cfg, dtype=None) -> Dict[str, torch.Tensor]:
-    """State dict of :class:`~repro_torch.models.transformer.DecoderLM` (CPU
-    tensors in the dtypes of its parameters, or all in ``dtype``) from JAX
-    params, nested or "/"-flattened."""
-    flat = _flatten(params)
-    plan = layer_plan(cfg)
+def _decoder_names(parts, plan) -> Tuple[Any, Optional[int]]:
+    """A decoder-only tree's key (split on "/"): (port name of stacked
+    element u, the stack's length) or (port name, None)."""
     n_pro, unit_len = len(plan.prologue), len(plan.unit)
+    if parts[0] == "pro":
+        rest = ".".join(parts[1:])
+        return (lambda u: f"layers.{u}.{rest}"), n_pro
+    if parts[0] == "units":
+        j = int(parts[1].removeprefix("l"))
+        rest = ".".join(parts[2:])
+        return (lambda u: f"layers.{n_pro + u * unit_len + j}.{rest}"), plan.n_units
+    return ".".join(parts), None
+
+
+def _port_names(key: str, cfg) -> Tuple[Any, Optional[int]]:
+    """How the JAX leaf at ``key`` lands in the port: (a function of the
+    stacked index u giving the port name, the stack's length) for a leaf
+    stacked along a leading layer or unit axis, else (port name, None)."""
+    parts = key.split("/")
+    if cfg.family == "audio":
+        if parts[0] in ("enc_layers", "dec_layers"):
+            rest = ".".join(parts[1:])
+            n = cfg.encoder_layers if parts[0] == "enc_layers" else cfg.num_layers
+            return (lambda u: f"{parts[0]}.{u}.{rest}"), n
+        return ".".join(parts), None
+    if cfg.family == "vlm":
+        if parts[0] != "lm":
+            return ".".join(parts), None
+        name, n = _decoder_names(parts[1:], layer_plan(cfg))
+        return (f"lm.{name}", None) if n is None else ((lambda u: f"lm.{name(u)}"), n)
+    return _decoder_names(parts, layer_plan(cfg))
+
+
+def params_from_jax(params: Mapping[str, Any], cfg, dtype=None) -> Dict[str, torch.Tensor]:
+    """State dict of the port's model of ``cfg`` (CPU tensors in the dtypes
+    of its parameters, or all in ``dtype``) from JAX params, nested or
+    "/"-flattened."""
+    flat = _flatten(params)
     dtypes = {name: dtype if dtype is not None else t.dtype
-              for name, t in DecoderLM(cfg, torch.device("meta")).state_dict().items()}
+              for name, t in model_class(cfg)(cfg, torch.device("meta")).state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
 
     def put(name: str, arr: np.ndarray) -> None:
@@ -67,49 +107,63 @@ def params_from_jax(params: Mapping[str, Any], cfg, dtype=None) -> Dict[str, tor
         out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtypes[name])
 
     for key, arr in flat.items():
-        parts = key.split("/")
-        if parts[0] == "pro":
-            rest = ".".join(parts[1:])
-            if arr.shape[0] != n_pro:
-                raise ValueError(f"{key}: leading axis {arr.shape[0]} != {n_pro} prologue layers")
-            for p in range(n_pro):
-                put(f"layers.{p}.{rest}", arr[p])
-        elif parts[0] == "units":
-            j = int(parts[1].removeprefix("l"))
-            rest = ".".join(parts[2:])
-            if arr.shape[0] != plan.n_units:
-                raise ValueError(f"{key}: leading axis {arr.shape[0]} != {plan.n_units} units")
-            for u in range(plan.n_units):
-                put(f"layers.{n_pro + u * unit_len + j}.{rest}", arr[u])
-        else:
-            put(".".join(parts), arr)
+        name, n = _port_names(key, cfg)
+        if n is None:
+            put(name, arr)
+            continue
+        if arr.shape[0] != n:
+            raise ValueError(f"{key}: leading axis {arr.shape[0]} != the {n} stacked")
+        for u in range(n):
+            put(name(u), arr[u])
     return out
 
 
-def params_to_jax(tensors: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
-    """The ``"/"``-keyed flat JAX tree of named tensors of the port's
-    :class:`~repro_torch.models.transformer.DecoderLM` (its parameters, or
-    AdamW moments under the same names): numpy leaves, bf16 widened to f32,
-    the prologue's layers stacked along a leading layer axis and the units'
-    per unit element along a leading unit axis.  A leaf of an fp32 CPU
-    tensor outside the layers shares its memory."""
-    plan = layer_plan(cfg)
+def _decoder_key(parts, plan) -> Tuple[str, Optional[int], Optional[int]]:
+    """Inverse of :func:`_decoder_names`: (JAX key, stacked index, stack
+    length), the last two None for an unstacked leaf."""
     n_pro, unit_len = len(plan.prologue), len(plan.unit)
+    if parts[0] != "layers":
+        return "/".join(parts), None, None
+    i, rest = int(parts[1]), "/".join(parts[2:])
+    if i < n_pro:
+        return f"pro/{rest}", i, n_pro
+    u, j = divmod(i - n_pro, unit_len)
+    return f"units/l{j}/{rest}", u, plan.n_units
+
+
+def _jax_key(name: str, cfg) -> Tuple[str, Optional[int], Optional[int]]:
+    """The JAX place of the port's tensor ``name``: (key, stacked index,
+    stack length), the last two None for an unstacked leaf."""
+    parts = name.split(".")
+    if cfg.family == "audio":
+        if parts[0] in ("enc_layers", "dec_layers"):
+            n = cfg.encoder_layers if parts[0] == "enc_layers" else cfg.num_layers
+            return f"{parts[0]}/{'/'.join(parts[2:])}", int(parts[1]), n
+        return "/".join(parts), None, None
+    if cfg.family == "vlm":
+        if parts[0] == "lm":
+            key, u, n = _decoder_key(parts[1:], layer_plan(cfg))
+            return f"lm/{key}", u, n
+        return "/".join(parts), None, None
+    return _decoder_key(parts, layer_plan(cfg))
+
+
+def params_to_jax(tensors: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
+    """The ``"/"``-keyed flat JAX tree of named tensors of the port's model
+    of ``cfg`` (its parameters, or AdamW moments under the same names):
+    numpy leaves, bf16 widened to f32, each stacked group of layers or units
+    along its leading axis.  A leaf of an fp32 CPU tensor outside the
+    stacks shares its memory."""
     flat: Dict[str, np.ndarray] = {}
     stacks: Dict[str, list] = {}
     for name, t in tensors.items():
         t = t.detach().cpu()
         arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-        parts = name.split(".")
-        if parts[0] == "layers":
-            i, rest = int(parts[1]), "/".join(parts[2:])
-            if i < n_pro:
-                stacks.setdefault(f"pro/{rest}", [None] * n_pro)[i] = arr
-            else:
-                u, j = divmod(i - n_pro, unit_len)
-                stacks.setdefault(f"units/l{j}/{rest}", [None] * plan.n_units)[u] = arr
+        key, u, n = _jax_key(name, cfg)
+        if u is None:
+            flat[key] = arr
         else:
-            flat["/".join(parts)] = arr
+            stacks.setdefault(key, [None] * n)[u] = arr
     for key, per_layer in stacks.items():
         if any(a is None for a in per_layer):
             raise ValueError(f"{key}: a layer of the {len(per_layer)} stacked is missing")

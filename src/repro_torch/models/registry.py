@@ -1,10 +1,12 @@
 """Architecture registry (PyTorch twin of ``repro.models.registry``).
 
-The reduced smoke variants of the 10 architectures, and a
-uniform :class:`ModelAPI` (init / prefill / decode / init_cache) for the
-ported decoder-only families (dense GQA/MQA, MoE with GQA or MLA, rwkv,
-and jamba's hybrid of GQA and Mamba layers).  Entry points run on ``cuda`` unless the caller passes another
-device.
+The reduced smoke variants of the 10 architectures, and a uniform
+:class:`ModelAPI` (init / prefill / decode / init_cache) for every family:
+the decoder-only ones (dense GQA/MQA, MoE with GQA or MLA, rwkv, and
+jamba's hybrid of GQA and Mamba layers), whisper's encoder-decoder
+(``audio``: prefill reads ``batch["frames"]``) and internvl2's VLM
+(``vlm``: prefill reads ``batch["patches"]``).  Entry points run on
+``cuda`` unless the caller passes another device.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from .. import configs as _configs
 from .config import MLAConfig, MambaConfig, ModelConfig, RWKVConfig
-from . import transformer
+from . import transformer, vlm, whisper
 
 
 def smoke_config(name: str) -> ModelConfig:
@@ -83,37 +85,69 @@ class ModelAPI:
     init_cache: Callable  # (batch, s_max) -> cache
 
 
+def model_class(cfg: ModelConfig):
+    """The module class of ``cfg``'s family: ``Whisper``, ``VLM`` or
+    ``DecoderLM``, each built as ``cls(cfg, device)``."""
+    if cfg.family == "audio":
+        return whisper.Whisper
+    if cfg.family == "vlm":
+        return vlm.VLM
+    return transformer.DecoderLM
+
+
 def get_api(cfg: ModelConfig, device="cuda") -> ModelAPI:
-    """The model API of a ported decoder-only arch on ``device``."""
+    """The model API of ``cfg``'s arch on ``device``."""
     transformer.check_supported(cfg)
     device = torch.device(device)
+    cls = model_class(cfg)
 
     def init(seed: int = 0):
         """Random weights from ``torch.Generator(seed)`` on ``device``, with
         the JAX initialiser's distributions."""
-        model = transformer.DecoderLM(cfg, device)
+        model = cls(cfg, device)
         model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
         return model
 
-    def prefill(model, batch, cache, last_only=False):
-        return model(batch["tokens"], cache=cache, mode="prefill", last_only=last_only)
+    if cfg.family == "audio":
+        def prefill(model, batch, cache, last_only=False):
+            return model(batch["tokens"], batch["frames"], cache=cache, mode="prefill",
+                         last_only=last_only)
+
+        def make_cache(batch, s_max):
+            return whisper.init_whisper_cache(cfg, batch, s_max, device)
+    elif cfg.family == "vlm":
+        def prefill(model, batch, cache, last_only=False):
+            return model(batch["tokens"], batch["patches"], cache=cache, mode="prefill",
+                         last_only=last_only)
+
+        def make_cache(batch, s_max):
+            # the vision prefix takes the first vision_tokens slots
+            return transformer.init_cache(cfg, batch, s_max + cfg.vision_tokens, device)
+    else:
+        def prefill(model, batch, cache, last_only=False):
+            return model(batch["tokens"], cache=cache, mode="prefill", last_only=last_only)
+
+        def make_cache(batch, s_max):
+            return transformer.init_cache(cfg, batch, s_max, device)
 
     def decode_step(model, tokens, cache):
         return model(tokens, cache=cache, mode="decode")
-
-    def make_cache(batch, s_max):
-        return transformer.init_cache(cfg, batch, s_max, device)
 
     return ModelAPI(cfg, device, init, prefill, decode_step, make_cache)
 
 
 def make_smoke_batch(cfg: ModelConfig, rng=None, batch: int = 2, seq: int = 16,
                      device="cuda") -> Dict[str, torch.Tensor]:
-    """The same token draws as the JAX ``make_smoke_batch``, as int64 tensors."""
+    """The same draws as the JAX ``make_smoke_batch``: tokens and targets as
+    int64 tensors, then whisper's ``frames`` or the VLM's ``patches`` as
+    fp32 tensors from the same generator."""
     rng = rng or np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, size=(batch, seq)).astype(np.int64)
     tgts = np.roll(toks, -1, axis=1)
-    return {
-        "tokens": torch.from_numpy(toks).to(device),
-        "targets": torch.from_numpy(tgts).to(device),
-    }
+    out = {"tokens": toks, "targets": tgts}
+    if cfg.family == "audio":
+        out["frames"] = rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.normal(
+            size=(batch, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}

@@ -5,14 +5,16 @@ a unit); here it is unrolled into one ``nn.ModuleList`` in place of the
 ``lax.scan`` over stacked layers, so layer ``i`` of the list is unit
 ``i // len(unit)``, element ``i % len(unit)`` (after the prologue).
 
-Families ported so far: dense GQA/MQA decoders, including gemma2's
+The decoder-only families: dense GQA/MQA decoders, including gemma2's
 local/global alternation (sliding-window layers share the attention path),
 the MoE family (``models/moe.py``: grok-1's GQA + MoE, deepseek-v3's MLA +
 MoE after a prologue of dense layers), the rwkv family
 (``block_pattern`` of ``rwkv`` layers: RWKV-6 time mix and channel mix) and
 the hybrid family (jamba: a ``block_pattern`` of one GQA layer and seven
-Mamba layers, ``models/ssm.py``, with MoE on every other layer).  Audio
-(whisper) and vlm raise ``NotImplementedError`` naming the arch.
+Mamba layers, ``models/ssm.py``, with MoE on every other layer).  The vlm
+family's language model is a dense :class:`DecoderLM` fed ``inputs_embeds``
+(``models/vlm.py``); the audio family (whisper) is an encoder-decoder of
+its own (``models/whisper.py``), which :class:`DecoderLM` refuses.
 
 Caches are a dict ``{"pos": int, "layers": [entry, ...]}`` with one entry
 per layer, as JAX's ``_cache_shapes``: a GQA layer's (k, v) pair of
@@ -91,10 +93,8 @@ def layer_plan(cfg) -> LayerPlan:
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run yet."""
+    """Raise ``NotImplementedError`` for layers the port does not run."""
     missing = []
-    if cfg.family in ("audio", "vlm"):
-        missing.append(f"family {cfg.family!r}")
     kinds = {spec.kind for spec in layer_plan(cfg).layers()}
     if kinds - {"attn", "mamba", "rwkv"}:
         missing.append(f"layers {sorted(kinds - {'attn', 'mamba', 'rwkv'})}")
@@ -178,6 +178,9 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg, device):
         super().__init__()
+        if cfg.family == "audio":
+            raise ValueError(f"{cfg.name}: the audio family is models.whisper.Whisper, "
+                             "not a decoder-only LM")
         check_supported(cfg)
         self.cfg = cfg
         self.embed = Embed(cfg, device)
@@ -195,11 +198,13 @@ class DecoderLM(nn.Module):
                 m.reset_parameters(gen)
 
     def forward(self, tokens, cache=None, mode: str = "train", last_only: bool = False,
-                return_hidden: bool = False, return_aux: bool = False):
+                return_hidden: bool = False, return_aux: bool = False, inputs_embeds=None):
         """Returns (logits fp32 (B, S, V), new_cache), or with
         ``return_hidden`` (the hidden state after the final norm (B, S, d),
         new_cache); with ``return_aux`` the summed MoE auxiliary loss (fp32
-        scalar) comes second: (out, aux, new_cache).
+        scalar) comes second: (out, aux, new_cache).  ``inputs_embeds``
+        (B, S, d) in the compute dtype takes the place of the embedded
+        ``tokens`` (the VLM's projected patches and embedded text).
 
         * mode="train":   cache ignored
         * mode="prefill": cache required; writes positions [0:S], pos := S
@@ -212,7 +217,7 @@ class DecoderLM(nn.Module):
         elif cache is None:
             raise ValueError(f"mode={mode!r} requires a cache")
         pos = cache["pos"] if mode == "decode" else None
-        x = self.embed.embed(tokens)
+        x = inputs_embeds if inputs_embeds is not None else self.embed.embed(tokens)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
             x, aux = layer(x, cache["layers"][i] if cache is not None else None, pos)
@@ -221,7 +226,7 @@ class DecoderLM(nn.Module):
         x = self.final_norm(x)
         new_cache = None
         if cache is not None:
-            new_pos = cache["pos"] + (1 if mode == "decode" else tokens.shape[1])
+            new_pos = cache["pos"] + (1 if mode == "decode" else x.shape[1])
             new_cache = {"pos": new_pos, "layers": cache["layers"]}
         if not return_hidden:
             if last_only:

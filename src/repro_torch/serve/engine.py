@@ -18,6 +18,8 @@ class ServeEngine:
     computes the whole sequence's and reads the last, which gives the same
     tokens), then one decode step per further token against the cache (KV
     or recurrent state), which the model updates in place.
+    Every other entry of the batch (whisper's ``frames``, the VLM's
+    ``patches``) goes to the prefill, on the device in the compute dtype.
     ``comm_profile`` exports the engine's communication footprint, which
     calibrates the cluster simulator's serving archetype.
     """
@@ -35,17 +37,19 @@ class ServeEngine:
 
     def comm_profile(self) -> Dict[str, float]:
         """Per-request communication profile, measured off the engine's own
-        cache tensors (every tensor of every layer's entry):
+        cache tensors (every tensor of the cache: each layer's entry, and
+        whisper's encoder output ``enc``):
         ``kv_bytes_per_token`` is the byte growth of ``api.init_cache`` per
         context slot (MLA's compressed cache grows by c_kv and k_rope,
         L (R + Dr) entries; 0 for a recurrent state, which does not grow), and
-        ``fixed_state_bytes`` is what does not grow.  Its analytic twin is
-        ``repro.dist.demand.kv_bytes_per_token`` (the tests pin the two).
-        The JAX engine's fixed bytes also count its int32 ``pos`` leaf; the
-        port keeps ``pos`` as a Python int."""
+        ``fixed_state_bytes`` is what does not grow (a recurrent state,
+        whisper's ``enc``, the VLM's vision-prefix slots).  Its analytic
+        twin is ``repro.dist.demand.kv_bytes_per_token`` (the tests pin the
+        two).  The JAX engine's fixed bytes also count its int32 ``pos``
+        leaf; the port keeps ``pos`` as a Python int."""
         def nbytes(s_max: int) -> int:
             cache = self.api.init_cache(1, s_max)
-            return sum(t.nbytes for entry in cache["layers"] for t in entry)
+            return sum(t.nbytes for t in _tensors(cache))
 
         s0, s1 = 8, 16
         per_token = (nbytes(s1) - nbytes(s0)) / (s1 - s0)
@@ -64,17 +68,20 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate(self, batch_inputs: Dict[str, np.ndarray], max_new_tokens: int) -> np.ndarray:
-        """Greedy generation from ``batch_inputs["tokens"]`` (B, S0); returns
-        (B, max_new_tokens) token ids.  Wall times of the prefill and of the
+        """Greedy generation from ``batch_inputs["tokens"]`` (B, S0) and the
+        arch's other inputs (``frames``, ``patches``); returns (B,
+        max_new_tokens) token ids.  Wall times of the prefill and of the
         decode steps (ended by a device synchronise) go to ``self.timing``."""
         tokens = torch.as_tensor(np.asarray(batch_inputs["tokens"]), dtype=torch.long)
         B, S0 = tokens.shape
         if S0 + max_new_tokens > self.s_max:
             raise ValueError(f"prompt {S0} + {max_new_tokens} new tokens exceed s_max {self.s_max}")
-        tokens = tokens.to(self.device)
+        batch = {k: torch.as_tensor(np.asarray(v)).to(self.device, self.api.cfg.cdtype)
+                 for k, v in batch_inputs.items() if k != "tokens"}
+        batch["tokens"] = tokens.to(self.device)
         t0 = time.perf_counter()
         cache = self.api.init_cache(B, self.s_max)
-        logits, cache = self.api.prefill(self.model, {"tokens": tokens}, cache, last_only=True)
+        logits, cache = self.api.prefill(self.model, batch, cache, last_only=True)
         tok = logits[:, -1].argmax(dim=-1)
         out = [tok]
         self._sync()
@@ -88,3 +95,15 @@ class ServeEngine:
         self.timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                        "decode_steps": float(max_new_tokens - 1)}
         return torch.stack(out, dim=1).cpu().numpy()
+
+
+def _tensors(tree):
+    """Every tensor of a cache: its dict values, lists and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)

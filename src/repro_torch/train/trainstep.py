@@ -44,7 +44,12 @@ def _check_hparams(hp: TrainHparams) -> None:
 
 
 def make_train_state(api, seed: int = 0) -> dict:
-    """{"model": random weights from ``api.init(seed)``, "opt": AdamW state}."""
+    """{"model": random weights from ``api.init(seed)``, "opt": AdamW state}.
+    The decoder-only families train; whisper's and the VLM's losses
+    (``whisper_loss``, ``vlm_loss``) are not wired to the step yet."""
+    if api.cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"{api.cfg.name}: training the {api.cfg.family} family is "
+                                  "not ported to repro_torch yet (ROADMAP A.1)")
     model = api.init(seed)
     return {"model": model, "opt": adamw_init(model)}
 

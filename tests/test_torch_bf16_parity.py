@@ -12,7 +12,11 @@ round r, k, the gates and the squared ReLU to bf16 at other places, and
 each output multiplies two such values (time mix: 37 of 2048 entries beyond
 0.0078, at most 0.0117; channel mix: 9, at most 0.0156).  A whole-model
 bound would be loose, because the per-block gaps build up across the
-recurrent layers.
+recurrent layers.  whisper-small and internvl2-1b are held whole, as the
+dense archs are: greedy tokens at every position of the train-mode logits
+of JAX's jitted model, from the same bf16 weights, frames and patches
+(this catches whisper's cast of frames and sinusoid before their sum, and
+the projector's tanh-GELU rounding).
 """
 import numpy as np
 import pytest
@@ -26,8 +30,11 @@ from repro.models import make_smoke_batch as jbatch  # noqa: E402
 from repro.models import rwkv as jrwkv  # noqa: E402
 from repro.models import smoke_config as jsmoke  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
+from repro.models import vlm as jvlm  # noqa: E402
+from repro.models import whisper as jwhisper  # noqa: E402
 from repro_torch.models import make_smoke_batch, smoke_config, transformer  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.registry import model_class  # noqa: E402
 
 BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16", num_layers=2)
 BF16_STEP = 2.0 ** -7
@@ -37,7 +44,7 @@ def _bridged(arch):
     jcfg = jsmoke(arch).replace(**BF16)
     jparams = jget_api(jcfg).init(jax.random.PRNGKey(0))
     cfg = smoke_config(arch).replace(**BF16)
-    model = transformer.DecoderLM(cfg, torch.device("cpu"))
+    model = model_class(cfg)(cfg, torch.device("cpu"))
     sd = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
     model.load_state_dict(sd, strict=True)
     return jcfg, jparams, cfg, model
@@ -54,6 +61,29 @@ def test_bf16_greedy_tokens_match_jax(arch):
     assert logits.shape == tuple(jlogits.shape)
     want = np.asarray(jnp.argmax(jlogits.astype(jnp.float32), axis=-1))
     np.testing.assert_array_equal(logits.float().argmax(-1).numpy(), want)
+
+
+def _jax_whisper(params, batch, cfg):
+    return jwhisper.decode(params, batch["tokens"], jwhisper.encode(params, batch["frames"], cfg),
+                           cfg)[0]
+
+
+def _jax_vlm(params, batch, cfg):
+    return jvlm.apply_vlm(params, batch["tokens"], batch["patches"], cfg)[0]
+
+
+@pytest.mark.parametrize("arch,jax_fn,extra", [
+    ("whisper-small", _jax_whisper, "frames"), ("internvl2-1b", _jax_vlm, "patches")])
+def test_bf16_encoder_decoder_and_vlm_greedy_tokens_match_jax(arch, jax_fn, extra):
+    jcfg, jparams, cfg, model = _bridged(arch)
+    jb = jbatch(jcfg, batch=2, seq=16)
+    tb = make_smoke_batch(cfg, batch=2, seq=16, device="cpu")
+    jlogits = jax.jit(jax_fn, static_argnums=2)(jparams, jb, jcfg)
+    with torch.no_grad():
+        logits, _ = model(tb["tokens"], tb[extra])
+    assert logits.shape == tuple(jlogits.shape) and logits.dtype == torch.float32
+    want = np.asarray(jnp.argmax(jlogits.astype(jnp.float32), axis=-1))
+    np.testing.assert_array_equal(logits.argmax(-1).numpy(), want)
 
 
 def _layer0(tree):

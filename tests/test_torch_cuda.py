@@ -85,6 +85,28 @@ def test_flash_bf16_tensor_core_edges(gen, B, Hq, Hkv, Sq, Sk, D, kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [
+    (4, 12, 12, 1500, 1500, 64),  # whisper's encoder
+    (4, 12, 12, 416, 1500, 64),  # its cross-attention in prefill
+    (4, 12, 12, 1, 1500, 64),  # and at a decode step
+    (2, 4, 2, 37, 300, 64),  # GQA, ragged Sq < Sk
+])
+def test_flash_kernel_full_attention_at_whisper_shapes(gen, dtype, B, Hq, Hkv, Sq, Sk, D):
+    """causal=False with Sq != Sk, through ops.attention's model layout (B,
+    S, H, D), as whisper's encoder and cross-attention call it."""
+    q = _randn(gen, (B, Sq, Hq, D), dtype)
+    k = _randn(gen, (B, Sk, Hkv, D), dtype)
+    v = _randn(gen, (B, Sk, Hkv, D), dtype)
+    before = flash_attention.launches
+    out = ops.attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.shape == q.shape
+    want = ref.mha_reference(*(t.transpose(1, 2) for t in (q, k, v)), causal=False)
+    torch.testing.assert_close(out.float(), want.transpose(1, 2).float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 256), (3, 5, 512), (4095, 2048), (7, 896), (5, 3584), (3, 8192)])
 def test_rmsnorm_kernel_matches_plain(gen, dtype, shape):
     x = _randn(gen, shape, dtype)
@@ -592,3 +614,42 @@ def test_mamba_block_on_the_card_matches_the_cpu(gen, dtype):
         assert got.dtype == want.dtype and got.shape == want.shape
         torch.testing.assert_close(got.float(), want.float(),
                                    atol=tol * max(1.0, want.float().abs().max().item()), rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_encoder_decoder_and_vlm_serve_on_the_card_as_on_the_cpu(gen, arch):
+    """The fp32 smoke models (whisper with its frames, internvl2 with its
+    patches) served through ``ServeEngine`` on the card and on the CPU,
+    the same weights and inputs: prefill logits within 1e-4 and the same 8
+    greedy tokens; the card's run launches the flash kernel (every prefill
+    attention, and whisper's cross-attention in every decode step)."""
+    import numpy as np
+
+    from repro_torch.models import get_api, make_smoke_batch, smoke_config
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = smoke_config(arch)
+    apis = {dev: get_api(cfg, device=dev) for dev in ("cpu", "cuda")}
+    models = {"cpu": apis["cpu"].init(seed=0)}
+    models["cuda"] = apis["cuda"].init(seed=0)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    batch = make_smoke_batch(cfg, batch=2, seq=16, device="cpu")
+    inputs = {k: v.numpy() for k, v in batch.items() if k != "targets"}
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out, logits = {}, {}
+        for dev, api in apis.items():
+            before = flash_attention.launches
+            out[dev] = ServeEngine(api, models[dev], batch=2, s_max=26).generate(inputs, 8)
+            launched = flash_attention.launches - before
+            with torch.no_grad():
+                on_dev = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+                logits[dev], _ = api.prefill(models[dev], on_dev, api.init_cache(2, 26))
+            expect = (cfg.encoder_layers + 2 * cfg.num_layers + 7 * cfg.num_layers
+                      if arch == "whisper-small" else cfg.num_layers)
+            assert launched == (0 if dev == "cpu" else expect), (dev, launched)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"], atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(out["cuda"], out["cpu"])

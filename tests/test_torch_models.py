@@ -20,10 +20,12 @@ from repro.models import get_api as jget_api  # noqa: E402
 from repro.models import make_smoke_batch as jbatch  # noqa: E402
 from repro.models import smoke_config as jsmoke  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import get_api, make_smoke_batch, smoke_config  # noqa: E402
 from repro_torch.models import ssm, transformer  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from tests.test_torch_moe import (  # noqa: E402
     check_bridge_round_trip, check_lm_loss, check_lm_loss_gradients)
 
@@ -31,7 +33,6 @@ DENSE = ["gemma-2b", "olmo-1b", "gemma2-9b", "qwen2.5-14b"]
 RWKV = "rwkv6-1.6b"
 HYBRID = "jamba-1.5-large-398b"
 PORTED = DENSE + [RWKV, HYBRID]
-NOT_PORTED = ["internvl2-1b", "whisper-small"]
 ATOL = 1e-4
 
 
@@ -190,10 +191,24 @@ def test_decode_past_a_window_masks_old_slots():
             _close(tl, jl)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_families_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError, match=arch):
-        get_api(smoke_config(arch), device="cpu")
+@pytest.mark.parametrize("arch", sorted(configs.ARCH_IDS))
+def test_every_arch_serves_on_the_cpu(arch):
+    """All 10 archs (whisper and internvl2 with their frames and patches)
+    through ``get_api`` and ``ServeEngine.generate`` on the CPU: a prefill
+    and 3 decode steps give in-range ids, and a second prefill of the same
+    inputs picks the same first tokens."""
+    cfg = smoke_config(arch)
+    api = get_api(cfg, device="cpu")
+    model = api.init(seed=0)
+    batch = make_smoke_batch(cfg, batch=2, seq=8, device="cpu")
+    del batch["targets"]
+    out = ServeEngine(api, model, batch=2, s_max=12).generate(
+        {k: v.numpy() for k, v in batch.items()}, 4)
+    assert out.shape == (2, 4) and 0 <= out.min() and out.max() < cfg.vocab_size
+    with torch.no_grad():
+        logits, _ = api.prefill(model, batch, api.init_cache(2, 12), last_only=True)
+    assert logits.shape == (2, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+    np.testing.assert_array_equal(logits[:, -1].argmax(-1).numpy(), out[:, 0])
 
 
 def test_torch_init_distributions():

@@ -1,7 +1,9 @@
 """The port's serving engine against the JAX engine: identical greedy
-tokens from identical weights, the same KV bytes per token as the
-simulator's analytic formula (and the JAX engine's recurrent-state bytes
-for rwkv6 and jamba's hybrid stack), and the CLI on the CPU."""
+tokens from identical weights (whisper's and the VLM's from the same
+frames and patches too), the same KV bytes per token as the simulator's
+analytic formula (and the JAX engine's fixed bytes for rwkv6's and
+jamba's recurrent state, whisper's encoder output and the VLM's vision
+prefix), and the CLI on the CPU."""
 import numpy as np
 import pytest
 
@@ -20,23 +22,34 @@ from repro_torch.serve.engine import ServeEngine  # noqa: E402
 DENSE = ["gemma-2b", "olmo-1b", "gemma2-9b", "qwen2.5-14b"]
 RWKV = "rwkv6-1.6b"
 HYBRID = "jamba-1.5-large-398b"
+WHISPER, VLM = "whisper-small", "internvl2-1b"
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV, HYBRID])
+def _inputs(cfg, rng):
+    """A prompt (2, 16) and, for whisper and the VLM, frames or patches."""
+    out = {"tokens": rng.integers(0, cfg.vocab_size, size=(2, 16)).astype(np.int32)}
+    if cfg.family == "audio":
+        out["frames"] = rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["patches"] = rng.normal(size=(2, cfg.vision_tokens, cfg.vision_dim)).astype(
+            np.float32)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV, HYBRID, WHISPER, VLM])
 def test_greedy_tokens_equal_jax(arch):
     jcfg = jsmoke(arch)
     japi = jget_api(jcfg)
     jparams = japi.init(jax.random.PRNGKey(0))
-    prompts = np.random.default_rng(1).integers(0, jcfg.vocab_size, size=(2, 16)).astype(np.int32)
-    want = JServeEngine(japi, jparams, batch=2, s_max=26).generate(
-        {"tokens": prompts}, max_new_tokens=8)
+    inputs = _inputs(jcfg, np.random.default_rng(1))
+    want = JServeEngine(japi, jparams, batch=2, s_max=26).generate(inputs, max_new_tokens=8)
 
     cfg = smoke_config(arch)
     api = get_api(cfg, device="cpu")
     model = api.init()
     model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg))
     eng = ServeEngine(api, model, batch=2, s_max=26)
-    got = eng.generate({"tokens": prompts}, max_new_tokens=8)
+    got = eng.generate(inputs, max_new_tokens=8)
     assert got.shape == (2, 8)
     np.testing.assert_array_equal(got, want)
     assert eng.timing["decode_steps"] == 7
@@ -89,6 +102,28 @@ def test_hybrid_comm_profile_matches_jax(dtype):
         assert got[key] == want[key]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", [WHISPER, VLM])
+def test_encoder_decoder_and_vlm_comm_profile_matches_jax(arch, dtype):
+    """Whisper's KV grows by its decoder layers' self-attention (2 x Hkv x
+    Dh a layer); its encoder output ``enc`` (encoder_seq x d) is fixed.
+    The VLM's cache holds the vision prefix in vision_tokens slots that
+    every request fills: fixed bytes of vision_tokens tokens.  Both equal
+    the JAX engine's, less its 4-byte ``pos``."""
+    jcfg = jsmoke(arch).replace(compute_dtype=dtype)
+    want = JServeEngine(jget_api(jcfg), None, batch=2, s_max=32).comm_profile()
+    cfg = smoke_config(arch).replace(compute_dtype=dtype)
+    got = ServeEngine(get_api(cfg, device="cpu"), None, batch=2, s_max=32).comm_profile()
+    item = 4 if dtype == "float32" else 2
+    kv = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * item
+    fixed = (cfg.encoder_seq * cfg.d_model * item if arch == WHISPER
+             else cfg.vision_tokens * kv)
+    assert got["kv_bytes_per_token"] == want["kv_bytes_per_token"] == kv
+    assert got["fixed_state_bytes"] == want["fixed_state_bytes"] - 4 == fixed
+    for key in ("dtype_bytes", "num_layers", "batch_slots"):
+        assert got[key] == want[key]
+
+
 def test_generate_refuses_to_overrun_the_cache():
     cfg = smoke_config("gemma-2b")
     api = get_api(cfg, device="cpu")
@@ -97,7 +132,7 @@ def test_generate_refuses_to_overrun_the_cache():
         eng.generate({"tokens": np.zeros((1, 8), np.int64)}, max_new_tokens=4)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV, HYBRID])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV, HYBRID, WHISPER, VLM])
 def test_cli_runs_on_the_cpu(arch, capsys):
     serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                     "--prompt-len", "8", "--max-new", "4"])

@@ -334,6 +334,14 @@ def test_distributed_hparams_are_not_ported(flag):
                    TrainHparams(**{flag: True}))
 
 
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_encoder_decoder_and_vlm_do_not_train_yet(arch):
+    """They serve; their losses are not wired to the train step (ROADMAP
+    A.1), so the step's state refuses them by name."""
+    with pytest.raises(NotImplementedError, match=f"{arch}.*A.1"):
+        make_train_state(get_api(smoke_config(arch), device="cpu"))
+
+
 def test_loss_decreases():
     """The port alone, as tests/test_trainstep.py asks of JAX: 30 steps of the
     olmo-1b smoke config on the learnable affine data."""
