@@ -21,7 +21,7 @@ import time
 import numpy as np
 
 from .. import configs
-from ..models import get_api, smoke_config
+from ..models import get_api, modality_inputs, smoke_config
 from ..serve.engine import ServeEngine
 
 
@@ -44,12 +44,7 @@ def main(argv=None) -> None:
             0, cfg.vocab_size, size=(args.batch, args.prompt_len)
         ).astype(np.int64)
     }
-    if cfg.family == "audio":
-        inputs["frames"] = rng.normal(
-            size=(args.batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
-    if cfg.family == "vlm":
-        inputs["patches"] = rng.normal(
-            size=(args.batch, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)
+    inputs.update(modality_inputs(cfg, rng, args.batch))
     s_max = args.prompt_len + args.max_new + (
         cfg.vision_tokens if cfg.family == "vlm" else 0) + 2
     eng = ServeEngine(api, model, batch=args.batch, s_max=s_max)

@@ -112,6 +112,11 @@ def gelu_tanh_stepwise(x: torch.Tensor) -> torch.Tensor:
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
+# Which tanh-GELU: the VLM projector uses ``gelu_tanh_stepwise``, because
+# its output is the prefix that every later position attends to, so a
+# rounding step there moves every token's logits. The MLPs keep ``F.gelu``
+# (one launch, against ~6 for the stepwise form): a step there moves only
+# its own position, and the greedy tokens still match JAX's in bf16.
 def mlp(x: torch.Tensor, kind: str, wi, wo, wg=None) -> torch.Tensor:
     h = x @ wi.to(x.dtype)
     if kind == "swiglu":

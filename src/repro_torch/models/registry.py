@@ -136,18 +136,27 @@ def get_api(cfg: ModelConfig, device="cuda") -> ModelAPI:
     return ModelAPI(cfg, device, init, prefill, decode_step, make_cache)
 
 
+def modality_inputs(cfg: ModelConfig, rng: np.random.Generator, batch: int) -> Dict[str, np.ndarray]:
+    """whisper's ``frames`` (batch, encoder_seq, d_model) or the VLM's
+    ``patches`` (batch, vision_tokens, vision_dim): random fp32 embeddings
+    in place of the frontends, as the JAX package's stubs take them, drawn
+    from ``rng`` after the tokens as JAX's ``make_smoke_batch`` and serve
+    command line draw them; {} for a decoder-only model."""
+    if cfg.family == "audio":
+        return {"frames": rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": rng.normal(size=(batch, cfg.vision_tokens, cfg.vision_dim)).astype(
+            np.float32)}
+    return {}
+
+
 def make_smoke_batch(cfg: ModelConfig, rng=None, batch: int = 2, seq: int = 16,
                      device="cuda") -> Dict[str, torch.Tensor]:
     """The same draws as the JAX ``make_smoke_batch``: tokens and targets as
-    int64 tensors, then whisper's ``frames`` or the VLM's ``patches`` as
-    fp32 tensors from the same generator."""
+    int64 tensors, then ``modality_inputs`` from the same generator."""
     rng = rng or np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, size=(batch, seq)).astype(np.int64)
     tgts = np.roll(toks, -1, axis=1)
-    out = {"tokens": toks, "targets": tgts}
-    if cfg.family == "audio":
-        out["frames"] = rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
-    if cfg.family == "vlm":
-        out["patches"] = rng.normal(
-            size=(batch, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)
+    out = {"tokens": toks, "targets": tgts, **modality_inputs(cfg, rng, batch)}
     return {k: torch.from_numpy(v).to(device) for k, v in out.items()}

@@ -19,7 +19,8 @@ class ServeEngine:
     tokens), then one decode step per further token against the cache (KV
     or recurrent state), which the model updates in place.
     Every other entry of the batch (whisper's ``frames``, the VLM's
-    ``patches``) goes to the prefill, on the device in the compute dtype.
+    ``patches``) goes to the prefill on the device as it is; the model
+    casts it to the compute dtype.
     ``comm_profile`` exports the engine's communication footprint, which
     calibrates the cluster simulator's serving archetype.
     """
@@ -76,7 +77,7 @@ class ServeEngine:
         B, S0 = tokens.shape
         if S0 + max_new_tokens > self.s_max:
             raise ValueError(f"prompt {S0} + {max_new_tokens} new tokens exceed s_max {self.s_max}")
-        batch = {k: torch.as_tensor(np.asarray(v)).to(self.device, self.api.cfg.cdtype)
+        batch = {k: torch.as_tensor(np.asarray(v)).to(self.device)
                  for k, v in batch_inputs.items() if k != "tokens"}
         batch["tokens"] = tokens.to(self.device)
         t0 = time.perf_counter()

@@ -94,16 +94,33 @@ def test_flash_bf16_tensor_core_edges(gen, B, Hq, Hkv, Sq, Sk, D, kw):
 def test_flash_kernel_full_attention_at_whisper_shapes(gen, dtype, B, Hq, Hkv, Sq, Sk, D):
     """causal=False with Sq != Sk, through ops.attention's model layout (B,
     S, H, D), as whisper's encoder and cross-attention call it."""
+    _check_model_layout(gen, dtype, (B, Hq, Hkv, Sq, Sk, D), causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_whisper_decoder_self_attention(gen, dtype):
+    """whisper's decoder self-attention in prefill: causal over the 416-token
+    prompt, 6.5 tiles of 64, so the last causal tile is partly filled."""
+    _check_model_layout(gen, dtype, (4, 12, 12, 416, 416, 64), causal=True)
+
+
+def _check_model_layout(gen, dtype, shape, causal):
+    """One ops.attention call on (B, S, H, D) tensors against the plain
+    version; bf16 is also held to 2**-6 of max|output| (outputs over 1500
+    keys are ~0.04, far below the atol)."""
+    B, Hq, Hkv, Sq, Sk, D = shape
     q = _randn(gen, (B, Sq, Hq, D), dtype)
     k = _randn(gen, (B, Sk, Hkv, D), dtype)
     v = _randn(gen, (B, Sk, Hkv, D), dtype)
     before = flash_attention.launches
-    out = ops.attention(q, k, v, causal=False)
+    out = ops.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1 and out.shape == q.shape
-    want = ref.mha_reference(*(t.transpose(1, 2) for t in (q, k, v)), causal=False)
-    torch.testing.assert_close(out.float(), want.transpose(1, 2).float(), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    want = ref.mha_reference(*(t.transpose(1, 2) for t in (q, k, v)), causal=causal)
+    want = want.transpose(1, 2).float()
+    torch.testing.assert_close(out.float(), want, atol=TOL[dtype], rtol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert (out.float() - want).abs().max() <= 2.0 ** -6 * want.abs().max()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

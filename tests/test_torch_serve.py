@@ -15,7 +15,7 @@ from repro.models import get_api as jget_api  # noqa: E402
 from repro.models import smoke_config as jsmoke  # noqa: E402
 from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
-from repro_torch.models import get_api, smoke_config  # noqa: E402
+from repro_torch.models import get_api, modality_inputs, smoke_config  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
@@ -28,12 +28,7 @@ WHISPER, VLM = "whisper-small", "internvl2-1b"
 def _inputs(cfg, rng):
     """A prompt (2, 16) and, for whisper and the VLM, frames or patches."""
     out = {"tokens": rng.integers(0, cfg.vocab_size, size=(2, 16)).astype(np.int32)}
-    if cfg.family == "audio":
-        out["frames"] = rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
-    if cfg.family == "vlm":
-        out["patches"] = rng.normal(size=(2, cfg.vision_tokens, cfg.vision_dim)).astype(
-            np.float32)
-    return out
+    return {**out, **modality_inputs(cfg, rng, 2)}
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", RWKV, HYBRID, WHISPER, VLM])
