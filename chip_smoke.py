@@ -21,8 +21,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    is one, beside the least time the card could take;
    The backward kernels of flash attention, RMSNorm and WKV6 are held
    against their plain versions the same way, at the training paths' shapes
-   and at the other options; each gives bit-identical gradients in two
-   calls; flash
+   (flash attention's also at whisper's encoder, cross- and decoder
+   self-attention, internvl2's GQA 14/2 and grok-1's GQA 48/8 with softcap
+   30, held against the gradients' scale too; RMSNorm's at the MoE and VLM
+   widths) and at the other options; each gives bit-identical gradients in
+   two calls; flash
    attention's and WKV6's backward times are split by launch (torch.profiler;
    WKV6's: the state sweeps, the chunks, the carry of dlog_w), and flash's
    yardstick is SDPA's backward under the flash backend (or the backend that
@@ -40,9 +43,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    on the CPU (plain versions): logits, the decode step's logits and greedy
    tokens, and for the MoE models the routing decisions and the picks
    dropped at capacity that differ; then
-   one AdamW step of the 2-layer fp32 gemma-2b and rwkv6-1.6b on the card
-   against the same step on the CPU: the loss, every parameter's gradient
-   and the parameter update;
+   one AdamW step on the card against the same step on the CPU, in fp32, of
+   gemma-2b and rwkv6-1.6b cut to 2 layers, whisper-small and internvl2-1b
+   at full depth, and deepseek-v3 and grok-1 as the train phase cuts them:
+   the loss, every parameter's gradient, the parameter update and the MoE
+   models' routing decisions that differ, after a check that the host and
+   the card hold 16 bytes a parameter;
 5. serve: full-width gemma-2b (18 layers), rwkv6-1.6b (24 layers),
    deepseek-v3-671b cut to 4 layers (3 dense, 1 MoE: MLA, 256 experts),
    grok-1-314b cut to 2 layers (GQA 48/8 with softcap, 8 experts) and
@@ -64,14 +70,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against the config, and for the MoE models a second run that must give
    the same tokens; for jamba the plain selective scan of one layer against
    its bound and the Mamba mixers' share of the prefill;
-6. train: full-width, full-depth gemma-2b and then rwkv6-1.6b in bf16,
-   random weights from a fixed seed, each 6 AdamW steps of batch 4 x 1024
-   tokens of the synthetic affine data through
-   ``train.trainstep.train_step``: the loss of every step, step ms, tok/s,
-   peak device memory, the launches per step of the kernels on the path
-   (flash attention and RMSNorm, forward and backward, for gemma-2b; the
-   chunked WKV6 kernel and its backward for rwkv6) and a profile of one
-   step;
+6. train: full-width, full-depth gemma-2b, rwkv6-1.6b, whisper-small
+   (1500 frames, its 448-token text context) and internvl2-1b (256 patches
+   before the tokens), and deepseek-v3-671b cut to 2 layers (first_dense 1)
+   and 16 experts (top-8 kept) and grok-1-314b cut to 1 layer and 4 of 8
+   experts (top-2 kept), in bf16 with fp32 AdamW moments, random weights
+   from a fixed seed, each 6 AdamW steps of batch 4 x 1024 tokens (whisper:
+   448) of the synthetic affine data through ``train.trainstep.train_step``:
+   the loss of every step (finite) and of the last step's batch after that
+   step (below the step's), step ms,
+   tok/s, peak device memory, the launches per step of the kernels on the
+   path (flash attention and RMSNorm, forward and backward; the chunked
+   WKV6 kernel and its backward for rwkv6), whether two gradient passes
+   from one state are bit-identical, and a profile of one step;
 7. launcher: the train launcher (``launch.train``): its control-plane line
    (job demand, MDMCF, LTRR) for gemma-2b and rwkv6-1.6b at 2 and 4 pods,
    then its data-plane loop on rwkv6-1.6b at full width cut to 2 layers
@@ -128,9 +139,11 @@ SERVE_LAYERS = {"deepseek-v3-671b": 4, "grok-1-314b": 2, HYBRID_ARCH: 8}
 # experts cut to fit one card, top-k kept (jamba: 8 of 16, 25.4 B params in bf16)
 SERVE_EXPERTS = {HYBRID_ARCH: 8}
 SERVE_BATCH, PROMPT_LEN, MAX_NEW = 4, 1024, 32
-# whisper's prompt and new tokens fill its real 448-token text context
-SERVE_PROMPT = {WHISPER_ARCH: 448 - MAX_NEW}
+WHISPER_CONTEXT = 448  # whisper's real text context (the config's 32768 rows size a dry run)
+# whisper's prompt and new tokens fill its text context
+SERVE_PROMPT = {WHISPER_ARCH: WHISPER_CONTEXT - MAX_NEW}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+TRAIN_TEXT = {WHISPER_ARCH: WHISPER_CONTEXT}  # whisper trains on 1500 frames and 448 tokens
 LAUNCH_LAYERS, LAUNCH_STEPS = 2, 4  # the launcher phase: two checkpoints of 4.55 GB
 
 
@@ -496,33 +509,79 @@ def check_wkv6(gen, cfg) -> list:
     return out
 
 
+def time_flash_bwd(args, what: str, err: float, library: bool = True,
+                   every_backend: bool = False, **kw) -> dict:
+    """The backward kernel, its plain version and SDPA's backward (where a
+    backend takes the shape) on one checked case, beside the bound: five
+    products per (q, k) pair this input needs; q, k, v, o, dO and the LSE
+    read once, dq, dk and dv written once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v, out, lse, dout = args
+    B, Hq, Sq, D = q.shape
+    Sk, causal = k.shape[2], kw.get("causal", True)
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout, **kw))
+    plain_ms = time_ms(lambda: ref.mha_backward_reference(q, k, v, out, lse, dout, **kw), reps=5)
+    library_ms, backend = (sdpa_backward_ms(q, k, v, dout, what, causal, every_backend)
+                           if library else (None, None))
+    # q.k, dO.v, P^T dO, dS K, dS^T Q: 2 flops per multiply-add each
+    flops = 10.0 * D * B * Hq * flash_pairs(Sq, Sk, causal)
+    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel() + dout.numel()) \
+        * q.element_size() + lse.numel() * 4
+    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+    lib = (f"library (scaled_dot_product_attention backward, {backend} backend) "
+           f"{library_ms:.4f} ms" if library
+           else "library: none (scaled_dot_product_attention has no softcap)")
+    log(f"  flash_attention_bwd at {what} (B={B}, Hq={Hq}, Hkv={k.shape[1]}, Sq={Sq}, Sk={Sk}, "
+        f"D={D}, {str(q.dtype)[6:]}, {kw or 'causal'}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {lib}, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
 def check_flash_bwd(gen) -> dict:
     """The forward's LSE and the backward kernel against their plain
-    versions, timed at gemma-2b's training shape."""
+    versions, timed at gemma-2b's training shape and at the training shapes
+    of whisper-small, internvl2-1b and grok-1; the bf16 cases of those paths
+    are also held against the gradients' own scale, as the forward's."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import _forward, flash_attention_bwd
 
-    cases = [  # (B, Hq, Hkv, Sq, Sk, D, dtype, options)
-        (TRAIN_BATCH, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256, torch.bfloat16, {}),  # gemma-2b training
-        (TRAIN_BATCH, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256, torch.float32, {}),
-        (1, 4, 2, 256, 256, 64, torch.float32, dict(window=64)),
-        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=64)),
-        (1, 4, 2, 256, 256, 64, torch.float32, dict(softcap=30.0)),
-        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(softcap=30.0)),
-        (1, 4, 2, 256, 256, 64, torch.float32, dict(causal=False)),
-        (1, 4, 2, 256, 256, 64, torch.bfloat16, dict(window=32, softcap=50.0)),
-        (1, 8, 2, 128, 256, 128, torch.float32, dict(window=100)),  # GQA, cross lengths
-        (1, 8, 2, 256, 256, 128, torch.bfloat16, {}),
-        (1, 2, 2, 1000, 1000, 64, torch.bfloat16, {}),  # ragged Sq = Sk
-        (1, 2, 2, 1000, 1000, 128, torch.float32, {}),
-        (1, 8, 1, 100, 173, 256, torch.bfloat16, dict(softcap=50.0)),
-        (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8, softcap=5.0)),
-        (1, 2, 2, 100, 100, 32, torch.bfloat16, dict(causal=False, window=30)),
-        (1, 2, 2, 1000, 1000, 256, torch.bfloat16, {}),  # 64-row tiles ending mid-tile
-        (1, 8, 2, 300, 300, 256, torch.bfloat16, dict(window=100, softcap=50.0)),
+    from repro_torch import configs
+
+    enc, nv = configs.get_config(WHISPER_ARCH).encoder_seq, configs.get_config(VLM_ARCH).vision_tokens
+    text, full, bf16 = WHISPER_CONTEXT, dict(causal=False), torch.bfloat16
+    cases = [  # (B, Hq, Hkv, Sq, Sk, D, dtype, options, the training path it times or None)
+        (TRAIN_BATCH, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256, bf16, {}, "main"),  # gemma-2b training
+        (TRAIN_BATCH, 8, 1, TRAIN_SEQ, TRAIN_SEQ, 256, torch.float32, {}, None),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(window=64), None),
+        (1, 4, 2, 256, 256, 64, bf16, dict(window=64), None),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(softcap=30.0), None),
+        (1, 4, 2, 256, 256, 64, bf16, dict(softcap=30.0), None),
+        (1, 4, 2, 256, 256, 64, torch.float32, dict(causal=False), None),
+        (1, 4, 2, 256, 256, 64, bf16, dict(window=32, softcap=50.0), None),
+        (1, 8, 2, 128, 256, 128, torch.float32, dict(window=100), None),  # GQA, cross lengths
+        (1, 8, 2, 256, 256, 128, bf16, {}, None),
+        (1, 2, 2, 1000, 1000, 64, bf16, {}, None),  # ragged Sq = Sk
+        (1, 2, 2, 1000, 1000, 128, torch.float32, {}, None),
+        (1, 8, 1, 100, 173, 256, bf16, dict(softcap=50.0), None),
+        (2, 4, 2, 77, 77, 16, torch.float32, dict(window=8, softcap=5.0), None),
+        (1, 2, 2, 100, 100, 32, bf16, dict(causal=False, window=30), None),
+        (1, 2, 2, 1000, 1000, 256, bf16, {}, None),  # 64-row tiles ending mid-tile
+        (1, 8, 2, 300, 300, 256, bf16, dict(window=100, softcap=50.0), None),
+        # the new training paths: 1500 = 23.4 tiles of 64, Sq != Sk without a
+        # mask, 448 = 7 tiles, 7 and 6 q heads a kv head, softcap at D = 128
+        (TRAIN_BATCH, 12, 12, enc, enc, 64, bf16, full, "whisper's encoder"),
+        (TRAIN_BATCH, 12, 12, text, enc, 64, bf16, full, "whisper's cross-attention"),
+        (TRAIN_BATCH, 12, 12, text, text, 64, bf16, {}, "whisper's decoder self-attention"),
+        (TRAIN_BATCH, 14, 2, nv + TRAIN_SEQ, nv + TRAIN_SEQ, 64, bf16, {}, "internvl2's training"),
+        (TRAIN_BATCH, 48, 8, TRAIN_SEQ, TRAIN_SEQ, 128, bf16, dict(softcap=30.0),
+         "grok-1's training"),
     ]
-    main = None
-    for B, Hq, Hkv, Sq, Sk, D, dtype, kw in cases:
+    timed = {}
+    for B, Hq, Hkv, Sq, Sk, D, dtype, kw, what in cases:
         q = randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
         k = randn(gen, (B, Sk, Hkv, D), dtype).transpose(1, 2)
         v = randn(gen, (B, Sk, Hkv, D), dtype).transpose(1, 2)
@@ -538,46 +597,44 @@ def check_flash_bwd(gen) -> dict:
         errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
         ok = lse_err <= 1e-4 and all(
             torch.allclose(g.float(), w.float(), atol=tol, rtol=tol) for g, w in zip(grads, want))
+        scaled = ""
+        if what not in (None, "main"):  # also against each gradient's largest entry
+            tops = [w.float().abs().max().item() for w in want]
+            ok = ok and all(e <= FLASH_BF16_SCALED * t for e, t in zip(errs, tops))
+            scaled = (", of max|g| " + " ".join(f"{e / t:.3g}" for e, t in zip(errs, tops))
+                      + f" (tol {FLASH_BF16_SCALED:.4g})")
         log(f"  flash_attention_bwd B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} "
             f"{str(dtype)[6:]} {kw or 'causal'}: lse err={lse_err:.3g} (tol 1e-4), "
-            f"max_abs_err dq={errs[0]:.3g} dk={errs[1]:.3g} dv={errs[2]:.3g} (tol {tol}) "
+            f"max_abs_err dq={errs[0]:.3g} dk={errs[1]:.3g} dv={errs[2]:.3g} (tol {tol}){scaled} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {errs}")
-        if main is None:
-            main = dict(args=(q, k, v, out, lse, dout), err=max(errs), dtype=dtype)
+        if what is not None:
+            timed[what] = (dict(args=(q, k, v, out, lse, dout), err=max(errs)), kw)
+        del q, k, v, dout, out, lse, grads, want
 
-    q, k, v, out, lse, dout = main["args"]
-    B, Hq, S, D = q.shape
-    again = flash_attention_bwd(q, k, v, out, lse, dout)
+    at = {what: time_flash_bwd(case["args"], what, case["err"], library="softcap" not in kw, **kw)
+          for what, (case, kw) in timed.items() if what != "main"}
+    args = timed["main"][0]["args"]
+    again = flash_attention_bwd(*args)
     sync()
-    if not all(torch.equal(a, b) for a, b in zip(again, flash_attention_bwd(*main["args"]))):
+    if not all(torch.equal(a, b) for a, b in zip(again, flash_attention_bwd(*args))):
         raise AssertionError("flash_attention_bwd: two calls on the same inputs differ")
     log("  flash_attention_bwd at the training shape: two calls give bit-identical dq, dk, dv")
-    ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout))
-    plain_ms = time_ms(lambda: ref.mha_backward_reference(q, k, v, out, lse, dout), reps=5)
-    split = launch_split(lambda: flash_attention_bwd(*main["args"]), "flash_attention_bwd")
+    split = launch_split(lambda: flash_attention_bwd(*args), "flash_attention_bwd")
     log("  flash_attention_bwd at the training shape, device ms per call by launch "
         "(torch.profiler over 5 back-to-back calls): "
         + ", ".join(f"{name} {t:.4f}" for name, t in split.items()))
-    library_ms, backend = sdpa_backward_ms(q, k, v, dout)
-    pairs = B * Hq * S * (S + 1) // 2  # causal (q, k) pairs this input needs
-    flops = 10.0 * D * pairs  # q.k, dO.v, P^T dO, dS K, dS^T Q: 2 flops per multiply-add each
-    # q, k, v, o, dO and the LSE read once; dq, dk, dv written once
-    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel() + dout.numel()) \
-        * q.element_size() + lse.numel() * 4
-    bound_ms, bound_by = bound(nbytes, flops, main["dtype"])
-    log(f"  flash_attention_bwd at the training shape (B={B}, Hq={Hq}, Hkv={k.shape[1]}, S={S}, "
-        f"D={D}, bf16, causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"(scaled_dot_product_attention backward, {backend} backend) {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms "
-        f"by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    main = time_flash_bwd(args, "gemma-2b's training shape", timed["main"][0]["err"],
+                          every_backend=True)
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                replaces="src/repro/kernels/flash_attention.py:40",
-                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, library_backend=backend,
-                ms_by_launch=split)
+                replaces="src/repro/kernels/flash_attention.py:40", **main, ms_by_launch=split,
+                at_whisper_encoder=at["whisper's encoder"],
+                at_whisper_cross=at["whisper's cross-attention"],
+                at_whisper_decoder_self=at["whisper's decoder self-attention"],
+                at_internvl2_train=at["internvl2's training"],
+                at_grok_train=at["grok-1's training"])
 
 
 def launch_split(fn, what: str, calls: int = 5) -> dict:
@@ -603,17 +660,19 @@ def launch_split(fn, what: str, calls: int = 5) -> dict:
     return split
 
 
-def sdpa_backward_ms(q, k, v, dout) -> tuple:
+def sdpa_backward_ms(q, k, v, dout, what: str, causal: bool = True,
+                     every_backend: bool = True) -> tuple:
     """The yardstick: SDPA's backward through autograd (timed only: the port
-    never calls it) under each backend alone, and as PyTorch dispatches it by
-    default.  Returns (ms, backend): the flash backend's time or, where flash
-    refuses the shape, that of the first backend that takes it."""
+    never calls it).  With ``every_backend``, under each backend alone and as
+    PyTorch dispatches it by default; else the backends in order until one
+    takes the shape.  Returns (ms, backend): the flash backend's time or,
+    where flash refuses the shape, that of the first backend that takes it."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     def forward(backend):
         leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
         with sdpa_kernel(backend) if backend is not None else contextlib.nullcontext():
-            return leaves, F.scaled_dot_product_attention(*leaves, is_causal=True,
+            return leaves, F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                                           enable_gqa=True)
 
     def grad_ms(leaves, out):
@@ -632,13 +691,15 @@ def sdpa_backward_ms(q, k, v, dout) -> tuple:
                 continue
         times[backend.name] = grad_ms(leaves, out)
         del leaves, out
-    default = grad_ms(*forward(None))
-    log("  scaled_dot_product_attention backward at the training shape, by backend: "
+        if not every_backend:
+            break
+    default = f"; default dispatch {grad_ms(*forward(None)):.4f} ms" if every_backend else ""
+    log(f"  scaled_dot_product_attention backward at {what}, by backend: "
         + ", ".join(f"{n} {t:.4f} ms" if isinstance(t, float) else f"{n} {t}"
-                    for n, t in times.items()) + f"; default dispatch {default:.4f} ms")
+                    for n, t in times.items()) + default)
     served = next(((n, t) for n, t in times.items() if isinstance(t, float)), None)
     if served is None:
-        raise AssertionError("no scaled_dot_product_attention backend takes the training shape")
+        raise AssertionError(f"no scaled_dot_product_attention backend takes {what}")
     return served[1], served[0]
 
 
@@ -646,7 +707,10 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
 
+    from repro_torch import configs
+
     rows_main = TRAIN_BATCH * TRAIN_SEQ
+    vlm_rows = TRAIN_BATCH * (configs.get_config(VLM_ARCH).vision_tokens + TRAIN_SEQ)
     cases = [  # (rows, d, dtype, option)
         (rows_main, d_model, torch.bfloat16, None),  # gemma-2b training
         (rows_main, d_model, torch.float32, None),
@@ -659,8 +723,15 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
         (9, 16384, torch.float32, None),
         (300, d_model, torch.bfloat16, "unaligned x"),  # x 2 bytes past 16: scalar loads
         (300, d_model, torch.float32, "broadcast g"),  # autograd's gradient of a sum
+        # the new training paths: teams of 32, 64 (56 threads live), 128 and 512
+        (rows_main, 7168, torch.bfloat16, "train"),  # deepseek-v3: ln1, ln2, final
+        (rows_main, 1536, torch.bfloat16, "train"),  # its q_norm
+        (rows_main, 512, torch.bfloat16, "train"),  # its kv_norm
+        (rows_main, 6144, torch.bfloat16, "train"),  # grok-1
+        (vlm_rows, 896, torch.bfloat16, "train"),  # internvl2: 256 patches + 1024 tokens
     ]
     main = determinism_args = None
+    widths = {}  # the new training paths' widths
     for rows, d, dtype, option in cases:
         x, g = randn(gen, (rows, d), dtype), randn(gen, (rows, d), dtype)
         s = randn(gen, (d,), dtype)
@@ -678,7 +749,8 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
         ok = (dx.dtype == ds.dtype == dtype
               and torch.allclose(dx.float(), want_dx.float(), atol=tol, rtol=tol)
               and torch.allclose(ds.float(), want_ds.float(), atol=tol * ds_scale, rtol=tol))
-        log(f"  rmsnorm_bwd rows={rows} d={d} {str(dtype)[6:]}{', ' + option if option else ''}: "
+        log(f"  rmsnorm_bwd rows={rows} d={d} {str(dtype)[6:]}"
+            f"{', ' + option if option and option != 'train' else ''}: "
             f"max_abs_err dx={err:.3g} "
             f"(tol {tol}), dscale={ds_err:.3g} (tol {tol} x max|dscale| {ds_scale:.3g}) "
             f"{'ok' if ok else 'FAIL'}")
@@ -688,6 +760,25 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
             main = dict(args=(x, s, g), err=err, dtype=dtype)
         if (rows, d) == (333, 3584):
             determinism_args = (x, s, g)
+        if option == "train":
+            widths[d] = dict(args=(x, s, g), err=err)
+
+    by_width = {}
+    for d, case in sorted(widths.items()):
+        x, s, g = case["args"]
+        xl, sl = x.detach().requires_grad_(), s.detach().requires_grad_()
+        y = F.rms_norm(xl, (d,), weight=sl, eps=1e-6)
+        nbytes = 3 * x.numel() * x.element_size() + 2 * s.numel() * s.element_size()
+        t_bound, t_by = bound(nbytes, 11.0 * x.numel(), x.dtype)
+        by_width[d] = dict(rows=x.shape[0], ms=time_ms(lambda: rmsnorm_bwd(x, s, g)),
+                           library_ms=time_ms(lambda: torch.autograd.grad(
+                               y, (xl, sl), g, retain_graph=True)),
+                           bound_ms=t_bound, bound_by=t_by, max_abs_err=case["err"])
+        del xl, sl, y
+    log("  rmsnorm_bwd at the MoE and VLM training paths' widths (bf16): " + "; ".join(
+        f"d={d} ({t['rows']} rows) kernel {t['ms']:.4f} ms, library (rms_norm backward) "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}"
+        for d, t in by_width.items()))
 
     for args in (main["args"], determinism_args):
         first, second = rmsnorm_bwd(*args), rmsnorm_bwd(*args)
@@ -716,7 +807,7 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
                 source="src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                 replaces="src/repro/kernels/rmsnorm.py:17",
                 max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, copy_ms=copy_ms)
+                bound_by=bound_by, library_ms=library_ms, copy_ms=copy_ms, by_width=by_width)
 
 
 def wkv6_grads_err(got, want, r) -> tuple:
@@ -849,7 +940,64 @@ def moe_reference_config(cfg):
     """deepseek-v3 at full width for the card-vs-CPU check: fp32 MoE at 256
     experts is ~46 GB a side, so 2 layers (``first_dense`` 1: one dense, one
     MoE layer) and 16 experts, top-8 kept."""
-    return cfg.replace(moe=dataclasses.replace(cfg.moe, first_dense=1, num_experts=16))
+    return cfg.replace(num_layers=2,
+                       moe=dataclasses.replace(cfg.moe, first_dense=1, num_experts=16))
+
+
+def moe_train_config(cfg):
+    """The MoE models cut for training on one card, whose state takes 12
+    bytes a parameter (bf16 parameters and gradients, fp32 m and v), and for
+    their fp32 train reference: deepseek-v3 as its reference above (3.37 B
+    parameters, 40.5 GB of state); grok-1 to 1 layer and 4 of its 8
+    experts, top-2 kept (3.31 B, 39.7 GB)."""
+    if cfg.attn_kind == "mla":
+        return moe_reference_config(cfg)
+    return cfg.replace(num_layers=1, moe=dataclasses.replace(cfg.moe, num_experts=4))
+
+
+def moe_cut(cfg) -> str:
+    from repro_torch import configs
+
+    full = configs.get_config(cfg.name)
+    return (f"cut to {cfg.num_layers} of {full.num_layers} layers"
+            + (f" (first_dense {cfg.moe.first_dense})" if cfg.moe.first_dense else "")
+            + f" and {cfg.moe.num_experts} of {full.moe.num_experts} experts "
+              f"(top-{cfg.moe.top_k} kept)")
+
+
+@contextlib.contextmanager
+def routing_recorded(calls: list):
+    """While open, appends (expert_idx, dropped) of every MoE routing call to
+    ``calls``, on the CPU: the picks and those past their expert's capacity."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def recorded(mod, xt, cfg_, capacity=None):
+        r = route(mod, xt, cfg_, capacity)
+        calls.append((r.expert_idx.detach().cpu(), (r.slot == r.dispatch.numel()).cpu()))
+        return r
+
+    moe.route = recorded
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def log_routing(routed: dict) -> None:
+    """The routing decisions and capacity drops that differ between the
+    card's and the CPU's recorded calls."""
+    if [t.shape for t, _ in routed["cpu"]] != [t.shape for t, _ in routed["card"]]:
+        raise AssertionError("the card and the CPU routed different numbers of tokens")
+    pairs = list(zip(routed["cpu"], routed["card"]))
+    differ = sum(int((a != b).sum()) for (a, _), (b, _) in pairs)
+    drop_differ = sum(int((a != b).sum()) for (_, a), (_, b) in pairs)
+    total = sum(t.numel() for t, _ in routed["cpu"])
+    drops = [sum(int(d.sum()) for _, d in routed[n]) for n in ("card", "cpu")]
+    log(f"  routing decisions (token, k) of {len(routed['cpu'])} MoE calls that differ "
+        f"between card and CPU: {differ} of {total}; picks dropped at capacity: card "
+        f"{drops[0]}, CPU {drops[1]}, {drop_differ} of them differ")
 
 
 def hybrid_reference_config(cfg):
@@ -858,6 +1006,16 @@ def hybrid_reference_config(cfg):
     router chooses and capacity can drop picks; 13.3 B fp32 parameters,
     53.2 GB a side."""
     return cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=3))
+
+
+def release_host_memory() -> None:
+    """Hands the host memory that the CPU side freed back to the system:
+    glibc keeps freed chunks in its arenas, so without this most of an fp32
+    MoE reference's tens of GB stay out of MemAvailable, which the next
+    reference's memory check reads."""
+    import ctypes
+
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
 def host_available_bytes() -> int:
@@ -874,7 +1032,7 @@ def check_reference(cfg, cut: str = "2-layer", full_depth: bool = False) -> None
     on the CPU.  The weights are drawn on the card and copied to the CPU
     (drawing ~10 B fp32 values on the host is slow), after a check that the
     host can hold them."""
-    from repro_torch.models import get_api, modality_inputs, moe
+    from repro_torch.models import get_api, modality_inputs
     from repro_torch.models.registry import model_class
     from repro_torch.serve.engine import ServeEngine
 
@@ -899,27 +1057,16 @@ def check_reference(cfg, cut: str = "2-layer", full_depth: bool = False) -> None
     extra = modality_inputs(small, rng, 2)
     tol = 1e-3  # fp32 on both sides; sums over d=2048..18432 taken in another order on the card
     logits, routed = {}, {"cpu": [], "card": []}
-    route = moe.route
-
-    def recorded_route(mod, xt, cfg_, capacity=None):  # the routing of every MoE call
-        r = route(mod, xt, cfg_, capacity)
-        dropped = r.slot == r.dispatch.numel()  # picks past their expert's capacity
-        routed[name].append((r.expert_idx.cpu(), dropped.cpu()))
-        return r
-
-    moe.route = recorded_route
-    try:
-        with torch.inference_mode():
-            for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
-                toks = torch.from_numpy(tokens).to(api.device)
-                inputs = {k: torch.from_numpy(v).to(api.device) for k, v in extra.items()}
+    with torch.inference_mode():
+        for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
+            toks = torch.from_numpy(tokens).to(api.device)
+            inputs = {k: torch.from_numpy(v).to(api.device) for k, v in extra.items()}
+            with routing_recorded(routed[name]):
                 full, _ = model(toks, mode="train", **inputs)  # the path's kernels on the card
                 _, cache = api.prefill(model, {"tokens": toks[:, :127], **inputs},
                                        api.init_cache(2, 128), last_only=True)
                 step, _ = api.decode(model, toks[:, 127:], cache)
-                logits[name] = (full.cpu(), step.cpu())
-    finally:
-        moe.route = route
+            logits[name] = (full.cpu(), step.cpu())
     for i, what in enumerate(("full-sequence", "decode-step")):
         err = (logits["card"][i] - logits["cpu"][i]).abs().max().item()
         log(f"  {cfg.name} {cut} full-width fp32 {what} logits, card vs CPU: "
@@ -927,16 +1074,7 @@ def check_reference(cfg, cut: str = "2-layer", full_depth: bool = False) -> None
         if not err <= tol:
             raise AssertionError(f"{what} logits on the card disagree with the CPU: {err}")
     if small.moe is not None:
-        if [t.shape for t, _ in routed["cpu"]] != [t.shape for t, _ in routed["card"]]:
-            raise AssertionError("the card and the CPU routed different numbers of tokens")
-        pairs = list(zip(routed["cpu"], routed["card"]))
-        differ = sum(int((a != b).sum()) for (a, _), (b, _) in pairs)
-        drop_differ = sum(int((a != b).sum()) for (_, a), (_, b) in pairs)
-        total = sum(t.numel() for t, _ in routed["cpu"])
-        drops = [sum(int(d.sum()) for _, d in routed[n]) for n in ("card", "cpu")]
-        log(f"  routing decisions (token, k) of {len(routed['cpu'])} MoE calls that differ "
-            f"between card and CPU: {differ} of {total}; picks dropped at capacity: card "
-            f"{drops[0]}, CPU {drops[1]}, {drop_differ} of them differ")
+        log_routing(routed)
     out = {}
     for name, api, model in (("cpu", cpu_api, cpu_model), ("card", gpu_api, gpu_model)):
         out[name] = ServeEngine(api, model, batch=2, s_max=140).generate(
@@ -948,6 +1086,7 @@ def check_reference(cfg, cut: str = "2-layer", full_depth: bool = False) -> None
 
 
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+TRAIN_REF_SEQ = 256  # tokens of the fp32 train reference's one row
 TRAIN_FAMILIES = (  # (family, substrings of kernel names), first match wins
     ("wkv6 backward", ("wkv6_bwd",)),
     ("wkv6 forward", ("wkv6_",)),
@@ -960,62 +1099,104 @@ TRAIN_FAMILIES = (  # (family, substrings of kernel names), first match wins
 )
 
 
-def check_train_reference(cfg) -> None:
-    """One AdamW step of a full-width, 2-layer fp32 model on the card
-    (forward and backward kernels) against the same step on the CPU (plain
-    versions): the loss, every parameter's gradient, and the update where
-    |g| > 1e-3 max|g| of its leaf (AdamW's first step is close to
-    lr sign(g), so an entry near zero that rounds differently flips a whole
-    update)."""
+def check_train_reference(cfg, cut: str) -> None:
+    """One AdamW step of ``cfg`` (full width, cut in depth or experts by the
+    caller) in fp32 on the card (forward and backward kernels) against the
+    same step on the CPU (plain versions), on one synthetic batch of 1 x
+    TRAIN_REF_SEQ tokens (with whisper's frames or the VLM's patches): the
+    loss, every parameter's gradient, and the update where |g| > 1e-3 max|g|
+    of its leaf (AdamW's first step is close to lr sign(g), so an entry near
+    zero that rounds differently flips a whole update); for the MoE models
+    the routing decisions that differ.  The weights are drawn on the card and
+    copied to the CPU.  The CPU steps first (its parameters, gradients and
+    moments: 16 bytes a parameter on the host), keeps its gradients and
+    update and a copy of the weights; then the card steps (16 bytes a
+    parameter there) and is compared leaf by leaf.  Raises if either side
+    lacks the memory."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
     from repro_torch.kernels.wkv6 import wkv6_bwd
     from repro_torch.models import get_api
+    from repro_torch.models.registry import model_class
     from repro_torch.train.data import DataConfig, SyntheticData
     from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
     from repro_torch.train.trainstep import _accum_grads, batch_to_torch
 
+    t0 = time.perf_counter()
     counters = {"flash_attention_bwd": flash_attention_bwd, "rmsnorm_bwd": rmsnorm_bwd,
                 "wkv6_bwd": wkv6_bwd}
-    small = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
-    cpu_api, gpu_api = get_api(small, device="cpu"), get_api(small, device=DEVICE)
-    models = {"cpu": cpu_api.init(seed=1), "card": gpu_api.init(seed=1)}
-    models["card"].load_state_dict(models["cpu"].state_dict())
-    batch = SyntheticData(DataConfig(vocab_size=small.vocab_size, batch=1, seq=256)).batch_at(0)
+    small = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    cls = model_class(small)
+    n = sum(p.numel() for p in cls(small, torch.device("meta")).parameters())
+    need, free, card_free = 16 * n, host_available_bytes(), torch.cuda.mem_get_info()[0]
+    log(f"  {cfg.name} {cut} fp32 train step: {n / 1e9:.3f} B parameters, {need / 1e9:.2f} GB "
+        f"of parameters, gradients and AdamW moments a side; host memory available "
+        f"{free / 1e9:.1f} GB, card {card_free / 1e9:.1f} GB")
+    if free < 1.25 * need or card_free < 1.1 * need:
+        raise RuntimeError(f"the step needs {need / 1e9:.2f} GB a side and more for its "
+                           f"activations and the update's temporaries; the host has "
+                           f"{free / 1e9:.1f} GB available, the card {card_free / 1e9:.1f} GB")
+    gpu_model = get_api(small, device=DEVICE).init(seed=1)
+    cpu_model = cls(small, torch.device("cpu"))
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    batch = SyntheticData(DataConfig(vocab_size=small.vocab_size, batch=1, seq=TRAIN_REF_SEQ),
+                          model_cfg=small).batch_at(0)
     opt = OptConfig(**TRAIN_OPT)
-    res = {}
-    for name, api in (("cpu", cpu_api), ("card", gpu_api)):
-        model = models[name]
-        before = {n: p.detach().clone() for n, p in model.named_parameters()}
-        launched = {k: f.launches for k, f in counters.items()}
-        loss, grads = _accum_grads(model, batch_to_torch(batch, api.device), 1)
-        launched = {k: f.launches - launched[k] for k, f in counters.items()}
-        adamw_update(model, grads, adamw_init(model), opt)
-        res[name] = dict(loss=loss.item(), grads={n: g.cpu() for n, g in grads.items()},
-                         delta={n: (p.detach() - before[n]).cpu()
-                                for n, p in model.named_parameters()})
-        del before, grads
+    routed = {"cpu": [], "card": []}
+
+    def step(name, model, device):
+        with routing_recorded(routed[name]):
+            loss, grads = _accum_grads(model, batch_to_torch(batch, device), 1)
+        state = adamw_init(model)
+        adamw_update(model, grads, state, opt)
+        return loss.item(), grads
+
+    t1 = time.perf_counter()
+    loss_cpu, g_cpu = step("cpu", cpu_model, "cpu")
+    card = dict(gpu_model.named_parameters())
+    before = {m: p.detach().to("cpu", copy=True) for m, p in card.items()}
+    d_cpu = {m: p.detach() - before[m] for m, p in cpu_model.named_parameters()}
+    del cpu_model
+    t2 = time.perf_counter()
+    launched = {k: f.launches for k, f in counters.items()}
+    loss_card, g_card = step("card", gpu_model, DEVICE)
+    sync()
+    launched = {k: f.launches - launched[k] for k, f in counters.items()}
+    t3 = time.perf_counter()
+
+    # compared on the card, a leaf at a time: the CPU's sides are copied over
     tol = 1e-3  # fp32 on both sides; sums over d_ff, the vocab and S taken in another order
-    loss_err = abs(res["card"]["loss"] - res["cpu"]["loss"])
-    g_err, d_err = 0.0, 0.0
-    for n, g in res["cpu"]["grads"].items():
+    loss_err, g_err, d_err, zero = abs(loss_card - loss_cpu), 0.0, 0.0, []
+    for m, p in card.items():
+        g, gc = g_cpu[m].to(DEVICE), g_card[m]
         scale = g.abs().max().item()
-        g_err = max(g_err, (res["card"]["grads"][n] - g).abs().max().item() / scale)
+        if scale == 0.0:  # a leaf this batch does not reach: zero on both sides
+            zero.append(m)
+            g_err = max(g_err, float("inf") if gc.any() else 0.0)
+            continue
+        g_err = max(g_err, (gc - g).abs().max().item() / scale)
         big = g.abs() > 1e-3 * scale
-        d_diff = res["card"]["delta"][n] - res["cpu"]["delta"][n]
+        d_diff = (p.detach() - before[m].to(DEVICE)) - d_cpu[m].to(DEVICE)
         d_err = max(d_err, d_diff[big].abs().max().item())
+    del g_card, before, d_cpu, g_cpu, g, gc
     lr0 = float(TRAIN_OPT["lr"]) / TRAIN_OPT["warmup_steps"]
-    log(f"  {cfg.name} 2-layer full-width fp32 train step (B=1, S=256), card vs CPU: loss "
-        f"{res['card']['loss']:.6f} / {res['cpu']['loss']:.6f} (err {loss_err:.3g}, tol {tol}); "
-        f"gradients max_abs_err / max|g| over {len(res['cpu']['grads'])} leaves {g_err:.3g} "
-        f"(tol {tol}); update max_abs_err where |g| > 1e-3 max|g| {d_err:.3g} "
-        f"(tol {1e-2 * lr0:.3g}, 1e-2 x lr)")
+    extra = {"audio": f" and {small.encoder_seq} frames", "vlm": f" after {small.vision_tokens} "
+             "patches"}.get(small.family, "")
+    log(f"  {cfg.name} {cut} full-width fp32 train step (B=1, S={TRAIN_REF_SEQ}{extra}), card "
+        f"vs CPU: loss {loss_card:.6f} / {loss_cpu:.6f} (err {loss_err:.3g}, tol {tol}); "
+        f"gradients max_abs_err / max|g| over {len(card)} leaves {g_err:.3g} (tol {tol})"
+        f"{f', {len(zero)} leaves with zero gradient on both sides' if zero else ''}; update "
+        f"max_abs_err where |g| > 1e-3 max|g| {d_err:.3g} (tol {1e-2 * lr0:.3g}, 1e-2 x lr)")
     log(f"  backward kernel launches in the card's step: {launched}")
-    if not (loss_err <= tol * abs(res["cpu"]["loss"]) and g_err <= tol and d_err <= 1e-2 * lr0):
+    if small.moe is not None:
+        log_routing(routed)
+    if not (loss_err <= tol * abs(loss_cpu) and g_err <= tol and d_err <= 1e-2 * lr0):
         raise AssertionError("the train step on the card disagrees with the CPU")
     if not any(launched.values()):
         raise AssertionError("the train step on the card launched no backward kernel")
-
+    log(f"  {cfg.name} train reference: {time.perf_counter() - t0:.1f} s (set-up "
+        f"{t1 - t0:.1f}, the CPU's step {t2 - t1:.1f}, the card's {t3 - t2:.1f}, the "
+        f"comparison {time.perf_counter() - t3:.1f})")
 
 
 # ---------------------------------------------------------------------------
@@ -1027,12 +1208,17 @@ def expected_launches(cfg, path: str = "serve") -> dict:
     prefill, then one decode step per further token); for "train", one
     train step (one forward and one backward pass)."""
     L = cfg.num_layers
-    if path == "train":
+    if path == "train":  # each forward kernel's backward runs once per forward launch
         if cfg.family == "ssm":  # rwkv: one WKV6 per layer each way; LayerNorm is plain torch
-            return {"flash_attention": 0, "flash_attention_bwd": 0, "rmsnorm": 0,
-                    "rmsnorm_bwd": 0, "wkv6": L, "wkv6_step": 0, "wkv6_bwd": L}
-        return {"flash_attention": L, "flash_attention_bwd": L, "rmsnorm": 2 * L + 1,
-                "rmsnorm_bwd": 2 * L + 1, "wkv6": 0, "wkv6_step": 0, "wkv6_bwd": 0}
+            flash, norm, wkv = 0, 0, L
+        elif cfg.family == "audio":  # the encoder, each decoder layer's self- and
+            flash, norm, wkv = cfg.encoder_layers + 2 * L, 0, 0  # cross-attention; LayerNorm
+        elif cfg.attn_kind == "mla":  # attention plain torch; q_norm and kv_norm beside ln1, ln2
+            flash, norm, wkv = 0, 4 * L + 1, 0
+        else:  # dense, MoE with GQA, the VLM's LM
+            flash, norm, wkv = L, 2 * L + 1, 0
+        return {"flash_attention": flash, "flash_attention_bwd": flash, "rmsnorm": norm,
+                "rmsnorm_bwd": norm, "wkv6": wkv, "wkv6_step": 0, "wkv6_bwd": wkv}
     passes = 1 + (MAX_NEW - 1)
     if cfg.family == "audio":  # flash: the encoder, then each decoder layer's self- and
         # cross-attention in prefill, and its cross-attention at every decode step
@@ -1276,9 +1462,12 @@ def bf16_absorbs(p: torch.Tensor, bound: float) -> bool:
     return bool((bound < 0.5 * torch.exp2(torch.floor(torch.log2(a)) - 8)).all())
 
 
-def train(cfg) -> dict:
-    """TRAIN_STEPS AdamW steps of the full model in bf16 through train_step;
-    returns the kernels' launches in those steps."""
+def train(cfg, cut: str = "") -> dict:
+    """TRAIN_STEPS AdamW steps of the model in bf16 through train_step, with
+    finite losses and a loss on the last step's batch that falls by that
+    step; then
+    two gradient passes from one state on one batch, compared bit for bit;
+    returns the kernels' launches in the counted steps."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
@@ -1295,12 +1484,17 @@ def train(cfg) -> dict:
     model = state["model"]
     sync()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"  {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params in "
-        f"{str(cfg.pdtype)[6:]}, fp32 AdamW moments, initialised in "
-        f"{time.perf_counter() - t0:.1f} s; params and moments take "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                                    mode="affine"))
+    seq = TRAIN_TEXT.get(cfg.name, TRAIN_SEQ)
+    inputs = {"audio": f" and {cfg.encoder_seq} frames",
+              "vlm": f" after {cfg.vision_tokens} patches"}.get(cfg.family, "")
+    log(f"  {cfg.name}{' ' + cut if cut else ''}: {cfg.num_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, "
+        f"{n_params / 1e9:.3f} B params in {str(cfg.pdtype)[6:]}, fp32 AdamW moments, "
+        f"initialised in {time.perf_counter() - t0:.1f} s; params and moments take "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; batch {TRAIN_BATCH} x {seq} "
+        f"tokens{inputs}")
+    data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq=seq,
+                                    mode="affine"), model_cfg=cfg)
     opt, hp = OptConfig(**TRAIN_OPT), TrainHparams(grad_accum=1)
     batches = [batch_to_torch(data.batch_at(i), DEVICE) for i in range(TRAIN_STEPS + 2)]
 
@@ -1347,16 +1541,23 @@ def train(cfg) -> dict:
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
     expect = expected_launches(cfg, "train")
     med = statistics.median(step_ms[1:])
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / med * 1e3
+    tok_s = TRAIN_BATCH * seq / med * 1e3  # the text tokens the loss reads
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  losses {[round(x, 4) for x in losses]}")
     log(f"  step {med:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}; step 0 {step_ms[0]:.1f} ms), "
         f"{tok_s:.0f} tok/s, peak device memory {peak:.2f} GiB")
     log(f"  launches per step: {per_step}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"a loss is not finite: {losses}")
+    # the affine data's batches share almost no token (each row walks a
+    # cycle of the rule from a new start), so 6 steps lower no other batch's
+    # loss; the descent shows on the batch a step was computed from
+    with torch.no_grad():
+        again = api.loss(model, batches[TRAIN_STEPS - 1]).item()
+    log(f"  loss on the last step's batch: {losses[-1]:.4f} in the step, {again:.4f} after it")
+    if not (all(np.isfinite(losses)) and again < losses[-1]):
+        raise AssertionError(f"the losses are not finite or do not fall: {losses}, then {again}")
     if per_step != expect:
         raise AssertionError(f"kernel launches per step {per_step} != {expect} implied by the path")
+    check_repeatable_grads(model, batches[TRAIN_STEPS], hp)
     profile_train_step(model, state["opt"], batches[TRAIN_STEPS], opt, hp, med)
 
     # one more step, split by CUDA events (outside the counted run): what
@@ -1373,6 +1574,38 @@ def train(cfg) -> dict:
     log(f"  one step split by CUDA events: loss and gradients {fwd_bwd:.1f} ms, AdamW update "
         f"{update:.1f} ms ({update / (fwd_bwd + update):.3f} of the step)")
     return launches
+
+
+def check_repeatable_grads(model, batch, hp) -> None:
+    """Two gradient passes from the model's current state on one batch,
+    compared bit for bit (outside the counted run).  Where they differ, a
+    third pass under ``torch.use_deterministic_algorithms(warn_only=True)``
+    lists the ops PyTorch names as nondeterministic.  A difference is a
+    finding, printed, not a failure."""
+    from repro_torch.train.trainstep import _accum_grads
+
+    first = _accum_grads(model, batch, hp.grad_accum)[1]
+    second = _accum_grads(model, batch, hp.grad_accum)[1]
+    differ = [n for n, g in first.items() if not torch.equal(g, second[n])]
+    if not differ:
+        log(f"  two gradient passes from one state on one batch: all {len(first)} gradients "
+            f"bit-identical")
+        return
+    worst = max((first[n].float() - second[n].float()).abs().max().item()
+                / max(first[n].float().abs().max().item(), 1e-30) for n in differ)
+    del first, second
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            _accum_grads(model, batch, hp.grad_accum)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" (Triggered internally")[0][:160] for w in caught
+                      if "determinis" in str(w.message)})
+    log(f"  two gradient passes from one state on one batch: {len(differ)} gradients differ "
+        f"(largest difference {worst:.3g} of the leaf's max|g|): {differ[:8]}; ops PyTorch "
+        f"flags as nondeterministic in a third pass: {flagged or 'none'}")
 
 
 def profile_train_step(model, opt_state, batch, opt, hp, step_ms: float) -> None:
@@ -1680,23 +1913,26 @@ def main() -> int:
         k["launch_floor_ms"] = floor_ms
     torch.cuda.empty_cache()
     log("reference:")
-    for cfg in (gemma, rwkv):
-        check_reference(cfg)
+    for cfg, cut, full_depth in (
+            (gemma, "2-layer", False), (rwkv, "2-layer", False),
+            (moe_reference_config(deepseek),
+             "cut to 2 layers (first_dense 1) and 16 experts (top-8 kept),", False),
+            (hybrid_reference_config(jamba),
+             "cut to one unit (8 layers) and 3 experts (top-2 kept),", False),
+            (whisper, "at full depth (12 encoder + 12 decoder layers, 1500 frames),", True),
+            (internvl2, "at full depth (24 layers, 256 patches),", True)):
+        check_reference(cfg, cut, full_depth)
         torch.cuda.empty_cache()
-    check_reference(moe_reference_config(deepseek),
-                    "cut to 2 layers (first_dense 1) and 16 experts (top-8 kept),")
-    torch.cuda.empty_cache()
-    check_reference(hybrid_reference_config(jamba),
-                    "cut to one unit (8 layers) and 3 experts (top-2 kept),")
-    torch.cuda.empty_cache()
-    check_reference(whisper, "at full depth (12 encoder + 12 decoder layers, 1500 frames),",
-                    full_depth=True)
-    torch.cuda.empty_cache()
-    check_reference(internvl2, "at full depth (24 layers, 256 patches),", full_depth=True)
-    torch.cuda.empty_cache()
-    for cfg in (gemma, rwkv):
-        check_train_reference(cfg)
+        release_host_memory()
+    deepseek_train, grok_train = (moe_train_config(configs.get_config(a)) for a in MOE_ARCHS)
+    for cfg, cut in ((gemma.replace(num_layers=2), "2-layer"),
+                     (rwkv.replace(num_layers=2), "2-layer"),
+                     (whisper, "at full depth (12 encoder + 12 decoder layers)"),
+                     (internvl2, "at full depth (24 layers)"),
+                     (deepseek_train, moe_cut(deepseek_train)), (grok_train, moe_cut(grok_train))):
+        check_train_reference(cfg, cut)
         torch.cuda.empty_cache()
+        release_host_memory()
     log("serve:")
     runs = {}
     for cfg in (gemma, rwkv, deepseek, grok, jamba, whisper, internvl2):
@@ -1705,9 +1941,13 @@ def main() -> int:
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
     log("train:")
-    for cfg in (gemma, rwkv):
+    trained = {}
+    for cfg, cut in ((gemma, ""), (rwkv, ""), (whisper, ""), (internvl2, ""),
+                     (deepseek_train, moe_cut(deepseek_train)), (grok_train, moe_cut(grok_train))):
         torch.cuda.empty_cache()
-        runs[f"train {cfg.name}"] = train(cfg)
+        path = f"train {cfg.name}" + (f" ({cfg.num_layers} layers, {cfg.moe.num_experts} experts)"
+                                      if cut else "")
+        trained[path] = train(cfg, cut)
     log("launcher:")
     torch.cuda.empty_cache()
     launched = launcher(rwkv)
@@ -1720,8 +1960,7 @@ def main() -> int:
                  runs[jamba.name],
              f"serve {whisper.name}": runs[whisper.name],
              f"serve {internvl2.name}": runs[internvl2.name],
-             f"train {gemma.name}": runs[f"train {gemma.name}"],
-             f"train {rwkv.name}": runs[f"train {rwkv.name}"], **launched}
+             **trained, **launched}
     driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",
                  "wkv6": f"serve {rwkv.name}", "wkv6_step": f"serve {rwkv.name}",
                  "flash_attention_bwd": f"train {gemma.name}",

@@ -20,11 +20,18 @@ Runs on the card unless ``--device`` says otherwise:
       --steps 6 --batch 4 --seq 1024 --lr 3e-4
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke \
       --device cpu --steps 4 --ckpt-dir /tmp/ckpt     # twice: the second resumes
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
+      --steps 6 --batch 4 --seq 448 --lr 3e-4
 
-The decoder-only families train: the dense ones (gemma-2b, olmo-1b,
-gemma2-9b, qwen2.5-14b) and rwkv6.  whisper-small and internvl2-1b serve
-but do not train yet (ROADMAP A.1) and raise ``NotImplementedError``.
-The distributed steps
+Every family trains with its own loss (``ModelAPI.loss``): the dense ones
+(gemma-2b, olmo-1b, gemma2-9b, qwen2.5-14b), rwkv6, the MoE ones
+(deepseek-v3-671b with MLA, grok-1-314b), whisper-small on ``frames`` of
+``encoder_seq`` frames (``--seq`` at most its ``max_target_positions``, 448)
+and internvl2-1b on ``patches`` before ``--seq`` tokens; the synthetic data
+draws the frames and patches.  jamba-1.5-large-398b does not train yet and
+raises ``NotImplementedError`` (ROADMAP B.10).  At full width one card
+holds whisper-small and internvl2-1b whole; the MoE models only cut
+(``chip_smoke.py`` cuts them).  The distributed steps
 (``--hierarchical``, ``--compress``, ``--zero1``) wait for ROADMAP A.7.
 """
 from __future__ import annotations

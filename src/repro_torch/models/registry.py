@@ -1,7 +1,8 @@
 """Architecture registry (PyTorch twin of ``repro.models.registry``).
 
 The reduced smoke variants of the 10 architectures, and a uniform
-:class:`ModelAPI` (init / prefill / decode / init_cache) for every family:
+:class:`ModelAPI` (init / loss / prefill / decode / init_cache) for every
+family:
 the decoder-only ones (dense GQA/MQA, MoE with GQA or MLA, rwkv, and
 jamba's hybrid of GQA and Mamba layers), whisper's encoder-decoder
 (``audio``: prefill reads ``batch["frames"]``) and internvl2's VLM
@@ -80,6 +81,7 @@ class ModelAPI:
     cfg: ModelConfig
     device: torch.device
     init: Callable  # (seed) -> model with random weights
+    loss: Callable  # (model, batch) -> scalar
     prefill: Callable  # (model, batch, cache, last_only) -> (logits, cache)
     decode: Callable  # (model, tokens, cache) -> (logits, cache)
     init_cache: Callable  # (batch, s_max) -> cache
@@ -93,6 +95,18 @@ def model_class(cfg: ModelConfig):
     if cfg.family == "vlm":
         return vlm.VLM
     return transformer.DecoderLM
+
+
+def loss_fn(cfg: ModelConfig) -> Callable:
+    """The training loss of ``cfg``'s family, ``(model, batch) -> scalar``:
+    ``whisper_loss`` (reads ``frames``), ``vlm_loss`` (reads ``patches``) or
+    ``lm_loss`` (with 0.01 x the MoE auxiliary loss), as JAX's
+    ``ModelAPI.loss``."""
+    if cfg.family == "audio":
+        return whisper.whisper_loss
+    if cfg.family == "vlm":
+        return vlm.vlm_loss
+    return transformer.lm_loss
 
 
 def get_api(cfg: ModelConfig, device="cuda") -> ModelAPI:
@@ -133,7 +147,7 @@ def get_api(cfg: ModelConfig, device="cuda") -> ModelAPI:
     def decode_step(model, tokens, cache):
         return model(tokens, cache=cache, mode="decode")
 
-    return ModelAPI(cfg, device, init, prefill, decode_step, make_cache)
+    return ModelAPI(cfg, device, init, loss_fn(cfg), prefill, decode_step, make_cache)
 
 
 def modality_inputs(cfg: ModelConfig, rng: np.random.Generator, batch: int) -> Dict[str, np.ndarray]:

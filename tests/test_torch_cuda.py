@@ -174,6 +174,12 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (1, 8, 2, 256, 256, 256, torch.bfloat16, {}),  # GQA 8/2
     (2, 4, 2, 200, 200, 16, torch.bfloat16, {}),
     (1, 4, 2, 200, 200, 64, torch.bfloat16, {}),
+    # the training paths of whisper-small, internvl2-1b and grok-1
+    (4, 12, 12, 1500, 1500, 64, torch.bfloat16, dict(causal=False)),  # whisper's encoder
+    (4, 12, 12, 448, 1500, 64, torch.bfloat16, dict(causal=False)),  # its cross-attention
+    (4, 12, 12, 448, 448, 64, torch.bfloat16, {}),  # its decoder self-attention
+    (4, 14, 2, 1280, 1280, 64, torch.bfloat16, {}),  # internvl2: 7 q heads a kv head
+    (4, 48, 8, 1024, 1024, 128, torch.bfloat16, dict(softcap=30.0)),  # grok-1: 6 a kv head
 ])
 def test_flash_backward_kernel_matches_plain(gen, B, Hq, Hkv, Sq, Sk, D, dtype, kw):
     """The forward's LSE against the plain one, then the backward kernel
@@ -250,6 +256,12 @@ def _rmsnorm_bwd_close(dx, ds, want_dx, want_ds, dtype):
     (4095, 2048, torch.bfloat16),  # a ragged last slice of rows
     (64, 16384, torch.bfloat16),  # the widest row: 32 elements a thread
     (9, 16384, torch.float32),
+    # the training paths of deepseek-v3 (7168, 1536, 512), grok-1 and internvl2
+    (4096, 7168, torch.bfloat16),
+    (4096, 1536, torch.bfloat16),
+    (4096, 512, torch.bfloat16),
+    (4096, 6144, torch.bfloat16),
+    (5120, 896, torch.bfloat16),
 ])
 def test_rmsnorm_backward_kernel_matches_plain(gen, rows, d, dtype):
     x, g = _randn(gen, (rows, d), dtype), _randn(gen, (rows, d), dtype)
@@ -670,3 +682,46 @@ def test_encoder_decoder_and_vlm_serve_on_the_card_as_on_the_cpu(gen, arch):
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"], atol=1e-4, rtol=1e-4)
     np.testing.assert_array_equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b", "deepseek-v3-671b",
+                                  "grok-1-314b"])
+def test_new_families_train_a_bf16_step_on_the_card(gen, arch):
+    """One bf16 ``train_step`` of the smoke config on the card against the
+    same step on the CPU (plain versions), the same weights and batch: the
+    loss within 2e-2 (bf16 activations, sums in another order), every
+    gradient and parameter finite, every parameter that the CPU's step moved
+    moved on the card too, and the backward kernels launched once per
+    forward launch."""
+    import numpy as np
+
+    from repro_torch.models import get_api, smoke_config
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainstep import batch_to_torch, make_train_state, train_step
+
+    cfg = smoke_config(arch).replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    batch = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=2, seq=32),
+                          model_cfg=cfg).batch_at(0)
+    states = {dev: make_train_state(get_api(cfg, device=dev), seed=0) for dev in ("cpu", "cuda")}
+    states["cuda"]["model"].load_state_dict(states["cpu"]["model"].state_dict())
+    before = {n: p.detach().clone() for n, p in states["cpu"]["model"].named_parameters()}
+    out, moved = {}, {}
+    for dev, state in states.items():
+        counts = (flash_attention.launches, flash_attention_bwd.launches, rmsnorm.launches,
+                  rmsnorm_bwd.launches)
+        metrics = train_step(state["model"], state["opt"], batch_to_torch(batch, dev),
+                             OptConfig(lr=1e-3, warmup_steps=1))
+        launched = [a - b for a, b in zip((flash_attention.launches, flash_attention_bwd.launches,
+                                           rmsnorm.launches, rmsnorm_bwd.launches), counts)]
+        out[dev] = metrics["loss"].item()
+        params = {n: p.detach().cpu() for n, p in state["model"].named_parameters()}
+        assert all(torch.isfinite(p.float()).all() for p in params.values())
+        moved[dev] = {n for n, p in params.items() if not torch.equal(p, before[n])}
+        if dev == "cpu":
+            assert launched == [0, 0, 0, 0]
+        else:
+            assert launched[0] == launched[1] and launched[2] == launched[3], launched
+            assert launched[1] + launched[3] > 0, launched
+    assert np.isfinite(out["cuda"]) and out["cuda"] == pytest.approx(out["cpu"], rel=2e-2)
+    assert moved["cpu"] <= moved["cuda"], sorted(moved["cpu"] - moved["cuda"])

@@ -336,10 +336,13 @@ def test_distributed_hparams_are_not_ported(flag):
 
 @pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
 def test_encoder_decoder_and_vlm_do_not_train_yet(arch):
-    """They serve; their losses are not wired to the train step (ROADMAP
-    A.1), so the step's state refuses them by name."""
-    with pytest.raises(NotImplementedError, match=f"{arch}.*A.1"):
-        make_train_state(get_api(smoke_config(arch), device="cpu"))
+    """They used to be refused here; now their losses (``whisper_loss``,
+    ``vlm_loss``) are wired to the step, so the step's state is built for
+    them, AdamW's moments beside every parameter (the step itself is held
+    against JAX in ``test_torch_train_families.py``)."""
+    state = make_train_state(get_api(smoke_config(arch), device="cpu"))
+    names = [n for n, _ in state["model"].named_parameters()]
+    assert names and list(state["opt"]["m"]) == names == list(state["opt"]["v"])
 
 
 def test_loss_decreases():
