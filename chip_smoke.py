@@ -92,13 +92,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and every parameter, moment and step must equal A's bit for bit; with
    the checkpoint's bytes on disk, the snapshot, write and restore times,
    the step time with and without a background write in flight, and the
-   WKV6 launches of each run.
+   WKV6 launches of each run;
+8. dist: the distributed train step over the data axes
+   (``train.trainstep.make_train_step``) over NCCL at world 1, mesh (pod 1,
+   data 1, model 1), where the int8 quantizer still runs: fp32 gemma-2b at
+   full width cut to 2 layers through the hierarchical step with ZeRO-1
+   and ``compress`` against the same step over gloo on the CPU (entries
+   that meet a tie of the quantizer are counted and held to a looser
+   bound), and the hierarchical step with ZeRO-1 against the
+   single-device ``train_step``; then full gemma-2b in bf16 for 6 steps
+   through the hierarchical step with ZeRO-1 and ``compress``: step ms
+   beside the train phase's single-device step, peak memory, collective
+   calls and bytes per mesh axis per step (held against the bytes the
+   leaves imply) and the kernels' launches per step; on a host of 2 or 4
+   cards, one rank a card on mesh (pod 2, data world / 2, model 1) against
+   the single-device step on the whole batch (on one card it says that
+   this part did not run).
+
+``--only dist`` runs the device and build phases and then the dist phase
+alone; ``--only ranks`` its multi-rank check alone.
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -373,11 +392,13 @@ def check_rmsnorm(gen, d_model: int) -> dict:
     for d, (x, s) in sorted(widths.items()):
         nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
         by_width[d] = dict(ms=time_ms(lambda: rmsnorm(x, s)),
+                           plain_ms=time_ms(lambda: ref.rmsnorm_reference(x, s)),
                            library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6)),
                            bound_ms=bound(nbytes, 4.0 * x.numel(), x.dtype)[0])
     log("  rmsnorm at the MoE, hybrid and VLM paths' prefill widths (bf16): " + "; ".join(
-        f"d={d} ({widths[d][0].shape[0]} rows) kernel {t['ms']:.4f} ms, library "
-        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms" for d, t in by_width.items()))
+        f"d={d} ({widths[d][0].shape[0]} rows) kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms" for d, t in by_width.items()))
 
     x, s, dtype = main["x"], main["s"], main["dtype"]
     ms = time_ms(lambda: rmsnorm(x, s))
@@ -771,13 +792,15 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
         nbytes = 3 * x.numel() * x.element_size() + 2 * s.numel() * s.element_size()
         t_bound, t_by = bound(nbytes, 11.0 * x.numel(), x.dtype)
         by_width[d] = dict(rows=x.shape[0], ms=time_ms(lambda: rmsnorm_bwd(x, s, g)),
+                           plain_ms=time_ms(lambda: ref.rmsnorm_backward_reference(x, s, g)),
                            library_ms=time_ms(lambda: torch.autograd.grad(
                                y, (xl, sl), g, retain_graph=True)),
                            bound_ms=t_bound, bound_by=t_by, max_abs_err=case["err"])
         del xl, sl, y
     log("  rmsnorm_bwd at the MoE and VLM training paths' widths (bf16): " + "; ".join(
-        f"d={d} ({t['rows']} rows) kernel {t['ms']:.4f} ms, library (rms_norm backward) "
-        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}"
+        f"d={d} ({t['rows']} rows) kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"library (rms_norm backward) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"by {t['bound_by']}"
         for d, t in by_width.items()))
 
     for args in (main["args"], determinism_args):
@@ -1018,12 +1041,32 @@ def release_host_memory() -> None:
     ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
-def host_available_bytes() -> int:
-    with open("/proc/meminfo") as f:
-        for line in f:
-            if line.startswith("MemAvailable:"):
-                return int(line.split()[1]) * 1024
-    raise RuntimeError("/proc/meminfo has no MemAvailable line")
+HOST_MEMORY_WAIT_S = 90
+
+
+def host_available_bytes(need: float = 0.0) -> int:
+    """MemAvailable, read again once a second after ``release_host_memory``
+    until it reaches ``need`` bytes or HOST_MEMORY_WAIT_S pass: right after
+    an fp32 reference of ~53 GB a side, 30–40 GB of it were still out of
+    MemAvailable and came back within ~20 s, so a check made at once may
+    read too little for the next reference."""
+    def read():
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+        raise RuntimeError("/proc/meminfo has no MemAvailable line")
+
+    t0 = time.monotonic()
+    free = read()
+    while free < need and time.monotonic() - t0 < HOST_MEMORY_WAIT_S:
+        time.sleep(1.0)
+        release_host_memory()
+        free = read()
+    if time.monotonic() - t0 >= 1.0:
+        log(f"  waited {time.monotonic() - t0:.0f} s for {need / 1e9:.1f} GB of host memory: "
+            f"{free / 1e9:.1f} GB available")
+    return free
 
 
 def check_reference(cfg, cut: str = "2-layer", full_depth: bool = False) -> None:
@@ -1043,7 +1086,7 @@ def check_reference(cfg, cut: str = "2-layer", full_depth: bool = False) -> None
     cpu_api, gpu_api = get_api(small, device="cpu"), get_api(small, device=DEVICE)
     cls = model_class(small)
     need = 4 * sum(p.numel() for p in cls(small, torch.device("meta")).parameters())
-    free = host_available_bytes()
+    free = host_available_bytes(1.25 * need)
     log(f"  {cfg.name} {cut} fp32: {need / 1e9:.2f} GB of weights a side; host memory "
         f"available {free / 1e9:.1f} GB")
     if free < 1.25 * need:
@@ -1128,7 +1171,8 @@ def check_train_reference(cfg, cut: str) -> None:
     small = cfg.replace(param_dtype="float32", compute_dtype="float32")
     cls = model_class(small)
     n = sum(p.numel() for p in cls(small, torch.device("meta")).parameters())
-    need, free, card_free = 16 * n, host_available_bytes(), torch.cuda.mem_get_info()[0]
+    need, card_free = 16 * n, torch.cuda.mem_get_info()[0]
+    free = host_available_bytes(1.25 * need)
     log(f"  {cfg.name} {cut} fp32 train step: {n / 1e9:.3f} B parameters, {need / 1e9:.2f} GB "
         f"of parameters, gradients and AdamW moments a side; host memory available "
         f"{free / 1e9:.1f} GB, card {card_free / 1e9:.1f} GB")
@@ -1467,7 +1511,8 @@ def train(cfg, cut: str = "") -> dict:
     finite losses and a loss on the last step's batch that falls by that
     step; then
     two gradient passes from one state on one batch, compared bit for bit;
-    returns the kernels' launches in the counted steps."""
+    returns the kernels' launches in the counted steps and the median step
+    ms."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
@@ -1573,7 +1618,7 @@ def train(cfg, cut: str = "") -> dict:
     fwd_bwd, update = events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
     log(f"  one step split by CUDA events: loss and gradients {fwd_bwd:.1f} ms, AdamW update "
         f"{update:.1f} ms ({update / (fwd_bwd + update):.3f} of the step)")
-    return launches
+    return launches, med
 
 
 def check_repeatable_grads(model, batch, hp) -> None:
@@ -1846,6 +1891,411 @@ def launcher(rwkv) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the distributed train step over the data axes
+# ---------------------------------------------------------------------------
+
+DIST_MESH = ((1, 1, 1), ("pod", "data", "model"))  # a world of one; the quantizer still runs
+# the card's and the CPU's fp32 gradients differ by up to ~3e-5 of a leaf's
+# max|g| (the train references): 127 x that moves x = gs / scale * 127 of the
+# int8 quantizer by ~4e-3, so an entry within 1e-2 of k + 1/2 may round
+# either way on the two sides
+DIST_TIE_MARGIN = 1e-2
+DIST_RANK_TIMEOUT_S = 600
+
+
+def jax_keyed(tensors, cfg):
+    """(JAX key, tensor) of the port's named tensors (parameters or moments),
+    a stacked group of layers along its leading axis, one leaf at a time."""
+    from repro_torch.models.convert import jax_leaves
+
+    for key, names in jax_leaves(tensors, cfg).items():
+        yield key, (torch.stack([tensors[n].detach() for n in names])
+                    if isinstance(names, tuple) else tensors[names].detach())
+
+
+@contextlib.contextmanager
+def quantizer_recorded(calls: list):
+    """While open, appends (the entries within DIST_TIE_MARGIN of a rounding
+    tie, on the CPU; the scale) of every call of the int8 quantizer."""
+    from repro_torch.train import trainstep
+
+    quantize = trainstep.quantize_int8
+
+    def recorded(gs, scale):
+        x = (gs / scale * 127.0).abs()
+        calls.append((((x - torch.floor(x) - 0.5).abs() < DIST_TIE_MARGIN).cpu(), scale.item()))
+        return quantize(gs, scale)
+
+    trainstep.quantize_int8 = recorded
+    try:
+        yield calls
+    finally:
+        trainstep.quantize_int8 = quantize
+
+
+def dist_step(cfg, hp, device: str, weights: dict, batch: dict, record=None):
+    """One step of the distributed step of ``hp`` on a world of one
+    (DIST_MESH: NCCL on the card, gloo on the CPU) from ``weights``, the
+    quantizer's calls appended to ``record``: (metrics, state, step).  The
+    process group is left when it returns."""
+    from repro_torch.launch.mesh import make_mesh, shutdown
+    from repro_torch.models import get_api
+    from repro_torch.models.registry import model_class
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainstep import batch_to_torch, make_train_step
+
+    mesh = make_mesh(*DIST_MESH, device=device)
+    try:
+        step = make_train_step(get_api(cfg, device=device), cfg, OptConfig(**TRAIN_OPT), mesh,
+                               hp, batch)
+        model = model_class(cfg)(cfg, torch.device(device))
+        model.load_state_dict(weights)
+        state = {"model": model, "opt": step.init_opt()}
+        with quantizer_recorded(record) if record is not None else contextlib.nullcontext():
+            metrics = step(state, batch_to_torch(batch, device))
+        metrics = {k: v.item() for k, v in metrics.items()}
+    finally:
+        shutdown()
+    return metrics, state, step
+
+
+def check_dist_reference(cfg, smi: str) -> None:
+    """The distributed steps at world 1 (DIST_MESH), fp32, ``cfg`` at full
+    width cut to 2 layers, one batch of 1 x TRAIN_REF_SEQ tokens:
+
+    * the hierarchical step with ZeRO-1 and ``compress`` over NCCL on the
+      card against the same step over gloo on the CPU: loss, grad norm,
+      every parameter and moment; an entry that the CPU's quantizer met
+      within DIST_TIE_MARGIN of a rounding tie may round the other way on
+      the card, and only those are held to the looser bounds (the update
+      lr (1 + wd |p|) instead of 1e-2 lr; one quantum of m);
+    * the hierarchical step with ZeRO-1 on the card against the
+      single-device ``train_step`` on the card."""
+    from repro_torch.models import get_api
+    from repro_torch.models.registry import model_class
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import TrainHparams, batch_to_torch, train_step
+
+    t0 = time.perf_counter()
+    small = cfg.replace(num_layers=2, param_dtype="float32", compute_dtype="float32")
+    n = sum(p.numel() for p in model_class(small)(small, torch.device("meta")).parameters())
+    need, card_free = 24 * n, torch.cuda.mem_get_info()[0]
+    free = host_available_bytes(1.25 * need)
+    log(f"  {cfg.name} 2-layer fp32, world 1: {n / 1e9:.3f} B parameters; {need / 1e9:.2f} GB "
+        f"a side for the weights, a model, its gradients and moments; host memory available "
+        f"{free / 1e9:.1f} GB, card {card_free / 1e9:.1f} GB")
+    if free < 1.25 * need or card_free < 1.5 * need:
+        raise RuntimeError(f"the world-1 references need {need / 1e9:.2f} GB a side")
+    weights = {k: v.cpu() for k, v in get_api(small, device=DEVICE).init(seed=1)
+               .state_dict().items()}
+    batch = SyntheticData(DataConfig(vocab_size=small.vocab_size, batch=1, seq=TRAIN_REF_SEQ),
+                          model_cfg=small).batch_at(0)
+    opt = OptConfig(**TRAIN_OPT)
+    b1 = opt.beta1
+
+    compress = TrainHparams(hierarchical=True, zero1=True, compress=True)
+    ties = []
+    t1 = time.perf_counter()
+    cpu, cpu_state, _ = dist_step(small, compress, "cpu", weights, batch, ties)
+    t2 = time.perf_counter()
+    card, card_state, step = dist_step(small, compress, DEVICE, weights, batch)
+    t3 = time.perf_counter()
+    lr = card["lr"]
+    named = {"cpu": dict(cpu_state["model"].named_parameters()),
+             "card": dict(card_state["model"].named_parameters())}
+    if len(ties) != len(step.dims):
+        raise AssertionError(f"the quantizer ran {len(ties)} times for {len(step.dims)} leaves")
+    p_err = tie_err = m_err = 0.0
+    near = moved = total = 0
+    for (key, p_card), (_, p_cpu), (tie, scale) in zip(
+            jax_keyed(named["card"], small), jax_keyed(named["cpu"], small), ties):
+        tie = tie.to(DEVICE)
+        d = (p_card - p_cpu.to(DEVICE)).abs()
+        p_err = max(p_err, d[~tie].max().item() if (~tie).any() else 0.0)
+        bound = lr * (1 + opt.weight_decay * p_card.abs()) + 1e-2 * lr
+        if tie.any():
+            tie_err = max(tie_err, (d[tie] / bound[tie]).max().item())
+        near, moved, total = near + int(tie.sum()), moved + int((d[tie] > 1e-2 * lr).sum()), \
+            total + d.numel()
+        m_cpu = cpu_state["opt"]["m"][key].to(DEVICE)
+        dm = (card_state["opt"]["m"][key] - m_cpu).abs()
+        loose = (1e-3 * m_cpu.abs().max()).clamp(min=1e-30) + tie * ((1 - b1) * scale / 127
+                                                                     * (1 + 1e-3))
+        m_err = max(m_err, (dm / loose).max().item())
+    del named, cpu_state, card_state
+    loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    norm_err = abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    log(f"  hierarchical step, ZeRO-1 and compress, NCCL on the card vs gloo on the CPU: loss "
+        f"{card['loss']:.6f} / {cpu['loss']:.6f} (rel err {loss_err:.3g}, tol 1e-3), grad norm "
+        f"{card['grad_norm']:.6g} / {cpu['grad_norm']:.6g} (rel err {norm_err:.3g}, tol 1e-3); "
+        f"parameters max_abs_err {p_err:.3g} off the quantizer's ties (tol {1e-2 * lr:.3g}, "
+        f"1e-2 x lr); {near} of {total} entries within {DIST_TIE_MARGIN} of a tie, {moved} of "
+        f"them moved by more than 1e-2 x lr, worst at {tie_err:.3g} of lr (1 + wd |p|) + "
+        f"1e-2 lr; moments m at {m_err:.3g} of their bound (1e-3 max|m|, plus one quantum "
+        f"at a tie)")
+    if not (loss_err <= 1e-3 and norm_err <= 1e-3 and p_err <= 1e-2 * lr and tie_err <= 1
+            and m_err <= 1):
+        raise AssertionError("the compressed hierarchical step on the card disagrees with the CPU")
+
+    t4 = time.perf_counter()
+    hier, hier_state, _ = dist_step(small, TrainHparams(hierarchical=True, zero1=True), DEVICE,
+                                    weights, batch)
+    model = model_class(small)(small, torch.device(DEVICE))
+    model.load_state_dict(weights)
+    opt_state = adamw_init(model)
+    single = {k: v.item() for k, v in train_step(model, opt_state, batch_to_torch(batch, DEVICE),
+                                                 opt).items()}
+    sync()
+    p_err = m_err = 0.0
+    for (key, p_h), (_, p_s), (_, m_s) in zip(
+            jax_keyed(dict(hier_state["model"].named_parameters()), small),
+            jax_keyed(dict(model.named_parameters()), small), jax_keyed(opt_state["m"], small)):
+        p_err = max(p_err, (p_h - p_s).abs().max().item())
+        m_h = hier_state["opt"]["m"][key]
+        m_err = max(m_err, ((m_h - m_s).abs().max() / m_s.abs().max().clamp(min=1e-30)).item())
+    del hier_state, model, opt_state
+    loss_err = abs(hier["loss"] - single["loss"]) / abs(single["loss"])
+    norm_err = abs(hier["grad_norm"] - single["grad_norm"]) / single["grad_norm"]
+    log(f"  hierarchical step with ZeRO-1 (NCCL, world 1) vs the single-device train_step, both "
+        f"on the card: loss {hier['loss']:.6f} / {single['loss']:.6f} (rel err {loss_err:.3g}, "
+        f"tol 1e-6), grad norm rel err {norm_err:.3g} (tol 1e-5), parameters max_abs_err "
+        f"{p_err:.3g} (tol {1e-2 * lr:.3g}, 1e-2 x lr), moments m max_abs_err / max|m| "
+        f"{m_err:.3g} (tol 1e-5)")
+    if not (loss_err <= 1e-6 and norm_err <= 1e-5 and p_err <= 1e-2 * lr and m_err <= 1e-5):
+        raise AssertionError("the hierarchical step disagrees with the single-device step")
+    log(f"  world-1 references: {time.perf_counter() - t0:.1f} s (set-up {t1 - t0:.1f}, the "
+        f"CPU's compressed step {t2 - t1:.1f}, the card's {t3 - t2:.1f}, the comparison "
+        f"{t4 - t3:.1f}, hierarchical vs single {time.perf_counter() - t4:.1f}); {smi}")
+
+
+def dist_train(cfg, smi: str, single_ms) -> dict:
+    """``cfg`` at full width in bf16 trained TRAIN_STEPS steps through the
+    hierarchical step with ZeRO-1 and ``compress`` over NCCL at world 1
+    (DIST_MESH), batch TRAIN_BATCH x TRAIN_SEQ of the affine data: finite
+    losses and a loss on the last step's batch that falls by that step; step
+    ms beside the single-device step's (``single_ms``, the train phase's in
+    this call), peak memory, collective calls and bytes per mesh axis per
+    step (held against the bytes the leaves imply), the kernels' launches
+    per step against the path's.  Returns the launches."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
+    from repro_torch.launch.mesh import make_mesh, shutdown
+    from repro_torch.models import get_api
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(*DIST_MESH, device=DEVICE)
+    try:
+        api = get_api(cfg, device=DEVICE)
+        data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH,
+                                        seq=TRAIN_SEQ, mode="affine"), model_cfg=cfg)
+        hp = TrainHparams(hierarchical=True, zero1=True, compress=True)
+        step = make_train_step(api, cfg, OptConfig(**TRAIN_OPT), mesh, hp, data.batch_at(0))
+        t0 = time.perf_counter()
+        state = step.init_state(seed=0)
+        sync()
+        n_params = sum(p.numel() for p in state["model"].parameters())
+        log(f"  {cfg.name}: {n_params / 1e9:.3f} B params in {str(cfg.pdtype)[6:]}, "
+            f"{len(step.leaves)} JAX leaves, mesh {dict(zip(*reversed(DIST_MESH)))} over NCCL, "
+            f"initialised in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+        batches = [batch_to_torch(data.batch_at(i), DEVICE) for i in range(TRAIN_STEPS)]
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        rmsnorm.launches = rmsnorm_bwd.launches = 0
+        wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = wkv6_bwd.launches = 0
+        losses, ms, comms = [], [], []
+        for i in range(TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            metrics = step(state, batches[i])
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            comms.append(step.comm)
+        launches = {"flash_attention": flash_attention.launches,
+                    "flash_attention_bwd": flash_attention_bwd.launches,
+                    "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches,
+                    "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches,
+                    "wkv6_bwd": wkv6_bwd.launches}
+        with torch.no_grad():
+            again = api.loss(state["model"], batches[-1]).item()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        shutdown()
+    med = statistics.median(ms[1:])
+    leaves = len(step.leaves)
+    # every leaf is cut at data 1: a reduce-scatter of fp32 gradients and an
+    # all-gather of bf16 parameters over data, the squares' one all-reduce;
+    # over pod the max and the int32 values (4 bytes an entry, as fp32)
+    want = {"pod+data": {"calls": 1, "bytes": 4},
+            "data": {"calls": 2 * leaves + 1,
+                     "bytes": (4 + cfg.pdtype.itemsize) * n_params + 4 * leaves},
+            "pod": {"calls": 2 * leaves, "bytes": 4 * n_params + 4 * leaves}}
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    log(f"  losses {[round(x, 4) for x in losses]}; loss on the last step's batch after it "
+        f"{again:.4f}")
+    log(f"  step {med:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}; step 0 {ms[0]:.1f} ms) "
+        f"beside the single-device train_step's "
+        f"{'not measured in this run' if single_ms is None else f'{single_ms:.1f} ms'} "
+        f"(train phase); {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tok/s, peak device memory "
+        f"{peak:.2f} GiB; {smi}")
+    log(f"  collectives per step (calls, bytes of the tensors handed in): {comms[-1]}")
+    log(f"  launches per step: {per_step}")
+    if not (all(np.isfinite(losses)) and again < losses[-1]):
+        raise AssertionError(f"the losses are not finite or do not fall: {losses}, then {again}")
+    if any(c != want for c in comms):
+        raise AssertionError(f"collectives {comms[-1]} != {want} implied by the leaves")
+    if per_step != expected_launches(cfg, "train"):
+        raise AssertionError(f"kernel launches per step {per_step} != "
+                             f"{expected_launches(cfg, 'train')} implied by the path")
+    return launches
+
+
+def dist_ranks(count: int) -> None:
+    """The multi-rank check on a host of several cards: world 4 (mesh
+    (pod 2, data 2, model 1)) or 2 (pod 2), one rank a card, each this
+    script with ``--dist-rank`` (:func:`dist_rank`); rank 0's log is
+    printed.  Every rank is killed if one fails or the time runs out."""
+    if count < 2:
+        log("  multi-rank check: did not run, the host shows 1 card and NCCL takes one card a "
+            "rank (two ranks on one card: tools/dist_one_card_probe.py)")
+        return
+    world = 4 if count >= 4 else 2
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    torch.cuda.empty_cache()
+    procs = []
+    try:
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.log"), "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+                     "--dist-world", str(world), "--dist-dir", workdir],
+                    stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DIST_RANK_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        with open(os.path.join(workdir, "rank0.log")) as f:
+            for line in f.read().splitlines():
+                log(f"    {line}")
+        failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+        for r, _ in failed[:1]:
+            if r:
+                with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                    log(f"    rank {r}: {f.read()[-3000:]}")
+        shutil.rmtree(workdir, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"the multi-rank check failed: ranks and exit codes {failed}")
+
+
+def dist_rank(rank: int, world: int, workdir: str) -> int:
+    """One rank of :func:`dist_ranks`: fp32 gemma-2b at full width cut to 2
+    layers, one row of TRAIN_REF_SEQ tokens a rank, the hierarchical step
+    with ZeRO-1, then with ``compress`` too, from the same weights; rank 0
+    holds both against the single-device ``train_step`` on the whole batch
+    on its card: the loss, the grad norm, the parameters where |g| > 1e-3
+    max|g| of the leaf, the moments; with ``compress``, the gradient read
+    back from m within half a quantum a pod of the exact one."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh, shutdown
+    from repro_torch.models import get_api
+    from repro_torch.models.registry import model_class
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step, \
+        train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = (2, world // 2, 1)
+    mesh = make_mesh(shape, ("pod", "data", "model"), device=f"cuda:{rank}",
+                     init_method=f"file://{workdir}/store", world_size=world, rank=rank)
+    try:
+        cfg = configs.get_config(ARCHS[0]).replace(num_layers=2, param_dtype="float32",
+                                                  compute_dtype="float32")
+        batch = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=world,
+                                         seq=TRAIN_REF_SEQ), model_cfg=cfg).batch_at(0)
+        api, opt = get_api(cfg, device=mesh.device), OptConfig(**TRAIN_OPT)
+        b1, pods = opt.beta1, shape[0]
+        runs, init = {}, None
+        for name, hp in (("exact", TrainHparams(hierarchical=True, zero1=True)),
+                         ("compress", TrainHparams(hierarchical=True, zero1=True, compress=True))):
+            step = make_train_step(api, cfg, opt, mesh, hp, batch)
+            if init is None:
+                state = step.init_state(seed=1)  # rank 0's weights on every rank
+                init = {n: p.detach().clone() for n, p in state["model"].named_parameters()}
+            else:
+                state["model"].load_state_dict(init)
+                state["opt"] = step.init_opt()
+            scales = []
+            t0 = time.perf_counter()
+            with quantizer_recorded(scales):
+                metrics = {k: v.item() for k, v in step(state, batch_to_torch(
+                    batch, mesh.device)).items()}
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            m_full = {k: step.gather(k, t) for k, t in state["opt"]["m"].items()}
+            params = {k: t.clone() for k, t in jax_keyed(dict(state["model"].named_parameters()),
+                                                           cfg)}
+            runs[name] = (metrics, params if rank == 0 else None, m_full if rank == 0 else None,
+                          [s for _, s in scales])
+            if rank == 0:
+                log(f"{name}: loss {metrics['loss']:.6f}, grad norm {metrics['grad_norm']:.6g}, "
+                    f"{ms:.1f} ms (first call), collectives {step.comm}")
+        if rank != 0:
+            return 0
+        model = model_class(cfg)(cfg, mesh.device)
+        model.load_state_dict(init)
+        opt_state = adamw_init(model)
+        ref = {k: v.item() for k, v in train_step(model, opt_state, batch_to_torch(
+            batch, mesh.device), opt).items()}
+        lr = ref["lr"]
+        clip = {n: min(1.0, opt.clip_norm / max(m["grad_norm"], 1e-9))
+                for n, (m, *_) in {**runs, "ref": (ref,)}.items()}
+        ok = True
+        for name, (metrics, params, m_full, scales) in runs.items():
+            loss_err = abs(metrics["loss"] - ref["loss"]) / abs(ref["loss"])
+            p_err = g_err = 0.0
+            for i, ((key, p_ref), (_, m_ref)) in enumerate(zip(
+                    jax_keyed(dict(model.named_parameters()), cfg),
+                    jax_keyed(opt_state["m"], cfg))):
+                g_ref = m_ref / ((1 - b1) * clip["ref"])
+                g = m_full[key] / ((1 - b1) * clip[name])
+                if name == "exact":
+                    big = g_ref.abs() > 1e-3 * g_ref.abs().max()
+                    p_err = max(p_err, (params[key] - p_ref).abs()[big].max().item())
+                    bound = 1e-3 * g_ref.abs().max()
+                else:  # half a quantum a pod, averaged over the ranks
+                    bound = pods * scales[i] / 254 / world * (1 + 1e-3) + 1e-3 * g_ref.abs().max()
+                g_err = max(g_err, ((g - g_ref).abs().max() / bound).item())
+            norm_err = abs(metrics["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+            good = loss_err <= 1e-5 and g_err <= 1 and (
+                name == "compress" or (norm_err <= 1e-4 and p_err <= 1e-2 * lr))
+            ok &= good
+            log(f"{name} vs the single-device step on the whole batch ({world} x "
+                f"{TRAIN_REF_SEQ} tokens): loss rel err {loss_err:.3g} (tol 1e-5), grad norm "
+                f"{metrics['grad_norm']:.6g} / {ref['grad_norm']:.6g} (rel err {norm_err:.3g}"
+                f"{', tol 1e-4' if name == 'exact' else ', the quantizer moves it'}), gradient "
+                f"read from m at {g_err:.3g} of its bound ("
+                f"{'1e-3 max|g|' if name == 'exact' else 'half a quantum a pod + 1e-3 max|g|'})"
+                + (f", parameters where |g| > 1e-3 max|g| max_abs_err {p_err:.3g} (tol "
+                   f"{1e-2 * lr:.3g})" if name == "exact" else "") + f": {'ok' if good else 'FAIL'}")
+        return 0 if ok else 1
+    finally:
+        shutdown()
+
+
 def ptxas_report(build_log: str) -> list:
     """One line per kernel instantiation from ``nvcc -Xptxas -v``: its name
     and template arguments, registers, shared memory and spills."""
@@ -1868,12 +2318,35 @@ def ptxas_report(build_log: str) -> list:
     return out
 
 
-def main() -> int:
+def dist_phase(gemma, smi: str, single_ms) -> dict:
+    """The ``dist:`` phase: the world-1 references, full gemma-2b in bf16
+    through the hierarchical step, the multi-rank check.  Returns the
+    launches of the bf16 run."""
+    check_dist_reference(gemma, smi)
+    torch.cuda.empty_cache()
+    release_host_memory()
+    launched = dist_train(gemma, smi, single_ms)
+    torch.cuda.empty_cache()
+    dist_ranks(torch.cuda.device_count())
+    return launched
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("dist", "ranks"),
+                    help="the device and build phases, then only the dist phase or its "
+                         "multi-rank check")
+    ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)  # a rank of dist_ranks
+    ap.add_argument("--dist-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
+    if args.dist_rank is not None:
+        return dist_rank(args.dist_rank, args.dist_world, args.dist_dir)
     from repro_torch import configs
     from repro_torch.kernels import build
 
@@ -1895,6 +2368,16 @@ def main() -> int:
             log(f"    {source}: {line}")
 
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
+    if args.only:
+        log("dist:")
+        if args.only == "dist":
+            dist_phase(gemma, smi, None)
+        else:
+            dist_ranks(torch.cuda.device_count())
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
+        return 0
     deepseek, grok = (configs.get_config(a).replace(num_layers=SERVE_LAYERS[a])
                       for a in MOE_ARCHS)
     jamba = configs.get_config(HYBRID_ARCH)
@@ -1941,16 +2424,19 @@ def main() -> int:
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
     log("train:")
-    trained = {}
+    trained, step_ms = {}, {}
     for cfg, cut in ((gemma, ""), (rwkv, ""), (whisper, ""), (internvl2, ""),
                      (deepseek_train, moe_cut(deepseek_train)), (grok_train, moe_cut(grok_train))):
         torch.cuda.empty_cache()
         path = f"train {cfg.name}" + (f" ({cfg.num_layers} layers, {cfg.moe.num_experts} experts)"
                                       if cut else "")
-        trained[path] = train(cfg, cut)
+        trained[path], step_ms[cfg.name] = train(cfg, cut)
     log("launcher:")
     torch.cuda.empty_cache()
     launched = launcher(rwkv)
+    log("dist:")
+    torch.cuda.empty_cache()
+    launched[f"dist {gemma.name}"] = dist_phase(gemma, smi, step_ms[gemma.name])
     # each kernel's launches in the run of the path that drives it; the
     # forward kernels run in serving and training alike
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],

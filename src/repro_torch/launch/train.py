@@ -14,6 +14,16 @@ plane, as ``repro.launch.train`` does on one device.
    ``--ckpt-dir`` it writes a checkpoint in the background every
    ``--ckpt-every`` steps and a final one, in the JAX package's format
    (``ckpt.manager``), and a rerun resumes from the latest one.
+   Under ``python -m torch.distributed.run`` (``RANK``, ``WORLD_SIZE``,
+   ``LOCAL_RANK`` set), or with ``--hierarchical``, ``--compress`` or
+   ``--zero1``, it builds ``make_host_mesh()`` over the world (data ×
+   model 1) and trains through ``train.trainstep.make_train_step``, as
+   JAX's ``--smoke`` path does: the flat all-reduce step, or with
+   ``--hierarchical`` the reduce-scatter / cross-pod / ZeRO-1 step
+   (``--compress``: int8 values across pods; ``--zero1``: sharded moments
+   in the flat step).  Each rank takes its block of the global batch; the
+   checkpoint gathers the moments and rank 0 writes it, and a rerun at
+   another world size restores its own slices.  Only rank 0 prints.
 
 Runs on the card unless ``--device`` says otherwise:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
@@ -22,6 +32,12 @@ Runs on the card unless ``--device`` says otherwise:
       --device cpu --steps 4 --ckpt-dir /tmp/ckpt     # twice: the second resumes
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
       --steps 6 --batch 4 --seq 448 --lr 3e-4
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch olmo-1b --smoke --device cpu \
+      --hierarchical --zero1 --compress --steps 4     # 2 gloo ranks on the CPU
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch gemma-2b --steps 6 --batch 8 --seq 1024 \
+      --hierarchical --zero1                          # NCCL, one card a rank
 
 Every family trains with its own loss (``ModelAPI.loss``): the dense ones
 (gemma-2b, olmo-1b, gemma2-9b, qwen2.5-14b), rwkv6, the MoE ones
@@ -31,13 +47,16 @@ and internvl2-1b on ``patches`` before ``--seq`` tokens; the synthetic data
 draws the frames and patches.  jamba-1.5-large-398b does not train yet and
 raises ``NotImplementedError`` (ROADMAP B.10).  At full width one card
 holds whisper-small and internvl2-1b whole; the MoE models only cut
-(``chip_smoke.py`` cuts them).  The distributed steps
-(``--hierarchical``, ``--compress``, ``--zero1``) wait for ROADMAP A.7.
+(``chip_smoke.py`` cuts them).  Tensor parallelism (a model axis above 1)
+and ``fsdp`` are not ported and raise (ROADMAP A.9).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
+
+import torch.distributed as dist
 
 from .. import configs
 from ..ckpt.manager import latest_step, restore_checkpoint, save_checkpoint
@@ -46,7 +65,9 @@ from ..core.topology import ClusterSpec
 from ..models import get_api, smoke_config
 from ..train.data import DataConfig, SyntheticData
 from ..train.optimizer import OptConfig
-from ..train.trainstep import TrainHparams, batch_to_torch, make_train_state, train_step
+from ..train.trainstep import (TrainHparams, batch_to_torch, make_train_state, make_train_step,
+                               train_step)
+from .mesh import make_host_mesh, shutdown
 
 
 def control_plane(arch: str, num_pods_used: int, cluster_pods: int = 8) -> dict:
@@ -81,9 +102,13 @@ def control_plane_line(arch: str, cp: dict) -> str:
 
 def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float, grad_accum: int = 1,
                log_every: int = 5, device="cuda", seed: int = 0, ckpt_dir=None,
-               ckpt_every: int = 20) -> dict:
+               ckpt_every: int = 20, mesh=None, hierarchical: bool = False,
+               compress: bool = False, zero1: bool = False) -> dict:
     """The data plane: train ``cfg`` from ``make_train_state(seed)``, or from
-    the latest checkpoint in ``ckpt_dir``, up to ``steps``.
+    the latest checkpoint in ``ckpt_dir``, up to ``steps``.  With ``mesh``
+    (``launch.mesh``; this process is one of its ranks, on ``mesh.device``)
+    through the distributed step of ``hierarchical``, ``compress`` and
+    ``zero1`` (``make_train_step``), and only rank 0 prints.
 
     The periodic save after step ``i`` (``(i + 1) % ckpt_every == 0``) runs
     in the background and is joined before the next one; the last step is
@@ -96,26 +121,37 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float, grad_accum: 
     still running then; per save ``{"step", "blocked_s", "writer"}``
     (``blocked_s`` the seconds the loop waited: the host copy of a
     background save, the whole final save; ``writer`` the finished
-    :class:`~repro_torch.ckpt.manager.Writer`, None for the final save).
+    :class:`~repro_torch.ckpt.manager.Writer`, None for the final save and
+    on the ranks that do not write).
     """
-    api = get_api(cfg, device=device)
+    api = get_api(cfg, device=mesh.device if mesh is not None else device)
     data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=batch, seq=seq),
                          model_cfg=cfg)
     opt = OptConfig(lr=lr, warmup_steps=5, total_steps=max(steps, 10))
-    hp = TrainHparams(grad_accum=grad_accum)
-    state = make_train_state(api, seed=seed)
+    hp = TrainHparams(grad_accum=grad_accum, hierarchical=hierarchical, compress=compress,
+                      zero1=zero1)
+    if mesh is None:
+        mesh_step = None
+        state = make_train_state(api, seed=seed)
+        run = lambda b: train_step(state["model"], state["opt"], b, opt, hp)  # noqa: E731
+    else:
+        mesh_step = make_train_step(api, cfg, opt, mesh, hp, data.batch_at(0))
+        state = mesh_step.init_state(seed)
+        run = lambda b: mesh_step(state, b)  # noqa: E731
+    talks = mesh is None or dist.get_rank() == 0
     out = {"state": state, "restore_s": None, "log": [], "saves": []}
 
     start = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
         t0 = time.perf_counter()
-        start = restore_checkpoint(ckpt_dir, state) + 1
+        start = restore_checkpoint(ckpt_dir, state, mesh_step=mesh_step) + 1
         out["restore_s"] = time.perf_counter() - t0
-        print(f"[resume] from step {start - 1}")
+        if talks:
+            print(f"[resume] from step {start - 1}")
 
     def save(i, background):
         t0 = time.perf_counter()
-        writer = save_checkpoint(ckpt_dir, i, state, background=background)
+        writer = save_checkpoint(ckpt_dir, i, state, background=background, mesh_step=mesh_step)
         out["saves"].append({"step": i, "blocked_s": time.perf_counter() - t0,
                              "writer": writer})
         return writer
@@ -124,8 +160,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float, grad_accum: 
     t0 = time.perf_counter()
     for i in range(start, steps):
         t_step = time.perf_counter()
-        metrics = train_step(state["model"], state["opt"],
-                             batch_to_torch(data.batch_at(i), api.device), opt, hp)
+        metrics = run(batch_to_torch(data.batch_at(i), api.device))
         if i % log_every == 0 or i == steps - 1:
             loss, step_lr = float(metrics["loss"]), float(metrics["lr"])  # waits for the step
             now = time.perf_counter()
@@ -133,7 +168,9 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float, grad_accum: 
                                "ms": (now - t_step) * 1e3,
                                "writing": pending is not None and pending.is_alive()})
             toks = batch * seq * (i - start + 1)
-            print(f"step {i:5d}  loss {loss:.4f}  lr {step_lr:.2e}  {toks/(now - t0):,.0f} tok/s")
+            if talks:
+                print(f"step {i:5d}  loss {loss:.4f}  lr {step_lr:.2e}  "
+                      f"{toks/(now - t0):,.0f} tok/s")
         if ckpt_dir and (i + 1) % ckpt_every == 0 and i < steps - 1:
             if pending is not None:
                 pending.join()
@@ -142,7 +179,8 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float, grad_accum: 
         pending.join()
     if ckpt_dir:
         save(steps - 1, background=False)
-        print(f"[ckpt] final at step {steps - 1}")
+        if talks:
+            print(f"[ckpt] final at step {steps - 1}")
     return out
 
 
@@ -160,13 +198,27 @@ def main(argv=None) -> None:
     ap.add_argument("--pods", type=int, default=2, help="pods the job occupies")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--hierarchical", action="store_true",
+                    help="reduce-scatter in-pod, all-reduce across pods, ZeRO-1")
+    ap.add_argument("--compress", action="store_true",
+                    help="int8 cross-pod gradients (with --hierarchical)")
+    ap.add_argument("--zero1", action="store_true", help="shard the AdamW moments over data")
     args = ap.parse_args(argv)
 
-    print(control_plane_line(args.arch, control_plane(args.arch, args.pods)))
-    cfg = smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
-    train_loop(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-               grad_accum=args.grad_accum, log_every=args.log_every, device=args.device,
-               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    flags = dict(hierarchical=args.hierarchical, compress=args.compress, zero1=args.zero1)
+    mesh = None
+    if any(flags.values()) or "RANK" in os.environ:
+        mesh = make_host_mesh(device=args.device)
+    try:
+        if mesh is None or dist.get_rank() == 0:
+            print(control_plane_line(args.arch, control_plane(args.arch, args.pods)))
+        cfg = smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
+        train_loop(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+                   grad_accum=args.grad_accum, log_every=args.log_every, device=args.device,
+                   ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, mesh=mesh, **flags)
+    finally:
+        if mesh is not None:
+            shutdown()
 
 
 if __name__ == "__main__":

@@ -148,6 +148,26 @@ def _jax_key(name: str, cfg) -> Tuple[str, Optional[int], Optional[int]]:
     return _decoder_key(parts, layer_plan(cfg))
 
 
+def jax_leaves(names, cfg) -> Dict[str, Any]:
+    """JAX's leaves of the port's tensor ``names`` of ``cfg``'s model, in
+    JAX's flattening order (keys sorted at every level): each ``"/"``-joined
+    key maps to the tuple of port names stacked along its leading layer or
+    unit axis, in stack order, or to the one port name of an unstacked leaf."""
+    stacks: Dict[str, list] = {}
+    out: Dict[str, Any] = {}
+    for name in names:
+        key, u, n = _jax_key(name, cfg)
+        if u is None:
+            out[key] = name
+        else:
+            stacks.setdefault(key, [None] * n)[u] = name
+    for key, per_layer in stacks.items():
+        if any(x is None for x in per_layer):
+            raise ValueError(f"{key}: a layer of the {len(per_layer)} stacked is missing")
+        out[key] = tuple(per_layer)
+    return dict(sorted(out.items(), key=lambda kv: kv[0].split("/")))
+
+
 def params_to_jax(tensors: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
     """The ``"/"``-keyed flat JAX tree of named tensors of the port's model
     of ``cfg`` (its parameters, or AdamW moments under the same names):

@@ -73,20 +73,35 @@ def adamw_update(model: nn.Module, grads: Mapping[str, torch.Tensor], state: dic
     step = state["step"]
     lr = schedule(opt, step)
     gnorm = global_norm(grads.values())
-    scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-
-    b1, b2 = opt.beta1, opt.beta2
-    t = (step + 1).to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=t.device), t)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=t.device), t)
-
+    scale = clip_scale(opt, gnorm)
+    bc = bias_corrections(opt, step)
     for name, p in model.named_parameters():
         g = grads[name].float() * scale
-        m, v = state["m"][name], state["v"][name]
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        p32 = p.float()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + opt.eps) + opt.weight_decay * p32
-        p.copy_(p32 - lr * delta)
+        p.copy_(adamw_leaf(p.float(), g, state["m"][name], state["v"][name], lr, bc, opt))
     state["step"] = step + 1
     return {"lr": lr, "grad_norm": gnorm}
+
+
+def clip_scale(opt: OptConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    """min(1, clip_norm / max(gnorm, 1e-9)): the global-norm clip factor."""
+    return torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+
+def bias_corrections(opt: OptConfig, step: torch.Tensor):
+    """(1 - beta1**t, 1 - beta2**t) at t = step + 1, fp32 tensors."""
+    t = (step + 1).to(torch.float32)
+    return tuple(1 - torch.pow(torch.tensor(b, dtype=torch.float32, device=t.device), t)
+                 for b in (opt.beta1, opt.beta2))
+
+
+@torch.no_grad()
+def adamw_leaf(p32: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+               lr: torch.Tensor, bc, opt: OptConfig) -> torch.Tensor:
+    """AdamW on one fp32 leaf (or a shard of one) with its clipped fp32
+    gradient ``g``: updates the moments ``m`` and ``v`` in place and returns
+    the new fp32 value of ``p32``; ``bc`` is :func:`bias_corrections`."""
+    b1, b2 = opt.beta1, opt.beta2
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g * g)
+    delta = (m / bc[0]) / (torch.sqrt(v / bc[1]) + opt.eps) + opt.weight_decay * p32
+    return p32 - lr * delta
