@@ -19,6 +19,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    TPU kernel it replaces, with times
    of the kernel, the plain version and one PyTorch library call where there
    is one, beside the least time the card could take;
+   qwen2.5-14b's training at TP 4 gives flash attention (forward and
+   backward) a rank's shape, 4 x 10 q heads / 2 kv heads x 1024, D 128,
+   and RMSNorm (forward and backward) d 5120 over 4096 rows;
    The backward kernels of flash attention, RMSNorm and WKV6 are held
    against their plain versions the same way, at the training paths' shapes
    (flash attention's also at whisper's encoder, cross- and decoder
@@ -109,8 +112,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the single-device step on the whole batch (on one card it says that
    this part did not run).
 
+9. tp: the model axis, tensor and expert parallelism
+   (``dist.tensor_parallel``): qwen2.5-14b at full width cut to 2 layers in
+   fp32, one row of 256 tokens, one hierarchical step with ZeRO-1 on mesh
+   (pod 1, data 1, model 2), two ranks on one card over gloo with CUDA
+   tensors (a check: NCCL refuses two ranks on one card, and the launcher
+   takes one card a rank), each rank's loss, grad norm, parameter slices
+   and moment slices against the single-device ``train_step`` on the card
+   from the same seed; on a host of 4 or more cards the same check on
+   (1, 1, 4) over NCCL, one rank a card, then full qwen2.5-14b (48 layers)
+   in bf16, batch 4 x 1024, 6 hierarchical steps with ZeRO-1: step ms,
+   tok/s, peak memory per rank, the kernels' launches per step against
+   the path's, collective calls and bytes per mesh axis, and the link
+   between the cards (``nvidia-smi topo -m``).
+
 ``--only dist`` runs the device and build phases and then the dist phase
-alone; ``--only ranks`` its multi-rank check alone.
+alone; ``--only ranks`` its multi-rank check alone; ``--only tp`` the tp
+phase alone (on a 4-card call, the NCCL check and the bf16 run).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -296,6 +314,8 @@ def check_flash(gen) -> dict:
          torch.bfloat16, {}, "internvl2's prefill"),
         (SERVE_BATCH, 12, 12, prompt, prompt, 64, torch.bfloat16, {},
          "whisper's decoder self-attention"),  # 6.5 tiles of 64: a ragged causal tile
+        (TRAIN_BATCH, 10, 2, TRAIN_SEQ, TRAIN_SEQ, 128, torch.bfloat16, {},
+         "qwen2.5-14b's TP-4 training"),  # a rank's 10 of 40 q heads, 2 of 8 kv heads
     ]
     timed = {}
     for B, Hq, Hkv, Sq, Sk, D, dtype, kw, what in cases:
@@ -333,7 +353,8 @@ def check_flash(gen) -> dict:
                 at_whisper_cross_prefill=at["whisper's prefill cross-attention"],
                 at_whisper_cross_decode=at["whisper's decode-step cross-attention"],
                 at_whisper_decoder_self=at["whisper's decoder self-attention"],
-                at_internvl2_prefill=at["internvl2's prefill"])
+                at_internvl2_prefill=at["internvl2's prefill"],
+                at_qwen_tp4_train=at["qwen2.5-14b's TP-4 training"])
 
 
 def check_rmsnorm(gen, d_model: int) -> dict:
@@ -367,6 +388,7 @@ def check_rmsnorm(gen, d_model: int) -> dict:
         (300, 1536, torch.float32),
         (vlm_rows, 896, torch.bfloat16),  # internvl2 prefill: 256 patches + 1024 tokens
         (SERVE_BATCH, 896, torch.bfloat16),  # its decode steps
+        (rows_main, 5120, torch.bfloat16),  # qwen2.5-14b's TP-4 training (4 x 1024 rows)
     ]
     main = None
     widths = {}  # the new paths' widths at their prefill rows
@@ -384,7 +406,7 @@ def check_rmsnorm(gen, d_model: int) -> dict:
             raise AssertionError(f"rmsnorm disagrees with its plain version: {err}")
         if main is None:
             main = dict(x=x, s=s, err=err, dtype=dtype)
-        elif (rows == rows_main and d in (512, 1536, 6144, 7168, 8192)
+        elif (rows == rows_main and d in (512, 1536, 5120, 6144, 7168, 8192)
               or (rows, d) == (vlm_rows, 896)):
             widths[d] = (x, s)
 
@@ -395,7 +417,8 @@ def check_rmsnorm(gen, d_model: int) -> dict:
                            plain_ms=time_ms(lambda: ref.rmsnorm_reference(x, s)),
                            library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6)),
                            bound_ms=bound(nbytes, 4.0 * x.numel(), x.dtype)[0])
-    log("  rmsnorm at the MoE, hybrid and VLM paths' prefill widths (bf16): " + "; ".join(
+    log("  rmsnorm at the MoE, hybrid and VLM paths' prefill widths and qwen2.5-14b's TP-4 "
+        "training (bf16): " + "; ".join(
         f"d={d} ({widths[d][0].shape[0]} rows) kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.4f} ms" for d, t in by_width.items()))
@@ -600,6 +623,8 @@ def check_flash_bwd(gen) -> dict:
         (TRAIN_BATCH, 14, 2, nv + TRAIN_SEQ, nv + TRAIN_SEQ, 64, bf16, {}, "internvl2's training"),
         (TRAIN_BATCH, 48, 8, TRAIN_SEQ, TRAIN_SEQ, 128, bf16, dict(softcap=30.0),
          "grok-1's training"),
+        (TRAIN_BATCH, 10, 2, TRAIN_SEQ, TRAIN_SEQ, 128, bf16, {},
+         "qwen2.5-14b's TP-4 training"),  # a rank's 10 of 40 q heads, 2 of 8 kv heads
     ]
     timed = {}
     for B, Hq, Hkv, Sq, Sk, D, dtype, kw, what in cases:
@@ -655,7 +680,8 @@ def check_flash_bwd(gen) -> dict:
                 at_whisper_cross=at["whisper's cross-attention"],
                 at_whisper_decoder_self=at["whisper's decoder self-attention"],
                 at_internvl2_train=at["internvl2's training"],
-                at_grok_train=at["grok-1's training"])
+                at_grok_train=at["grok-1's training"],
+                at_qwen_tp4_train=at["qwen2.5-14b's TP-4 training"])
 
 
 def launch_split(fn, what: str, calls: int = 5) -> dict:
@@ -750,6 +776,7 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
         (rows_main, 512, torch.bfloat16, "train"),  # its kv_norm
         (rows_main, 6144, torch.bfloat16, "train"),  # grok-1
         (vlm_rows, 896, torch.bfloat16, "train"),  # internvl2: 256 patches + 1024 tokens
+        (rows_main, 5120, torch.bfloat16, "train"),  # qwen2.5-14b at TP 4: ln1, ln2, final
     ]
     main = determinism_args = None
     widths = {}  # the new training paths' widths
@@ -797,7 +824,8 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
                                y, (xl, sl), g, retain_graph=True)),
                            bound_ms=t_bound, bound_by=t_by, max_abs_err=case["err"])
         del xl, sl, y
-    log("  rmsnorm_bwd at the MoE and VLM training paths' widths (bf16): " + "; ".join(
+    log("  rmsnorm_bwd at the MoE, VLM and qwen2.5-14b TP-4 training paths' widths (bf16): "
+        + "; ".join(
         f"d={d} ({t['rows']} rows) kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
         f"library (rms_norm backward) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
         f"by {t['bound_by']}"
@@ -2296,6 +2324,317 @@ def dist_rank(rank: int, world: int, workdir: str) -> int:
         shutdown()
 
 
+# ---------------------------------------------------------------------------
+# the model axis: tensor and expert parallelism
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "qwen2.5-14b"
+TP_RANK_TIMEOUT_S = 600
+TP_REF_LAYERS = 2  # the fp32 check's cut of qwen2.5-14b's 48 layers
+
+
+def tp_ranks(cards: int, smi: str) -> dict:
+    """The ``tp:`` phase: ranks of the model axis, each this script with
+    ``--tp-rank`` (:func:`tp_rank`); rank 0's log is printed.  On one card
+    two ranks over gloo with CUDA tensors (NCCL refuses two ranks on one
+    card: ``tools/dist_one_card_probe.py``), mesh (1, 1, 2): a check, not
+    the launcher's path.  On a host of 4 or more cards four ranks over
+    NCCL, one a card, mesh (1, 1, 4), then full qwen2.5-14b in bf16.  Every
+    rank is killed if one fails or the time runs out.  Returns rank 0's
+    kernel launches per path."""
+    world, backend = (4, "nccl") if cards >= 4 else (2, "gloo")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    torch.cuda.empty_cache()
+    procs, t0 = [], time.perf_counter()
+    try:
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.log"), "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                     "--tp-world", str(world), "--tp-backend", backend, "--dist-dir", workdir],
+                    stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        with open(os.path.join(workdir, "rank0.log")) as f:
+            for line in f.read().splitlines():
+                log(f"    {line}")
+        failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+        for r, _ in failed[:1]:
+            if r:
+                with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                    log(f"    rank {r}: {f.read()[-3000:]}")
+        launched = {}
+        if not failed:
+            with open(os.path.join(workdir, "launches.json")) as f:
+                launched = json.load(f)
+        shutil.rmtree(workdir, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"the tp phase failed: ranks and exit codes {failed}")
+    log(f"  tp phase: {world} ranks over {backend} in {time.perf_counter() - t0:.1f} s; {smi}")
+    return launched
+
+
+def tp_launch_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches}
+
+
+def tp_zero_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    rmsnorm.launches = rmsnorm_bwd.launches = 0
+
+
+def tp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
+    """qwen2.5-14b at full width cut to TP_REF_LAYERS layers in fp32, one
+    row of TRAIN_REF_SEQ tokens: one hierarchical step with ZeRO-1 on the
+    model axis against the single-device ``train_step`` on the same card
+    from the same seed (``init_state`` gives each rank its slices of the
+    weights ``api.init`` draws).  Each rank holds its slices: the loss, the
+    grad norm, the parameters where |g| > 1e-3 max|g| of the leaf, and the
+    gradient read from its moment slice within 1e-3 max|g|.  With
+    ``sequential`` (ranks sharing a card) the ranks build the reference one
+    after the other.  Returns the kernels' launches of the step."""
+    from repro_torch import configs
+    from repro_torch.models import get_api
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step, \
+        train_step
+
+    cfg = configs.get_config(TP_ARCH).replace(num_layers=TP_REF_LAYERS, param_dtype="float32",
+                                              compute_dtype="float32")
+    batch = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=1, seq=TRAIN_REF_SEQ),
+                          model_cfg=cfg).batch_at(0)
+    opt = OptConfig(**TRAIN_OPT)
+    b1, dev = opt.beta1, mesh.device
+    t0 = time.perf_counter()
+    step = make_train_step(get_api(cfg, dev, mesh=mesh), cfg, opt, mesh,
+                           TrainHparams(hierarchical=True, zero1=True), batch)
+    # the reference first, keeping this rank's slices of its parameters and
+    # moments (the whole model, its gradients and moments are 16 bytes a
+    # parameter: ranks sharing a card take turns)
+    keep = {}
+    for turn in range(world if sequential else 1):
+        if sequential:
+            torch.distributed.barrier()
+        if sequential and turn != rank:
+            continue
+        model = get_api(cfg, dev).init(seed=1)
+        opt_state = adamw_init(model)
+        ref = {k: v.item() for k, v in train_step(model, opt_state, batch_to_torch(
+            batch, dev), opt).items()}
+        g_of = (1 - b1) * min(1.0, opt.clip_norm / max(ref["grad_norm"], 1e-9))
+        for (key, p_ref), (_, m_ref) in zip(jax_keyed(dict(model.named_parameters()), cfg),
+                                            jax_keyed(opt_state["m"], cfg)):
+            keep[key] = (step.model_slice(key, p_ref).clone(),
+                         step.model_slice(key, m_ref) / g_of, (m_ref.abs().max() / g_of).item())
+        del model, opt_state, p_ref, m_ref
+        torch.cuda.empty_cache()
+    if sequential:
+        torch.distributed.barrier()
+    t1 = time.perf_counter()
+    state = step.init_state(seed=1)
+    tp_zero_counts()
+    metrics = {k: v.item() for k, v in step(state, batch_to_torch(batch, dev)).items()}
+    launches = tp_launch_counts()
+    t2 = time.perf_counter()
+    comm = step.comm
+    named = {n: p.detach() for n, p in state["model"].named_parameters()}
+    held = sum(p.numel() for p in named.values())
+    g_tp = (1 - b1) * min(1.0, opt.clip_norm / max(metrics["grad_norm"], 1e-9))
+    lr, p_err, g_err = ref["lr"], 0.0, 0.0
+    for key, names in step.leaves.items():
+        mine = (torch.stack([named[n] for n in names]) if isinstance(names, tuple)
+                else named[names])
+        p_ref, g_ref, top = keep.pop(key)
+        big = g_ref.abs() > 1e-3 * top
+        if big.any():
+            p_err = max(p_err, (mine - p_ref)[big].abs().max().item())
+        g = state["opt"]["m"][key] / g_tp  # data 1: the moments are the model slice
+        g_err = max(g_err, ((g - g_ref).abs().max() / (1e-3 * top)).item())
+        del mine, p_ref, g_ref
+    loss_err = abs(metrics["loss"] - ref["loss"]) / abs(ref["loss"])
+    norm_err = abs(metrics["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    ok = (loss_err <= 1e-5 and norm_err <= 1e-4 and p_err <= 1e-2 * lr
+          and g_err <= 1)
+    log(f"rank {rank} of mesh {tuple(mesh.shape)} ({mesh.device}): {cfg.name} at full width cut "
+        f"to {cfg.num_layers} layers, fp32, 1 x {TRAIN_REF_SEQ} tokens; holds {held / 1e9:.3f} B "
+        f"of {sum(int(np.prod(s)) for s in step.shapes.values()) / 1e9:.3f} B parameters; the "
+        f"reference {t1 - t0:.1f} s, init_state and the step {t2 - t1:.1f} s (first call); "
+        f"hierarchical step with ZeRO-1 "
+        f"vs the single-device train_step on the card: loss {metrics['loss']:.6f} / "
+        f"{ref['loss']:.6f} (rel err {loss_err:.3g}, tol 1e-5), grad norm "
+        f"{metrics['grad_norm']:.6g} / {ref['grad_norm']:.6g} (rel err {norm_err:.3g}, tol 1e-4), "
+        f"its parameter slices where |g| > 1e-3 max|g| max_abs_err {p_err:.3g} (tol "
+        f"{1e-2 * lr:.3g}, 1e-2 x lr), its moment slices' gradient at {g_err:.3g} of "
+        f"1e-3 max|g|: {'ok' if ok else 'FAIL'}")
+    if rank == 0:
+        log(f"collectives of the step per axis (calls, bytes handed in): {comm}; launches "
+            f"{launches}")
+    if not ok:
+        raise AssertionError(f"rank {rank}: the model-axis step disagrees with the single-device "
+                             "step")
+    return launches
+
+
+def tp_train(mesh, rank: int, world: int) -> dict:
+    """Full qwen2.5-14b in bf16 on the model axis (one rank a card), batch
+    TRAIN_BATCH x TRAIN_SEQ of the affine data, TRAIN_STEPS hierarchical
+    steps with ZeRO-1: step ms (median of steps 1..), tok/s, peak memory a
+    rank, the kernels' launches a step against the path's, ``comm`` per
+    axis.  Full depth; a cut would be printed.  Returns the launches."""
+    from repro_torch import configs
+    from repro_torch.models import get_api
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step
+
+    cfg = configs.get_config(TP_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                    mode="affine"), model_cfg=cfg)
+    step = make_train_step(get_api(cfg, mesh.device, mesh=mesh), cfg, OptConfig(**TRAIN_OPT),
+                           mesh, TrainHparams(hierarchical=True, zero1=True), data.batch_at(0))
+    t0 = time.perf_counter()
+    state = step.init_state(seed=0)
+    torch.cuda.synchronize()
+    held = sum(p.numel() for p in state["model"].parameters())
+    if rank == 0:
+        log(f"{cfg.name}: {cfg.num_layers} layers (full depth), bf16, {held / 1e9:.3f} B of "
+            f"{sum(int(np.prod(s)) for s in step.shapes.values()) / 1e9:.3f} B parameters a rank, "
+            f"initialised in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    batches = [batch_to_torch(data.batch_at(i), mesh.device) for i in range(TRAIN_STEPS)]
+    tp_zero_counts()
+    losses, ms = [], []
+    for i in range(TRAIN_STEPS):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        if i == TRAIN_STEPS - 1:  # the last step records each model-axis collective
+            step.axis.log = []
+        t0 = time.perf_counter()
+        metrics = step(state, batches[i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = tp_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(ms[1:])
+    parts = tp_step_parts(step, state, batches[0], med)
+    if rank == 0:
+        log(parts)
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    want = {k: v for k, v in expected_launches(cfg, "train").items() if k in per_step}
+    by_kind = {}
+    for what, shape, nbytes in step.axis.log:
+        c = by_kind.setdefault((what, shape), [0, 0])
+        c[0], c[1] = c[0] + 1, c[1] + nbytes
+    step.axis.log = None
+    if rank == 0:
+        log("model-axis collectives of one step by kind and shape (calls, bytes), largest first: "
+            + "; ".join(f"{w} {s}: {n}, {b}" for (w, s), (n, b) in
+                        sorted(by_kind.items(), key=lambda kv: -kv[1][1])))
+        log(f"losses {[round(x, 4) for x in losses]}")
+        log(f"step {med:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}; step 0 {ms[0]:.1f} ms), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tok/s, peak device memory {peak:.2f} GiB "
+            f"on rank 0; launches per step {per_step}; collectives per step (calls, bytes handed "
+            f"in) {step.comm}")
+    peaks = [torch.zeros((), device=mesh.device) for _ in range(world)]
+    torch.distributed.all_gather(peaks, torch.tensor(peak, device=mesh.device))
+    if rank == 0:
+        log(f"peak device memory per rank: {[round(p.item(), 2) for p in peaks]} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"the losses are not finite: {losses}")
+    if per_step != want:
+        raise AssertionError(f"kernel launches per step {per_step} != {want} implied by the path")
+    return launches
+
+
+def tp_step_parts(step, state, batch, step_ms: float) -> str:
+    """Where a model-axis step's time goes: one forward and backward alone
+    (``_accum_grads``, the model axis's collectives in it), the rest of the
+    step (the data axes' collectives and AdamW on the rank's slices), and a
+    residual all-reduce over ``model`` alone (median of 20, CUDA events)."""
+    from repro_torch.train.trainstep import _accum_grads
+
+    cfg = step.cfg
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = _accum_grads(state["model"], step.local_batch(batch), 1)
+    torch.cuda.synchronize()
+    fwd_bwd = (time.perf_counter() - t0) * 1e3
+    del loss, grads
+    x = torch.zeros((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), dtype=cfg.cdtype, device=step.mesh.device)
+    group = step.groups["model"]
+    times = []
+    for _ in range(23):
+        torch.distributed.barrier(group=group)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.distributed.all_reduce(x, group=group)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ar = statistics.median(times[3:])
+    per_step = 4 * cfg.num_layers
+    return (f"a step's parts: forward and backward alone {fwd_bwd:.1f} ms, the rest of the step "
+            f"(data axes, AdamW on the slices) {step_ms - fwd_bwd:.1f} ms; one residual "
+            f"all-reduce over model ({tuple(x.shape)} {str(x.dtype)[6:]}, "
+            f"{x.numel() * x.element_size() / 1e6:.1f} MB) {ar:.3f} ms, x {per_step} a step "
+            f"(4 a layer) = {ar * per_step:.1f} ms")
+
+
+def tp_rank(rank: int, world: int, backend: str, workdir: str) -> int:
+    """One rank of :func:`tp_ranks`: the fp32 check, then on 4 cards the
+    bf16 run; rank 0 writes the launches of each path."""
+    from repro_torch.launch.mesh import make_mesh, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one_card = backend == "gloo"
+    mesh = make_mesh((1, 1, world), ("pod", "data", "model"),
+                     device="cuda:0" if one_card else f"cuda:{rank}",
+                     init_method=f"file://{workdir}/store", world_size=world, rank=rank,
+                     **({"backend": "gloo"} if one_card else {}))
+    try:
+        what = ("2 ranks on one card over gloo (a check, not the launcher's path)" if one_card
+                else f"{world} ranks over NCCL, one a card")
+        if rank == 0:
+            log(f"mesh (pod, data, model) = {tuple(mesh.shape)}, {what}")
+            if not one_card:
+                for argv in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink", "-s", "-i", "0"]):
+                    res = subprocess.run(argv, capture_output=True, text=True, timeout=60)
+                    log(f"{' '.join(argv)}: " + (res.stdout + res.stderr).strip()[:1500])
+        launched = {f"tp {TP_ARCH} fp32 {TP_REF_LAYERS}-layer check, mesh {tuple(mesh.shape)}":
+                    tp_check(mesh, rank, world, sequential=one_card)}
+        if not one_card:
+            launched[f"tp {TP_ARCH} bf16 train, mesh {tuple(mesh.shape)}"] = \
+                tp_train(mesh, rank, world)
+        if rank == 0:
+            with open(os.path.join(workdir, "launches.json"), "w") as f:
+                json.dump(launched, f)
+        return 0
+    finally:
+        shutdown()
+
+
 def ptxas_report(build_log: str) -> list:
     """One line per kernel instantiation from ``nvcc -Xptxas -v``: its name
     and template arguments, registers, shared memory and spills."""
@@ -2333,12 +2672,15 @@ def dist_phase(gemma, smi: str, single_ms) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("dist", "ranks"),
-                    help="the device and build phases, then only the dist phase or its "
-                         "multi-rank check")
+    ap.add_argument("--only", choices=("dist", "ranks", "tp"),
+                    help="the device and build phases, then only the dist phase, its "
+                         "multi-rank check or the tp phase")
     ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)  # a rank of dist_ranks
     ap.add_argument("--dist-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # a rank of tp_ranks
+    ap.add_argument("--tp-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-backend", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2347,6 +2689,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(root, "src"))
     if args.dist_rank is not None:
         return dist_rank(args.dist_rank, args.dist_world, args.dist_dir)
+    if args.tp_rank is not None:
+        return tp_rank(args.tp_rank, args.tp_world, args.tp_backend, args.dist_dir)
     from repro_torch import configs
     from repro_torch.kernels import build
 
@@ -2369,9 +2713,11 @@ def main(argv=None) -> int:
 
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     if args.only:
-        log("dist:")
+        log("tp:" if args.only == "tp" else "dist:")
         if args.only == "dist":
             dist_phase(gemma, smi, None)
+        elif args.only == "tp":
+            tp_ranks(torch.cuda.device_count(), smi)
         else:
             dist_ranks(torch.cuda.device_count())
         print(smi)
@@ -2437,6 +2783,9 @@ def main(argv=None) -> int:
     log("dist:")
     torch.cuda.empty_cache()
     launched[f"dist {gemma.name}"] = dist_phase(gemma, smi, step_ms[gemma.name])
+    log("tp:")
+    torch.cuda.empty_cache()
+    launched.update(tp_ranks(torch.cuda.device_count(), smi))
     # each kernel's launches in the run of the path that drives it; the
     # forward kernels run in serving and training alike
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],

@@ -21,11 +21,13 @@ the card the copies go to pinned memory, which PyTorch's host allocator
 keeps for the next save.
 
 The state of a distributed step (``train.trainstep.MeshStep``) holds each
-rank's ZeRO-1 slice of the moments under JAX's keys.  Saving it gathers the
-moments and rank 0 writes the same file as a single-device save; restoring
-it, every rank reads the file and keeps its slice under the target mesh
-(JAX's elastic restore), so a checkpoint moves between world sizes and
-between the port and JAX.
+rank's ZeRO-1 slice of the moments under JAX's keys, and on a ``model``
+axis above 1 each rank's ``model`` slice of every parameter.  Saving it
+gathers the parameters and the moments whole over ``model`` and ``data``
+and rank 0 writes the same file as a single-device save; restoring it,
+every rank reads the file and keeps its slices under the target mesh
+(JAX's elastic restore), so a checkpoint moves between meshes and between
+the port and JAX.
 """
 from __future__ import annotations
 
@@ -85,39 +87,48 @@ def _snapshot(state: dict, mesh_step=None) -> Optional[Dict[str, Dict[str, torch
     """Host copies of every leaf as they are now, complete when this returns:
     the live tensors change in place on the next step, and the writer
     thread reads the copies.  With ``mesh_step`` (a sharded state) the
-    moments are gathered whole under JAX's keys, a collective every rank
-    joins, and only rank 0 gets the copies (None elsewhere)."""
+    parameters and the moments are gathered whole under JAX's keys, a
+    collective every rank joins, and only rank 0 gets the copies (None
+    elsewhere)."""
     opt = state["opt"]
     writes = mesh_step is None or dist.get_rank() == 0
 
-    def moments(tensors):
-        if mesh_step is None:
-            return {n: _host_copy(t) for n, t in tensors.items()}
+    def gathered(tensors, whole):
         out = {}
         for k, t in tensors.items():
-            whole = mesh_step.gather(k, t)  # every rank joins
+            t = whole(k, t)  # every rank joins
             if writes:
-                out[k] = _host_copy(whole)
+                out[k] = _host_copy(t)
         return out
 
-    snap = {"opt/m": moments(opt["m"]), "opt/v": moments(opt["v"])}
+    named = {n: p.detach() for n, p in state["model"].named_parameters()}
+    if mesh_step is None:
+        snap = {"params": {n: _host_copy(p) for n, p in named.items()},
+                "opt/m": {n: _host_copy(t) for n, t in opt["m"].items()},
+                "opt/v": {n: _host_copy(t) for n, t in opt["v"].items()}}
+    else:
+        stacked = {k: torch.stack([named[n] for n in names]) if isinstance(names, tuple)
+                   else named[names] for k, names in mesh_step.leaves.items()}
+        snap = {"params": gathered(stacked, mesh_step.gather_model),
+                "opt/m": gathered(opt["m"], mesh_step.gather),
+                "opt/v": gathered(opt["v"], mesh_step.gather)}
+        del stacked
     if not writes:
         return None
-    snap["params"] = {n: _host_copy(p) for n, p in state["model"].named_parameters()}
     snap["opt/step"] = _host_copy(opt["step"])
     if opt["step"].device.type == "cuda":
         torch.cuda.current_stream(opt["step"].device).synchronize()
     return snap
 
 
-def _flatten(snap: dict, cfg, jax_moments: bool = False) -> Dict[str, np.ndarray]:
+def _flatten(snap: dict, cfg, jax_keys: bool = False) -> Dict[str, np.ndarray]:
     """JAX's keys and leaves, in JAX's flattening order (keys sorted at
-    every level); ``jax_moments``: the snapshot's moments are under JAX's
-    keys already."""
+    every level); ``jax_keys``: the snapshot is under JAX's keys already."""
     flat = {}
     for prefix, _ in _GROUPS:
-        leaves = ({k: t.numpy() for k, t in snap[prefix].items()}
-                  if jax_moments and prefix != "params" else params_to_jax(snap[prefix], cfg))
+        leaves = ({k: (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+                   for k, t in snap[prefix].items()}
+                  if jax_keys else params_to_jax(snap[prefix], cfg))
         flat.update({f"{prefix}/{k}": a for k, a in leaves.items()})
     flat["opt/step"] = snap["opt/step"].numpy().astype(np.int32)
     return dict(sorted(flat.items(), key=lambda kv: kv[0].split("/")))
@@ -139,7 +150,7 @@ def save_checkpoint(
     cfg = state["model"].cfg
 
     def write():
-        flat = _flatten(snap, cfg, jax_moments=mesh_step is not None)
+        flat = _flatten(snap, cfg, jax_keys=mesh_step is not None)
         tmp = os.path.join(ckpt_dir, f".tmp_step_{step}.npz")
         np.savez(tmp, **flat)
         os.replace(tmp, os.path.join(ckpt_dir, f"step_{step}.npz"))
@@ -181,8 +192,8 @@ def restore_checkpoint(ckpt_dir: str, state: dict, step: Optional[int] = None,
     and optimizer state of ``state``, in place; returns the step.  Every
     leaf must be present with the live tensor's shape.  With ``mesh_step``
     (JAX's elastic restore, ``restore_checkpoint(shardings=)``), every rank
-    reads the file and keeps its slice of each moment under that step's
-    mesh, whatever mesh wrote it."""
+    reads the file and keeps its slice of each parameter and moment under
+    that step's mesh, whatever mesh wrote it."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -191,8 +202,11 @@ def restore_checkpoint(ckpt_dir: str, state: dict, step: Optional[int] = None,
     with np.load(os.path.join(ckpt_dir, f"step_{step}.npz")) as data:
         def group(prefix, dtype):
             tree = {k[len(prefix) + 1:]: data[k] for k in data.files if k.startswith(prefix + "/")}
-            if mesh_step is None or prefix == "params":
+            if mesh_step is None:
                 return params_from_jax(tree, model.cfg, dtype)
+            if prefix == "params":
+                return params_from_jax(tree, model.cfg, dtype, model=mesh_step.model,
+                                       index=mesh_step.model_idx)
             return {k: torch.from_numpy(np.asarray(a, dtype=np.float32)) for k, a in tree.items()}
         got = {prefix: group(prefix, dtype) for prefix, dtype in _GROUPS}
         saved_step = data["opt/step"]

@@ -18,6 +18,11 @@ flat dicts ``{key: shape}`` → ``{key: spec}``.
 
 Divisibility is checked per leaf: a dim that does not divide the axis size
 degrades to replicated — a poor layout is acceptable, a failed step is not.
+
+A rank of a ``model`` axis above 1 holds only its slice of each leaf: the
+block at its ``model`` coordinate along :func:`model_dim` (``local_shape``,
+``model_slice``), which the train step, the weight bridge and the
+checkpoints share.
 """
 from __future__ import annotations
 
@@ -74,6 +79,39 @@ def param_pspec(key: str, shape: Tuple[int, ...], model: int, is_moe: bool) -> S
     if ok(cand):
         spec[cand] = "model"
     return tuple(spec)
+
+
+def model_dim(key: str, shape: Tuple[int, ...], model: int, is_moe: bool) -> Optional[int]:
+    """The dim of JAX leaf ``key`` (global stacked ``shape``) that
+    ``param_pspec`` puts on ``model``, or None (whole on every rank)."""
+    if model <= 1:
+        return None
+    spec = param_pspec(key, tuple(shape), model, is_moe)
+    return next((d for d, a in enumerate(spec) if a == "model"), None)
+
+
+def local_shape(key: str, shape: Tuple[int, ...], mesh, is_moe: bool) -> Tuple[int, ...]:
+    """The shape of a rank's slice of JAX leaf ``key`` on ``mesh``'s
+    ``model`` axis (``mesh`` a mesh or a ``{axis: size}`` dict)."""
+    sizes = mesh if isinstance(mesh, Mapping) else mesh_axis_sizes(mesh)
+    model = sizes.get("model", 1)
+    out = list(shape)
+    d = model_dim(key, shape, model, is_moe)
+    if d is not None:
+        out[d] //= model
+    return tuple(out)
+
+
+def model_slice(key: str, shape: Tuple[int, ...], model: int, index: int,
+                is_moe: bool) -> Tuple[slice, ...]:
+    """The index of the slice of JAX leaf ``key`` that the rank at
+    ``model`` coordinate ``index`` holds."""
+    out = [slice(None)] * len(shape)
+    d = model_dim(key, shape, model, is_moe)
+    if d is not None:
+        size = shape[d] // model
+        out[d] = slice(index * size, (index + 1) * size)
+    return tuple(out)
 
 
 def param_specs(shapes: Mapping[str, Tuple[int, ...]], mesh, cfg,

@@ -14,7 +14,13 @@ per axis, and the device of this rank.  Rank r sits at the coordinates
 host devices.  The backend follows the device: NCCL for ``cuda``, one card a
 rank (``cuda:LOCAL_RANK``), gloo for ``cpu``.  There is no fallback: a
 ``cuda`` mesh without NCCL, or with fewer cards than ranks on the host,
-raises.
+raises.  Only an explicit ``backend="gloo"`` puts several ranks on one card
+(gloo runs the steps' collectives on CUDA tensors, NCCL refuses two ranks
+on one card): ``chip_smoke.py``'s one-card check of the model axis passes
+it, and neither :func:`make_host_mesh` nor the launcher does.
+
+On a mesh with a ``model`` axis above 1, :attr:`Mesh.dp_group` is the group
+over all the data axes (pod × data) at this rank's ``model`` coordinate.
 
 The process group is joined once per process (:func:`init_world`): from the
 ``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` environment that
@@ -47,6 +53,7 @@ class Mesh:
     shape: Tuple[int, ...]
     device: torch.device = torch.device("cpu")
     device_mesh: Optional[object] = None
+    dp_group: Optional[object] = None
 
     def group(self, axis: str):
         """The process group of this rank along ``axis``; its group ranks
@@ -74,15 +81,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _device(device, local_world: int) -> torch.device:
+def _device(device, local_world: int, backend: Optional[str] = None) -> torch.device:
     """This rank's device: ``cuda:LOCAL_RANK`` for ``cuda``; raises
     without NCCL or with fewer cards than the ``local_world`` ranks of the
-    host."""
+    host.  With ``backend="gloo"`` a cuda device is taken as given (index
+    0 when it has none), whatever the number of ranks on the card."""
     device = torch.device(device)
     if device.type not in _BACKEND:
         raise ValueError(f"no process-group backend for device type {device.type!r}")
     if device.type == "cpu":
         return torch.device("cpu")
+    if backend == "gloo":
+        if not torch.cuda.is_available():
+            raise RuntimeError("a cuda mesh over gloo needs a card, and this host shows none")
+        return torch.device("cuda", device.index or 0)
     if not dist.is_nccl_available():
         raise RuntimeError("a cuda mesh needs NCCL, and this torch has none")
     local = device.index if device.index is not None else int(os.environ.get("LOCAL_RANK", 0))
@@ -94,14 +106,18 @@ def _device(device, local_world: int) -> torch.device:
 
 
 def init_world(device="cuda", init_method: Optional[str] = None,
-               world_size: Optional[int] = None, rank: Optional[int] = None) -> torch.device:
-    """Join the default process group with ``device``'s backend, unless this
-    process has joined it already (then the backend must match); returns
-    this rank's device."""
+               world_size: Optional[int] = None, rank: Optional[int] = None,
+               backend: Optional[str] = None) -> torch.device:
+    """Join the default process group with ``device``'s backend (or
+    ``backend``: only ``"gloo"`` is taken, see the module docstring),
+    unless this process has joined it already (then the backend must
+    match); returns this rank's device."""
+    if backend not in (None, "gloo"):
+        raise ValueError(f"backend {backend!r}: only 'gloo' is taken explicitly")
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
                                      world_size or os.environ.get("WORLD_SIZE", 1)))
-    dev = _device(device, local_world)
-    backend = _BACKEND[dev.type]
+    dev = _device(device, local_world, backend)
+    backend = backend or _BACKEND[dev.type]
     if dist.is_initialized():
         if dist.get_backend() != backend:
             raise RuntimeError(f"the process group runs {dist.get_backend()}; a "
@@ -140,7 +156,16 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device="cuda", **in
         raise ValueError(f"a mesh of shape {layout.shape} needs {math.prod(layout.shape)} "
                          f"ranks; the world has {world}")
     dm = init_device_mesh(dev.type, layout.shape, mesh_dim_names=layout.axis_names)
-    return dataclasses.replace(layout, device=dev, device_mesh=dm)
+    dp_group = None
+    sizes = mesh_axis_sizes(layout)
+    if sizes.get("model", 1) > 1:
+        # one group over pod x data for each model coordinate, every rank
+        # creating every group in the same order
+        m = layout.axis_names.index("model")
+        ranks = np.arange(world).reshape(layout.shape)
+        dp_group, _ = dist.new_subgroups_by_enumeration(
+            [np.take(ranks, j, axis=m).ravel().tolist() for j in range(layout.shape[m])])
+    return dataclasses.replace(layout, device=dev, device_mesh=dm, dp_group=dp_group)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda", **init) -> Mesh:
@@ -152,12 +177,16 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda", **init) -> M
 
 
 def make_host_mesh(model: Optional[int] = None, device="cuda", **init) -> Mesh:
-    """(world // model, model) over ("data", "model") on every rank."""
+    """(world // model, model) over ("data", "model") on every rank; with a
+    ``model`` axis above 1, (1, world // model, model) over ("pod", "data",
+    "model")."""
     init_world(device, **init)
     model = model or 1
     world = dist.get_world_size()
     if world % model:
         raise ValueError(f"model axis {model} does not divide the world of {world}")
+    if model > 1:
+        return make_mesh((1, world // model, model), ("pod", "data", "model"), device)
     return make_mesh((world // model, model), ("data", "model"), device)
 
 

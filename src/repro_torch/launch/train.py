@@ -15,10 +15,12 @@ plane, as ``repro.launch.train`` does on one device.
    ``--ckpt-every`` steps and a final one, in the JAX package's format
    (``ckpt.manager``), and a rerun resumes from the latest one.
    Under ``python -m torch.distributed.run`` (``RANK``, ``WORLD_SIZE``,
-   ``LOCAL_RANK`` set), or with ``--hierarchical``, ``--compress`` or
-   ``--zero1``, it builds ``make_host_mesh()`` over the world (data ×
-   model 1) and trains through ``train.trainstep.make_train_step``, as
-   JAX's ``--smoke`` path does: the flat all-reduce step, or with
+   ``LOCAL_RANK`` set), or with ``--hierarchical``, ``--compress``,
+   ``--zero1`` or ``--model``, it builds ``make_host_mesh(model=)`` over
+   the world (data × model; ``--model N`` > 1: pod 1 × data × model N,
+   tensor and expert parallel over ``model``) and trains through
+   ``train.trainstep.make_train_step``, as JAX's ``--smoke`` path does:
+   the flat all-reduce step, or with
    ``--hierarchical`` the reduce-scatter / cross-pod / ZeRO-1 step
    (``--compress``: int8 values across pods; ``--zero1``: sharded moments
    in the flat step).  Each rank takes its block of the global batch; the
@@ -38,6 +40,9 @@ Runs on the card unless ``--device`` says otherwise:
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m repro_torch.launch.train --arch gemma-2b --steps 6 --batch 8 --seq 1024 \
       --hierarchical --zero1                          # NCCL, one card a rank
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch qwen2.5-14b --model 4 --hierarchical --zero1 \
+      --steps 6 --batch 4 --seq 1024                  # tensor parallel over 4 cards
 
 Every family trains with its own loss (``ModelAPI.loss``): the dense ones
 (gemma-2b, olmo-1b, gemma2-9b, qwen2.5-14b), rwkv6, the MoE ones
@@ -47,8 +52,9 @@ and internvl2-1b on ``patches`` before ``--seq`` tokens; the synthetic data
 draws the frames and patches.  jamba-1.5-large-398b does not train yet and
 raises ``NotImplementedError`` (ROADMAP B.10).  At full width one card
 holds whisper-small and internvl2-1b whole; the MoE models only cut
-(``chip_smoke.py`` cuts them).  Tensor parallelism (a model axis above 1)
-and ``fsdp`` are not ported and raise (ROADMAP A.9).
+(``chip_smoke.py`` cuts them), and qwen2.5-14b over ``--model 4``.  At
+``--model`` > 1 the families without tensor parallelism raise (rwkv6,
+jamba, whisper, internvl2: ROADMAP A.10); ``fsdp`` is not ported (A.9).
 """
 from __future__ import annotations
 
@@ -124,7 +130,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float, grad_accum: 
     :class:`~repro_torch.ckpt.manager.Writer`, None for the final save and
     on the ranks that do not write).
     """
-    api = get_api(cfg, device=mesh.device if mesh is not None else device)
+    api = get_api(cfg, device=mesh.device if mesh is not None else device, mesh=mesh)
     data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=batch, seq=seq),
                          model_cfg=cfg)
     opt = OptConfig(lr=lr, warmup_steps=5, total_steps=max(steps, 10))
@@ -203,12 +209,14 @@ def main(argv=None) -> None:
     ap.add_argument("--compress", action="store_true",
                     help="int8 cross-pod gradients (with --hierarchical)")
     ap.add_argument("--zero1", action="store_true", help="shard the AdamW moments over data")
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks of the model axis: tensor and expert parallelism")
     args = ap.parse_args(argv)
 
     flags = dict(hierarchical=args.hierarchical, compress=args.compress, zero1=args.zero1)
     mesh = None
-    if any(flags.values()) or "RANK" in os.environ:
-        mesh = make_host_mesh(device=args.device)
+    if any(flags.values()) or "RANK" in os.environ or args.model > 1:
+        mesh = make_host_mesh(model=args.model, device=args.device)
     try:
         if mesh is None or dist.get_rank() == 0:
             print(control_plane_line(args.arch, control_plane(args.arch, args.pods)))

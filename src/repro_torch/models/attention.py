@@ -31,6 +31,18 @@ takes only v.shape == k.shape, so that attention is plain torch
 (:func:`_sdpa_chunked`, JAX's ``sdpa_chunked``), and a Dq != Dv kernel is
 ROADMAP B.1's.  Decode is the absorbed form over the compressed cache.
 Its two RMSNorms (``q_norm``, ``kv_norm``) go through the RMSNorm kernel.
+
+On a rank of a ``model`` axis (``dist.tensor_parallel``), training runs
+head-parallel where the axis divides the query heads: the rank's slice of
+``wq`` (MLA: ``wuq``, ``wuk``, ``wuv``) is a set of whole heads, ``wo``
+is row-parallel and its partial sums are all-reduced, and
+``ops.attention`` launches the flash kernel at the rank's head counts.
+GQA's ``wk``/``wv`` are local where the axis divides the kv heads too;
+else (kv heads cut inside ``head_dim``, or fewer kv heads than ranks) they
+are gathered and each rank takes the kv heads its query heads read.  MLA's
+down projections and norms run on the replicated residual stream with
+gathered weights.  Where the axis does not divide the query heads, every
+rank computes the whole attention from gathered weights.
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..dist import tensor_parallel as tp
 from ..kernels import ops
 from .layers import Norm, _param, apply_rope, dense_init, softcap
 
@@ -98,17 +111,43 @@ def gqa_attention(
     prefill; a decode step attends to the slots before it)."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    axis = tp.axis_of(mod)
+    w = {n: getattr(mod, n) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+         if hasattr(mod, n)}
+    heads = axis is not None and hq % axis.size == 0 and tp.sliced(mod.wq, -1)
+    if axis is not None and cache is not None:
+        raise NotImplementedError(f"{cfg.name}: serving at a model axis of {axis.size} "
+                                  "(cache_specs) is not ported to repro_torch yet (ROADMAP A.9)")
+    if heads:  # this rank's query heads, and the kv heads they read
+        g, hq = hq // hkv, hq // axis.size
+        kv0, kv1 = axis.index * hq // g, ((axis.index + 1) * hq - 1) // g + 1
+        x = tp.copy_to(x, axis)
+        if not (hkv % axis.size == 0 and tp.sliced(mod.wk, -1)):
+            # wk/wv (and bk/bv) cut inside head_dim, or fewer kv heads than
+            # ranks: gathered whole, then the columns of kv heads kv0 .. kv1
+            for n in ("wk", "wv", "bk", "bv"):
+                if n in w:
+                    w[n] = tp.partial(w[n], axis)[..., kv0 * hd:kv1 * hd]
+        hkv = kv1 - kv0
+    elif axis is not None:  # the whole attention on every rank
+        w = {n: tp.whole(p, axis) for n, p in w.items()}
 
-    q = x @ mod.wq.to(x.dtype)
-    k = x @ mod.wk.to(x.dtype)
-    v = x @ mod.wv.to(x.dtype)
+    q = x @ w["wq"].to(x.dtype)
+    k = x @ w["wk"].to(x.dtype)
+    v = x @ w["wv"].to(x.dtype)
     if cfg.qkv_bias:
-        q = q + mod.bq.to(x.dtype)
-        k = k + mod.bk.to(x.dtype)
-        v = v + mod.bv.to(x.dtype)
+        q = q + w["bq"].to(x.dtype)
+        k = k + w["bk"].to(x.dtype)
+        v = v + w["bv"].to(x.dtype)
     q = q.reshape(B, S, hq, hd)
     k = k.reshape(B, S, hkv, hd)
     v = v.reshape(B, S, hkv, hd)
+    if heads:
+        # the kv head of each local query head; where they do not fall in
+        # equal groups, each query head gets its own copy of its kv head
+        idx = [(axis.index * hq + i) // g - kv0 for i in range(hq)]
+        if hq % hkv or idx != [i // (hq // hkv) for i in range(hq)]:
+            k, v = k[:, :, idx], v[:, :, idx]
 
     if pos is None:  # train / prefill: positions 0..S-1
         q_pos = torch.arange(S, device=x.device)
@@ -128,8 +167,8 @@ def gqa_attention(
         out = ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
     else:
         out = _decode_attention(q, ck, cv, pos, window, cfg.attn_softcap)
-    out = out.reshape(B, S, hq * hd)
-    return out @ mod.wo.to(x.dtype)
+    out = out.reshape(B, S, hq * hd) @ w["wo"].to(x.dtype)
+    return tp.reduce_from(out, axis) if heads else out
 
 
 class GQAAttention(nn.Module):
@@ -237,12 +276,26 @@ def mla_attention(
     h = cfg.num_heads
     R, nope, rdim, vdim = m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     scale = 1.0 / math.sqrt(nope + rdim)
+    axis = tp.axis_of(mod)
+    w = {n: getattr(mod, n) for n in ("wuq", "wuk", "wuv", "wo")}
+    heads = axis is not None and h % axis.size == 0 and tp.sliced(mod.wuq, -1)
+    if axis is not None and cache is not None:
+        raise NotImplementedError(f"{cfg.name}: serving at a model axis of {axis.size} "
+                                  "(cache_specs) is not ported to repro_torch yet (ROADMAP A.9)")
+    if heads:
+        h //= axis.size
+    elif axis is not None:  # the whole attention on every rank
+        w = {n: tp.whole(p, axis) for n, p in w.items()}
 
-    cq = mod.q_norm(x @ mod.wdq.to(x.dtype))
-    qfull = (cq @ mod.wuq.to(x.dtype)).reshape(B, S, h, nope + rdim)
+    # wdq and wdkv (cut along their latent columns, wdkv through its kv/rope
+    # boundary) and the norms run on the replicated residual stream: gathered
+    cq = mod.q_norm(x @ tp.whole(mod.wdq, axis).to(x.dtype))
+    if heads:
+        cq = tp.copy_to(cq, axis)
+    qfull = (cq @ w["wuq"].to(x.dtype)).reshape(B, S, h, nope + rdim)
     q_nope, q_rope = qfull[..., :nope], qfull[..., nope:]
 
-    dkv = x @ mod.wdkv.to(x.dtype)
+    dkv = x @ tp.whole(mod.wdkv, axis).to(x.dtype)
     # c_kv is a slice of rows R + rdim wide; the RMSNorm kernel takes contiguous rows
     c_kv = mod.kv_norm(dkv[..., :R].contiguous())
     k_rope = dkv[..., R:]
@@ -253,6 +306,8 @@ def mla_attention(
         q_pos = torch.arange(pos, pos + 1, device=x.device)
     q_rope = apply_rope(q_rope, q_pos, cfg.rope_theta)
     k_rope = apply_rope(k_rope[..., None, :], q_pos, cfg.rope_theta)[..., 0, :]
+    if heads:
+        c_kv, k_rope = tp.copy_to(c_kv, axis), tp.copy_to(k_rope, axis)
 
     if cache is not None:
         cc, cr = cache
@@ -272,12 +327,13 @@ def mla_attention(
         wuv = mod.wuv.to(x.dtype).reshape(R, h, vdim)
         out = torch.einsum("bqhr,rhv->bqhv", out_c, wuv)
     else:  # train / prefill: expanded
-        k_nope = (c_kv @ mod.wuk.to(x.dtype)).reshape(B, S, h, nope)
-        v = (c_kv @ mod.wuv.to(x.dtype)).reshape(B, S, h, vdim)
+        k_nope = (c_kv @ w["wuk"].to(x.dtype)).reshape(B, S, h, nope)
+        v = (c_kv @ w["wuv"].to(x.dtype)).reshape(B, S, h, vdim)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, rdim)], dim=-1)
         out = _sdpa_chunked(q, k, v, scale)
-    return out.reshape(B, S, h * vdim) @ mod.wo.to(x.dtype)
+    out = out.reshape(B, S, h * vdim) @ w["wo"].to(x.dtype)
+    return tp.reduce_from(out, axis) if heads else out
 
 
 class MLAAttention(nn.Module):

@@ -30,6 +30,13 @@ The other families' trees (``cfg.family``): whisper's (``audio``) stacks
 projector ``proj/w1``, ``proj/w2`` and, under ``lm/``, a decoder-only tree
 as above (``lm.layers.{i}`` in the port).
 
+At a ``model`` axis above 1 (``model``, ``index``), ``params_from_jax``
+keeps only the slice of each leaf that the rank at ``model`` coordinate
+``index`` holds (``dist.sharding.model_slice`` on JAX's stacked shape),
+before it unstacks the layers: the state dict of that rank's model
+(:func:`model_dims` names the dim of each port tensor that is cut).  The
+train step joins the slices back over ``model`` before ``params_to_jax``.
+
 ``params_to_jax`` is its inverse: named tensors (parameters or moments) to
 the ``"/"``-keyed flat tree, ``layers.{i}`` restacked into ``pro`` and
 ``units/l{j}`` with the leading layer or unit axis (whisper's
@@ -44,6 +51,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..dist.sharding import model_dim, model_slice
 from .registry import model_class
 from .transformer import layer_plan
 
@@ -92,11 +100,16 @@ def _port_names(key: str, cfg) -> Tuple[Any, Optional[int]]:
     return _decoder_names(parts, layer_plan(cfg))
 
 
-def params_from_jax(params: Mapping[str, Any], cfg, dtype=None) -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Mapping[str, Any], cfg, dtype=None, model: int = 1,
+                    index: int = 0) -> Dict[str, torch.Tensor]:
     """State dict of the port's model of ``cfg`` (CPU tensors in the dtypes
     of its parameters, or all in ``dtype``) from JAX params, nested or
-    "/"-flattened."""
+    "/"-flattened; at a ``model`` axis above 1, of the rank at ``model``
+    coordinate ``index``."""
     flat = _flatten(params)
+    if model > 1:
+        is_moe = cfg.moe is not None
+        flat = {k: a[model_slice(k, a.shape, model, index, is_moe)] for k, a in flat.items()}
     dtypes = {name: dtype if dtype is not None else t.dtype
               for name, t in model_class(cfg)(cfg, torch.device("meta")).state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
@@ -166,6 +179,35 @@ def jax_leaves(names, cfg) -> Dict[str, Any]:
             raise ValueError(f"{key}: a layer of the {len(per_layer)} stacked is missing")
         out[key] = tuple(per_layer)
     return dict(sorted(out.items(), key=lambda kv: kv[0].split("/")))
+
+
+def stacked_shapes(cfg):
+    """(``jax_leaves`` of the port's model of ``cfg``, JAX's global stacked
+    shape of each leaf), from the model built on the meta device."""
+    named = dict(model_class(cfg)(cfg, torch.device("meta")).named_parameters())
+    leaves = jax_leaves(named, cfg)
+    shapes = {k: (len(n),) + tuple(named[n[0]].shape) if isinstance(n, tuple)
+              else tuple(named[n].shape) for k, n in leaves.items()}
+    return leaves, shapes
+
+
+def model_dims(cfg, model: int) -> Dict[str, Optional[int]]:
+    """For each parameter name of the port's model of ``cfg``, the dim of
+    its (per-layer) tensor that a ``model`` axis of that size cuts
+    (``dist.sharding.model_dim`` on JAX's stacked leaf), or None."""
+    leaves, shapes = stacked_shapes(cfg)
+    is_moe = cfg.moe is not None
+    out: Dict[str, Optional[int]] = {}
+    for key, names in leaves.items():
+        d = model_dim(key, shapes[key], model, is_moe)
+        if isinstance(names, tuple):
+            if d == 0:
+                raise NotImplementedError(f"{key}: cut along its stacked layer axis over model")
+            d = None if d is None else d - 1
+        else:
+            names = (names,)
+        out.update((n, d) for n in names)
+    return out
 
 
 def params_to_jax(tensors: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:

@@ -10,6 +10,11 @@ Conventions
 * ``rmsnorm`` goes through :func:`repro_torch.kernels.ops.rmsnorm` (the
   Triton kernels on the card, forward and backward); the JAX model path
   computes it in XLA
+* a module built for a rank of a ``model`` axis (``models.registry.
+  local_model``) holds its parameters' slices and runs the collectives of
+  ``dist.tensor_parallel``: the norms gather their scales, the MLPs are
+  column/row-parallel, the embedding gathers the looked-up rows' pieces and
+  the fused loss is vocabulary-parallel
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..dist import tensor_parallel as tp
 from ..kernels import ops
 
 
@@ -93,7 +99,13 @@ class Norm(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return norm(x, self.kind, getattr(self, "scale", None), getattr(self, "bias", None))
+        axis = tp.axis_of(self)
+        scale, bias = getattr(self, "scale", None), getattr(self, "bias", None)
+        # the norm runs on the replicated residual stream: a scale (and bias)
+        # cut along d_model over the model axis is gathered whole
+        scale = scale if scale is None else tp.whole(scale, axis)
+        bias = bias if bias is None else tp.whole(bias, axis)
+        return norm(x, self.kind, scale, bias)
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +156,19 @@ class MLP(nn.Module):
                 dense_init(w.data, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp(x, self.kind, self.wi, self.wo, getattr(self, "wg", None))
+        return mlp_parallel(self, x, self.kind)
+
+
+def mlp_parallel(mod: nn.Module, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """:func:`mlp` of ``mod``'s ``wi``/``wg``/``wo`` on a rank of its model
+    axis: column-parallel ``wi``/``wg`` and row-parallel ``wo`` where the
+    rank holds a slice of the FFN columns, then the all-reduce; the whole
+    MLP on every rank where ``d_ff`` does not divide the axis."""
+    axis, wg = tp.axis_of(mod), getattr(mod, "wg", None)
+    if axis is not None and tp.sliced(mod.wi, -1):
+        y = mlp(tp.copy_to(x, axis), kind, mod.wi, mod.wo, wg)
+        return tp.reduce_from(y, axis)
+    return mlp(x, kind, mod.wi, mod.wo, wg)
 
 
 # ---------------------------------------------------------------------------
@@ -194,19 +218,39 @@ class Embed(nn.Module):
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = F.embedding(tokens, self.tok).to(cfg.cdtype)
+        x = F.embedding(tokens, self.tok)
+        if tp.sliced(self.tok, -1):
+            # embed/tok cut along d_model: each rank looks up its columns of
+            # the rows, and the rows' pieces are gathered (B x S x d moved,
+            # not the V x d table)
+            x = tp.gather_whole(x, -1, tp.axis_of(self))
+        x = x.to(cfg.cdtype)
         if cfg.embed_scale:
             # the constant is rounded to the compute dtype first, as in JAX
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype, device=x.device)
         return x
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """fp32 logits (..., V)."""
+        """fp32 logits (..., V), the whole vocabulary on every rank of a
+        model axis (the loss takes :meth:`unembed_weight` instead)."""
+        axis = tp.axis_of(self)
         if self.cfg.tie_embeddings:
-            logits = x @ self.tok.to(x.dtype).T
+            logits = x @ tp.whole(self.tok, axis).to(x.dtype).T
         else:
-            logits = x @ self.out.to(x.dtype)
+            logits = x @ tp.whole(self.out, axis).to(x.dtype)
         return softcap(logits.float(), self.cfg.logit_softcap)
+
+    def unembed_weight(self):
+        """(w (d, V_r), v0): this rank's vocabulary slice of the (d, V)
+        unembedding, columns v0 .. v0 + V_r, on a model axis that divides V:
+        ``embed/out`` cut along V, or the rows of a tied ``embed/tok``."""
+        axis = self.tp
+        if self.cfg.tie_embeddings:
+            # embed/tok (V, d) cut along d_model: gathered whole (its gradient
+            # reduce-scattered back), then this rank's vocabulary rows
+            rows = axis.own(tp.partial(self.tok, axis), 0)
+            return rows.T, axis.index * rows.shape[0]
+        return self.out, axis.index * self.out.shape[1]
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +276,21 @@ def _chunk_nll(embed: Embed, h: torch.Tensor, targets: torch.Tensor) -> torch.Te
     return _nll(embed.unembed(h), targets)  # (B, chunk), from fp32 softcapped logits
 
 
+def _chunk_nll_parallel(w: torch.Tensor, v0: int, cap, axis, h: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+    """The NLL (B, chunk) of a rank's vocabulary slice ``w`` (d, V_r), from
+    v0: the max, the sum of exponentials and the gold logit reduced over
+    the model axis."""
+    logits = softcap((h @ w.to(h.dtype)).float(), cap)
+    top = axis.all_reduce(logits.detach().amax(dim=-1), op=torch.distributed.ReduceOp.MAX)
+    sumexp = tp.reduce_from(torch.exp(logits - top[..., None]).sum(dim=-1), axis)
+    t = targets.long() - v0
+    inside = (t >= 0) & (t < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(inside, t, 0)[..., None])[..., 0]
+    gold = tp.reduce_from(torch.where(inside, gold, 0.0), axis)
+    return top + torch.log(sumexp) - gold
+
+
 def cross_entropy_fused(h: torch.Tensor, embed: Embed, targets: torch.Tensor, mask=None,
                         chunk: int = 512) -> torch.Tensor:
     """Fused unembed + NLL, chunked over the sequence (``cross_entropy_fused``
@@ -241,15 +300,26 @@ def cross_entropy_fused(h: torch.Tensor, embed: Embed, targets: torch.Tensor, ma
     reduced to (lse, gold) and dropped, and ``torch.utils.checkpoint``
     recomputes them chunk by chunk in the backward pass.  The chunk is
     ``chunk``, or gcd(S, chunk) when S is not a multiple of it, or S when
-    S < chunk, as in JAX."""
+    S < chunk, as in JAX.  On a rank of a model axis that divides the
+    vocabulary the loss is vocabulary-parallel
+    (:meth:`Embed.unembed_weight`): each chunk's logits are the rank's
+    vocabulary slice, and the recomputation repeats the chunk's
+    collectives."""
     B, S, d = h.shape
     if S % chunk:
         chunk = S if S < chunk else math.gcd(S, chunk)
+    axis = tp.axis_of(embed)
+    if axis is None or embed.cfg.vocab_size % axis.size:  # the whole vocabulary
+        fn, lead = _chunk_nll, (embed,)
+    else:
+        w, v0 = embed.unembed_weight()
+        h = tp.copy_to(h, axis)
+        fn, lead = _chunk_nll_parallel, (w, v0, embed.cfg.logit_softcap, axis)
     tot = h.new_zeros((), dtype=torch.float32)
     cnt = h.new_zeros((), dtype=torch.float32)
     for c0 in range(0, S, chunk):
-        hx, tx = h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
-        nll = torch.utils.checkpoint.checkpoint(_chunk_nll, embed, hx, tx, use_reentrant=False)
+        nll = torch.utils.checkpoint.checkpoint(fn, *lead, h[:, c0:c0 + chunk],
+                                                targets[:, c0:c0 + chunk], use_reentrant=False)
         if mask is not None:
             mx = mask[:, c0:c0 + chunk].to(torch.float32)
             tot = tot + (nll * mx).sum()

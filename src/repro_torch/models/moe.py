@@ -17,6 +17,15 @@ token gathers its k outputs through the inverse of the dispatch table and
 adds them in k order, so no atomics are involved and two runs on the card
 give the same bits.  The Switch-style auxiliary loss comes from the softmax
 of the router logits for both routers, as in JAX.
+
+On a rank of a ``model`` axis (``dist.tensor_parallel``) the routing runs
+on the replicated residual stream with the router gathered whole (JAX cuts
+its expert columns), so the dispatch table is the same on every rank of
+the axis.  Where the axis divides the experts (expert parallelism) each
+rank runs its own experts' rows of the table; else, where it divides the
+experts' FFN width, every expert on its column slice.  Either way the
+combine is a partial sum that is all-reduced.  The shared experts are
+column/row-parallel MLPs.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MLP, _param, dense_init, mlp, stacked_init
+from ..dist import tensor_parallel as tp
+from .layers import MLP, _param, dense_init, mlp_parallel, stacked_init
 
 
 class Routing(NamedTuple):
@@ -44,7 +54,9 @@ def route(mod: "MoE", xt: torch.Tensor, cfg, capacity: Optional[int] = None) -> 
     e = cfg.moe
     T = xt.shape[0]
     E, k = e.num_experts, e.top_k
-    logits = xt.float() @ mod.router.float()
+    # the router, cut along its expert columns over the model axis, is
+    # gathered whole: the routing runs on the replicated residual stream
+    logits = xt.float() @ tp.whole(mod.router, tp.axis_of(mod)).float()
     scores = torch.sigmoid(logits) if e.router == "sigmoid" else torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(scores, k, dim=-1)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -95,20 +107,35 @@ def moe_mlp(mod: "MoE", x: torch.Tensor, cfg,
     E, C = r.dispatch.shape
 
     xpad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    out = _expert_ffn(mod, xpad[r.dispatch], cfg)  # (E, C, d)
-    out = out * r.gates_ec[..., None].to(out.dtype)
+    dispatch, gates, slot = r.dispatch, r.gates_ec, r.slot
+    axis = tp.axis_of(mod)
+    # the rank's experts (expert dim cut) or every expert on its FFN columns;
+    # where the axis divides neither, the stacks are whole on every rank
+    split = axis is not None and (tp.sliced(mod.wi, 0) or tp.sliced(mod.wi, -1))
+    if split:
+        xpad, gates = tp.copy_to(xpad, axis), tp.copy_to(gates, axis)
+    if split and tp.sliced(mod.wi, 0):
+        e0, e1 = axis.index * mod.wi.shape[0], (axis.index + 1) * mod.wi.shape[0]
+        dispatch, gates = dispatch[e0:e1], gates[e0:e1]
+        # a pick of another rank's expert reads the zero row
+        slot = torch.where((slot >= e0 * C) & (slot < e1 * C), slot - e0 * C, (e1 - e0) * C)
+        E = e1 - e0
+    out = _expert_ffn(mod, xpad[dispatch], cfg)  # (E, C, d)
+    out = out * gates[..., None].to(out.dtype)
 
     # combine: each token's k outputs through the inverse of the dispatch
     # table (a dropped pick reads the zero row), added in k order
     out = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))], dim=0)
     y = out.new_zeros((T, d))
-    for j in range(r.slot.shape[1]):
-        y = y + out[r.slot[:, j]]
+    for j in range(slot.shape[1]):
+        y = y + out[slot[:, j]]
+    if split:
+        y = tp.reduce_from(y, axis)
 
     if cfg.moe.num_shared:
         sh = mod.shared
-        wg = getattr(sh, "wg", None)  # JAX's shared experts gate with silu whatever mlp_kind
-        y = y + mlp(xt, "swiglu" if wg is not None else "gelu", sh.wi, sh.wo, wg)
+        # JAX's shared experts gate with silu whatever mlp_kind
+        y = y + mlp_parallel(sh, xt, "swiglu" if hasattr(sh, "wg") else "gelu")
     return y.reshape(B, S, d), r.aux
 
 

@@ -8,16 +8,27 @@ jamba's hybrid of GQA and Mamba layers), whisper's encoder-decoder
 (``audio``: prefill reads ``batch["frames"]``) and internvl2's VLM
 (``vlm``: prefill reads ``batch["patches"]``).  Entry points run on
 ``cuda`` unless the caller passes another device.
+
+With a ``mesh`` whose ``model`` axis is above 1, :func:`get_api` gives the
+API of one rank of the tensor- and expert-parallel model
+(``dist.tensor_parallel``): ``init(seed)`` builds the rank's modules at
+their local shapes and fills them with its slices of the very weights
+that ``init(seed)`` gives at ``model`` 1, drawn one module at a time on
+the device, so no rank ever holds the whole model.  It trains (``loss``);
+serving a sharded model (``cache_specs``) is ROADMAP A.9's, and the
+families without tensor parallelism raise (ROADMAP A.10).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from .. import configs as _configs
+from ..dist.tensor_parallel import ModelAxis
 from .config import MLAConfig, MambaConfig, ModelConfig, RWKVConfig
 from . import transformer, vlm, whisper
 
@@ -85,6 +96,7 @@ class ModelAPI:
     prefill: Callable  # (model, batch, cache, last_only) -> (logits, cache)
     decode: Callable  # (model, tokens, cache) -> (logits, cache)
     init_cache: Callable  # (batch, s_max) -> cache
+    axis: Optional[ModelAxis] = None  # the model axis of a rank (None: the whole model)
 
 
 def model_class(cfg: ModelConfig):
@@ -109,15 +121,80 @@ def loss_fn(cfg: ModelConfig) -> Callable:
     return transformer.lm_loss
 
 
-def get_api(cfg: ModelConfig, device="cuda") -> ModelAPI:
-    """The model API of ``cfg``'s arch on ``device``."""
+# the families whose modules run tensor and expert parallelism
+TP_FAMILIES = ("dense", "moe")
+
+
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+    """Raise ``NotImplementedError`` for a ``model`` axis above 1 where
+    ``cfg``'s family has no tensor parallelism in the port."""
+    if model > 1 and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family at a model axis of {model}: tensor "
+            "parallelism for rwkv6, Mamba, whisper and the VLM is not ported to repro_torch "
+            "yet (ROADMAP A.10)")
+
+
+def local_model(cfg: ModelConfig, device, axis: ModelAxis) -> nn.Module:
+    """The modules of one rank of ``axis``, parameters uninitialised at their
+    local shapes on ``device``: each parameter carries ``tp_dim``, the dim
+    of the slice it holds (``models.convert.model_dims``), and each module
+    ``tp``, the axis."""
+    from .convert import model_dims
+
+    dims = model_dims(cfg, axis.size)
+    model = model_class(cfg)(cfg, torch.device("meta"))
+    for prefix, mod in model.named_modules():
+        mod.tp = axis
+        for name, p in list(mod._parameters.items()):
+            dim = dims[f"{prefix}.{name}" if prefix else name]
+            shape = list(p.shape)
+            if dim is not None:
+                shape[dim] //= axis.size
+            local = nn.Parameter(torch.empty(shape, dtype=p.dtype, device=device))
+            local.tp_dim = dim
+            mod._parameters[name] = local
+    return model
+
+
+@torch.no_grad()
+def init_local(model: nn.Module, seed: int, device) -> nn.Module:
+    """Fill a :func:`local_model` with its slices of ``init(seed)``'s
+    weights: the whole model's modules are drawn one at a time on
+    ``device`` from the same generator, in the same order, and dropped once
+    their slices are kept."""
+    whole = model_class(model.cfg)(model.cfg, torch.device("meta"))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    local = dict(model.named_parameters())
+    for prefix, mod in whole.named_modules():
+        if mod is whole or not hasattr(mod, "reset_parameters"):
+            continue
+        mod.to_empty(device=device, recurse=False)
+        mod.reset_parameters(gen)
+        for name, p in mod.named_parameters(recurse=False):
+            q = local[f"{prefix}.{name}"]
+            q.copy_(p if q.tp_dim is None else model.tp.own(p, q.tp_dim))
+        mod.to_empty(device="meta", recurse=False)
+    return model
+
+
+def get_api(cfg: ModelConfig, device="cuda", mesh=None) -> ModelAPI:
+    """The model API of ``cfg``'s arch on ``device``; with ``mesh`` (a
+    built ``launch.mesh.Mesh``), of this rank of its ``model`` axis."""
     transformer.check_supported(cfg)
     device = torch.device(device)
     cls = model_class(cfg)
+    axis = None
+    if mesh is not None:
+        check_model_axis(cfg, dict(zip(mesh.axis_names, mesh.shape)).get("model", 1))
+        axis = ModelAxis.of(mesh)
 
     def init(seed: int = 0):
         """Random weights from ``torch.Generator(seed)`` on ``device``, with
-        the JAX initialiser's distributions."""
+        the JAX initialiser's distributions (this rank's slices of them on
+        a model axis)."""
+        if axis is not None:
+            return init_local(local_model(cfg, device, axis), seed, device)
         model = cls(cfg, device)
         model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
         return model
@@ -147,7 +224,13 @@ def get_api(cfg: ModelConfig, device="cuda") -> ModelAPI:
     def decode_step(model, tokens, cache):
         return model(tokens, cache=cache, mode="decode")
 
-    return ModelAPI(cfg, device, init, loss_fn(cfg), prefill, decode_step, make_cache)
+    if axis is not None:
+        def make_cache(batch, s_max):
+            raise NotImplementedError(
+                f"{cfg.name}: serving at a model axis of {axis.size} (cache_specs) is not "
+                "ported to repro_torch yet (ROADMAP A.9)")
+
+    return ModelAPI(cfg, device, init, loss_fn(cfg), prefill, decode_step, make_cache, axis)
 
 
 def modality_inputs(cfg: ModelConfig, rng: np.random.Generator, batch: int) -> Dict[str, np.ndarray]:

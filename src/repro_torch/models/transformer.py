@@ -26,6 +26,13 @@ Prefill and decode write it in place.
 The forward sums the MoE layers' auxiliary losses (zero without MoE);
 ``return_aux`` returns the sum, and ``lm_loss`` adds 0.01 x it for MoE
 configs, as JAX's ``lm_loss`` does.
+
+For a rank of a ``model`` axis, :class:`DecoderLM` and its blocks are built
+by ``models.registry.local_model``: the same modules, each parameter a
+slice of JAX's leaf, and the layers (``layers.py``, ``attention.py``,
+``moe.py``) run the axis's collectives around the replicated residual
+stream.  Such a model trains; its cache path raises (sharded serving is
+ROADMAP A.9's).
 """
 from __future__ import annotations
 

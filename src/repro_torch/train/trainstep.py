@@ -13,9 +13,13 @@ width, and waits for a scan kernel with its backward (ROADMAP B.10).
 :func:`train_step` is the single-device step; of :class:`TrainHparams` it
 honours ``grad_accum`` only, and the distributed flags raise there.
 
-:func:`make_train_step` builds the distributed steps over the data axes of a
-mesh (``launch.mesh``: ``pod`` × ``data``, ``model`` = 1), one process a
-rank, every rank holding the whole model:
+:func:`make_train_step` builds the distributed steps over a mesh
+(``launch.mesh``: ``pod`` × ``data`` × ``model``), one process a rank.
+Over ``model`` the model is tensor and expert parallel
+(``dist.tensor_parallel``, ``models.registry.get_api(mesh=)``): each rank
+holds JAX's ``param_pspec`` slice of every leaf and the forward and
+backward run the model axis's collectives.  Over the data axes each
+rank holds the same slices as the others at its ``model`` coordinate:
 
 * the flat baseline (JAX's ``make_pjit_step``, the paper-faithful data
   plane): one all-reduce of each gradient over pod × data, the mean, then
@@ -30,9 +34,14 @@ rank, every rank holding the whole model:
 With ``zero1`` (always in the hierarchical step) each rank keeps the AdamW
 moments of its slice only: the moments are keyed by JAX's leaf keys and
 cut along JAX's layer-stacked shapes (``dist.sharding.zero1_specs``), so a
-rank's shard is JAX's shard at the same mesh coordinates.  Each rank takes
-the row block ``pod_idx * data + data_idx`` of the global batch
-(``batch_specs``).  The MoE families route each rank's tokens apart, in both
+rank's shard is JAX's shard at the same mesh coordinates: its ``model``
+slice cut again over ``data`` (``zero1_dim`` at the mesh's real ``model``
+size).  The global gradient norm sums each model-cut leaf's squares over
+``model`` and counts each whole leaf once, as JAX's ``global_norm`` over
+the global arrays; ``compress``'s scale is the leaf's max over ``model``
+and ``pod``.  Each rank takes the row block ``pod_idx * data + data_idx``
+of the global batch (``batch_specs``); the ranks of one ``model`` group
+take the same rows.  The MoE families route each rank's tokens apart, in both
 steps, as JAX's hierarchical step does; JAX's flat step routes the global
 batch as one under GSPMD, which a data-parallel step cannot without moving
 activations.
@@ -43,8 +52,11 @@ On the CPU (gloo), four ranks:
       --hierarchical --zero1 --compress --steps 4
 On the card (NCCL, one card a rank): the same without ``--device cpu``;
 ``chip_smoke.py`` runs it at world 1 and, on a host of several cards, over
-them.  Tensor parallelism (``model`` > 1) and ``fsdp`` raise
-``NotImplementedError`` (ROADMAP A.9).
+them.  With tensor parallelism, qwen2.5-14b on 4 cards:
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen2.5-14b --model 4 --hierarchical --zero1
+``fsdp`` raises ``NotImplementedError`` (ROADMAP A.9), and so do the
+families without tensor parallelism at ``model`` > 1 (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -56,10 +68,12 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..dist.sharding import batch_specs, zero1_dim
+from ..dist.sharding import batch_specs, local_shape, model_dim, zero1_dim
+from ..dist.tensor_parallel import all_gather as _all_gather
+from ..dist.tensor_parallel import reduce_scatter as _reduce_scatter
 from ..launch.mesh import dp_axes, mesh_axis_sizes
-from ..models.convert import jax_leaves
-from ..models.registry import loss_fn, model_class
+from ..models.convert import stacked_shapes
+from ..models.registry import check_model_axis, loss_fn
 from .optimizer import (OptConfig, adamw_init, adamw_leaf, adamw_update, bias_corrections,
                         clip_scale, schedule)
 
@@ -165,75 +179,104 @@ def quantize_int8(gs: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(gs / scale * 127.0), -127, 127).to(torch.int32)
 
 
-# torch 2.13 names these ``*_single`` and deprecates the older names, which
-# are the only ones before it
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-
-
 class MeshStep:
     """The distributed train step of :func:`make_train_step`:
     ``step(state, batch)`` takes the global batch, trains ``state`` in place
     and returns ``{"loss", "lr", "grad_norm"}`` (0-dim tensors, the same on
-    every rank).  ``init_state(seed)`` builds the state: the whole model on
-    ``mesh.device`` and this rank's AdamW moments.
+    every rank).  ``init_state(seed)`` builds the state: this rank's model
+    (its ``model`` slices of every leaf, on ``mesh.device``) and its AdamW
+    moments.  ``api`` must come from ``get_api(cfg, device, mesh=mesh)``
+    where the mesh's ``model`` axis is above 1.
 
     ``leaves`` maps each JAX key to its port names (``jax_leaves``),
-    ``shapes`` to its stacked shape, ``dims`` to the dim its moments are cut
+    ``shapes`` to its global stacked shape, ``mdims`` to the dim the
+    ``model`` axis cuts (None: whole on every rank) and ``local`` to the
+    shape of this rank's slice, ``dims`` to the dim its moments are cut
     along over ``data`` (None: whole), which is where ``zero1_specs`` puts
     ``"data"``.
     ``comm`` counts the last step's collectives per axis (``"data"``,
-    ``"pod"``, and ``"pod+data"`` for the groups over both): calls, and
+    ``"pod"``, ``"model"`` — the forward's and backward's as well as the
+    step's —, and ``"pod+data"`` for the groups over both): calls, and
     bytes as the sizes of the tensors handed in (a reduce-scatter's input,
     an all-reduce's buffer, an all-gather's output)."""
 
     def __init__(self, api, cfg, opt: OptConfig, mesh, hp: TrainHparams, batch_shape):
         _check_hparams(hp, mesh=True)
         sizes = mesh_axis_sizes(mesh)
-        if sizes.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"a model axis of {sizes['model']}: tensor parallelism is not ported to "
-                "repro_torch yet (ROADMAP A.9); the steps run over the data axes")
         if "data" not in sizes:
             raise ValueError(f"the mesh {mesh.axis_names} has no data axis")
         _check_trains(cfg)
+        self.model = sizes.get("model", 1)
+        check_model_axis(cfg, self.model)
+        self.axis = api.axis
+        if (self.axis.size if self.axis is not None else 1) != self.model:
+            raise ValueError(f"the mesh's model axis is {self.model}: build the api with "
+                             "get_api(cfg, device, mesh=mesh)")
         self.api, self.cfg, self.opt, self.mesh, self.hp = api, cfg, opt, mesh, hp
         self.dp = dp_axes(mesh)
         self.data, self.pod = sizes["data"], sizes.get("pod", 1)
         self.n_dp = self.data * self.pod
 
-        named = dict(model_class(cfg)(cfg, torch.device("meta")).named_parameters())
-        self.leaves = jax_leaves(named, cfg)
-        self.shapes = {k: (len(n),) + tuple(named[n[0]].shape) if isinstance(n, tuple)
-                       else tuple(named[n].shape) for k, n in self.leaves.items()}
+        is_moe = cfg.moe is not None
+        self.leaves, self.shapes = stacked_shapes(cfg)
+        self.mdims = {k: model_dim(k, s, self.model, is_moe) for k, s in self.shapes.items()}
+        self.local = {k: local_shape(k, s, sizes, is_moe) for k, s in self.shapes.items()}
         sharded = hp.zero1 or hp.hierarchical  # JAX: zero1 specs for either
-        self.dims = {k: zero1_dim(k, s, 1, self.data, cfg.moe is not None) if sharded else None
+        self.dims = {k: zero1_dim(k, s, self.model, self.data, is_moe) if sharded else None
                      for k, s in self.shapes.items()}
         self.batch_specs = batch_specs(batch_shape, mesh)
         self.batch_rows = {k: tuple(getattr(v, "shape", v))[0] for k, v in batch_shape.items()}
 
         coords = mesh.coords()
-        self.data_idx = coords["data"]
+        self.data_idx, self.model_idx = coords["data"], coords.get("model", 0)
         self.dp_idx = coords.get("pod", 0) * self.data + self.data_idx
         self.groups = {a: mesh.group(a) for a in self.dp}
-        # with model = 1 the group over pod x data is the world
-        self.groups.setdefault("+".join(self.dp), dist.group.WORLD)
+        # the group over pod x data: the world at model 1, else this model
+        # coordinate's (a single data axis is its own group)
+        self.groups.setdefault("+".join(self.dp), mesh.dp_group if self.model > 1
+                               else dist.group.WORLD)
+        if self.model > 1:
+            self.groups["model"] = mesh.group("model")
+        # the rank at pod 0, data 0 of this rank's model coordinate
+        self.dp_src = int(np.ravel_multi_index(
+            [coords[a] if a == "model" else 0 for a in mesh.axis_names], mesh.shape))
         self.comm: Dict[str, Dict[str, int]] = {}
 
     # ---- layout ----------------------------------------------------------
-    def shard(self, key: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of JAX leaf ``key`` (a view of ``full``)."""
+    def _cut(self, key: str, local: torch.Tensor) -> torch.Tensor:
+        """This rank's ``data`` slice of its ``model`` slice ``local`` (a view)."""
         dim = self.dims[key]
         if dim is None:
-            return full
-        size = full.shape[dim] // self.data
-        return full.narrow(dim, self.data_idx * size, size)
+            return local
+        size = local.shape[dim] // self.data
+        return local.narrow(dim, self.data_idx * size, size)
+
+    def model_slice(self, key: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's ``model`` slice of JAX leaf ``key`` (a view of ``whole``)."""
+        dim = self.mdims[key]
+        if dim is None:
+            return whole
+        size = whole.shape[dim] // self.model
+        return whole.narrow(dim, self.model_idx * size, size)
+
+    def shard(self, key: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of JAX leaf ``key``'s moments (a view of
+        ``whole``): its ``model`` slice cut over ``data``."""
+        return self._cut(key, self.model_slice(key, whole))
+
+    def gather_model(self, key: str, local: torch.Tensor) -> torch.Tensor:
+        """JAX leaf ``key`` whole from every rank's ``model`` slice ``local``
+        (a collective over ``model`` where the leaf is cut)."""
+        dim = self.mdims[key]
+        return local if dim is None else self._gather(local, dim, "model", count=False)
 
     def gather(self, key: str, shard: torch.Tensor) -> torch.Tensor:
-        """JAX leaf ``key`` whole from every rank's ``shard`` (a collective
-        over ``data`` where the leaf is cut)."""
+        """JAX leaf ``key`` whole from every rank's moment ``shard`` (a
+        collective over ``data`` and one over ``model`` where the leaf is
+        cut)."""
         dim = self.dims[key]
-        return shard if dim is None else self._gather(shard, dim, count=False)
+        local = shard if dim is None else self._gather(shard, dim, "data", count=False)
+        return self.gather_model(key, local)
 
     def init_opt(self) -> dict:
         """Zero fp32 moments of this rank's slices and step 0."""
@@ -241,7 +284,7 @@ class MeshStep:
 
         def zeros():
             out = {}
-            for k, shape in self.shapes.items():
+            for k, shape in self.local.items():
                 shape, dim = list(shape), self.dims[k]
                 if dim is not None:
                     shape[dim] //= self.data
@@ -251,15 +294,18 @@ class MeshStep:
         return {"m": zeros(), "v": zeros(), "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def init_state(self, seed: int = 0) -> dict:
-        """{"model": ``api.init(seed)``, rank 0's weights on every rank,
-        "opt": :meth:`init_opt`}."""
+        """{"model": ``api.init(seed)`` — at ``model`` > 1 this rank's slices
+        of the weights ``init(seed)`` gives the whole model —, the weights
+        of the rank at pod 0, data 0 on every rank of its ``model``
+        coordinate, "opt": :meth:`init_opt`}."""
         dev, want = self.api.device, self.mesh.device
         if dev.type != want.type or dev.index not in (None, want.index):
             raise ValueError(f"the model's device {dev} is not the mesh's {want}")
         model = self.api.init(seed)
-        with torch.no_grad():
-            for p in model.parameters():
-                dist.broadcast(p, src=0)
+        if self.n_dp > 1:
+            with torch.no_grad():
+                for p in model.parameters():
+                    dist.broadcast(p, src=self.dp_src, group=self.groups["+".join(self.dp)])
         return {"model": model, "opt": self.init_opt()}
 
     def local_batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
@@ -296,24 +342,38 @@ class MeshStep:
         _reduce_scatter(out, t, group=self.groups["data"])
         return out.movedim(0, dim)
 
-    def _gather(self, t: torch.Tensor, dim: int, count: bool = True) -> torch.Tensor:
-        """All-gather over ``data`` along ``dim`` (counted in ``comm``
-        inside the step)."""
+    def _gather(self, t: torch.Tensor, dim: int, axis: str = "data",
+                count: bool = True) -> torch.Tensor:
+        """All-gather over ``axis`` (``data`` or ``model``) along ``dim``
+        (counted in ``comm`` inside the step)."""
         t = t.movedim(dim, 0).contiguous()
-        out = t.new_empty((t.shape[0] * self.data,) + t.shape[1:])
+        out = t.new_empty((t.shape[0] * (self.data if axis == "data" else self.model),)
+                          + t.shape[1:])
         if count:
-            self._count("data", out)
-        _all_gather(out, t, group=self.groups["data"])
+            self._count(axis, out)
+        _all_gather(out, t, group=self.groups[axis])
         return out.movedim(0, dim)
 
-    def _cross_pod(self, gs: torch.Tensor) -> torch.Tensor:
-        """The sum over ``pod``: plain, or of JAX's int8 values as int32."""
+    def _cross_pod(self, gs: torch.Tensor, key: str) -> torch.Tensor:
+        """The sum over ``pod``: plain, or of JAX's int8 values as int32 with
+        the scale of the leaf's max over ``model`` and ``pod``."""
         if not self.hp.compress:
             return self._all_reduce(gs, "pod")
-        amax = self._all_reduce(gs.abs().max(), "pod", op=dist.ReduceOp.MAX)
+        amax = gs.abs().max()
+        if self.mdims[key] is not None:
+            amax = self._all_reduce(amax, "model", op=dist.ReduceOp.MAX)
+        amax = self._all_reduce(amax, "pod", op=dist.ReduceOp.MAX)
         scale = torch.clamp(amax, min=1e-12)
         q = self._all_reduce(quantize_int8(gs, scale), "pod")
         return q.to(torch.float32) * (scale / 127.0)
+
+    def _sum_over(self, parts: list, which: list, axis: str) -> None:
+        """Sum ``parts[i]`` over ``axis`` for each i in ``which``, in one
+        all-reduce."""
+        if which:
+            summed = self._all_reduce(torch.stack([parts[i] for i in which]), axis)
+            for j, i in enumerate(which):
+                parts[i] = summed[j]
 
     # ---- the step --------------------------------------------------------
     def _stacked(self, tensors: Mapping[str, torch.Tensor], key: str, pop: bool = False):
@@ -324,6 +384,8 @@ class MeshStep:
     def __call__(self, state: dict, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model, st, hp = state["model"], state["opt"], self.hp
         self.comm = {}
+        if self.axis is not None:  # the forward's and backward's collectives count here too
+            self.axis.comm = self.comm
         loss, grads = _accum_grads(model, self.local_batch(batch), hp.grad_accum)
         dp = "+".join(self.dp)
         loss = self._all_reduce(loss.float().clone(), dp) / self.n_dp
@@ -334,20 +396,20 @@ class MeshStep:
                 if hp.hierarchical:
                     gs = self._scatter(g, dim) if dim is not None else self._all_reduce(g, "data")
                     if "pod" in self.groups:
-                        gs = self._cross_pod(gs)
+                        gs = self._cross_pod(gs, key)
                     gs = gs / self.n_dp
                     cut.append(dim is not None)
                 else:  # flat: the whole gradient, then this rank's slice
                     gs = self._all_reduce(g, dp) / self.n_dp
                     cut.append(False)
                 parts.append(torch.sum(gs * gs))
-                shards[key] = gs if hp.hierarchical or dim is None else self.shard(key, gs).clone()
+                shards[key] = gs if hp.hierarchical or dim is None else self._cut(key, gs).clone()
                 del g, gs
-            if any(cut):  # the scattered leaves' squares, summed over data at once
-                idx = [i for i, c in enumerate(cut) if c]
-                summed = self._all_reduce(torch.stack([parts[i] for i in idx]), "data")
-                for j, i in enumerate(idx):
-                    parts[i] = summed[j]
+            # the squares summed over data where the leaf is scattered, then
+            # over model where it is cut: each whole leaf counts once
+            self._sum_over(parts, [i for i, c in enumerate(cut) if c], "data")
+            self._sum_over(parts, [i for i, k in enumerate(self.dims)
+                                   if self.mdims[k] is not None], "model")
             sq = torch.zeros((), dtype=torch.float32, device=loss.device)
             for part in parts:  # JAX's order of leaves
                 sq = sq + part
@@ -357,7 +419,7 @@ class MeshStep:
             lr, bc = schedule(self.opt, step), bias_corrections(self.opt, step)
             params = dict(model.named_parameters())
             for key, dim in self.dims.items():
-                p = self.shard(key, self._stacked(params, key))
+                p = self._cut(key, self._stacked(params, key))
                 new = adamw_leaf(p.float(), shards.pop(key) * clip, st["m"][key], st["v"][key],
                                  lr, bc, self.opt).to(p.dtype)
                 full = new if dim is None else self._gather(new, dim)
@@ -372,8 +434,9 @@ class MeshStep:
 
 
 def make_train_step(api, cfg, opt: OptConfig, mesh, hp: TrainHparams, batch_shape) -> MeshStep:
-    """The distributed step over ``mesh``'s data axes (a built
-    ``launch.mesh.Mesh``; this process is one rank): hierarchical with
-    ``hp.hierarchical``, else the flat baseline.  ``batch_shape`` maps each
+    """The distributed step over ``mesh`` (a built ``launch.mesh.Mesh``;
+    this process is one rank; ``api`` from ``get_api(cfg, device,
+    mesh=mesh)``): hierarchical with ``hp.hierarchical``, else the flat
+    baseline.  ``batch_shape`` maps each
     batch entry to its global shape (or an array of it)."""
     return MeshStep(api, cfg, opt, mesh, hp, batch_shape)

@@ -30,6 +30,7 @@ the CPU.
   of them differ beyond 3e-5.
 """
 import os
+import re
 
 import numpy as np
 import pytest
@@ -113,14 +114,18 @@ def test_sharding_rules_match_jax(arch, shape, axes):
         sharding.param_specs(shapes, mesh, cfg, fsdp=True)
 
 
-@pytest.mark.parametrize("shape,axes,hp", [
-    ((2, 2, 2), ("pod", "data", "model"), TrainHparams(hierarchical=True, zero1=True)),
-    ((4, 2), ("data", "model"), TrainHparams(zero1=True)),
-    ((2, 2, 1), ("pod", "data", "model"), TrainHparams(hierarchical=True, fsdp=True)),
+# a model axis above 1 trains the attention, MLP and MoE families
+# (tests/test_torch_tp.py); rwkv6's has no tensor parallelism (A.10)
+@pytest.mark.parametrize("shape,axes,hp,arch,item", [
+    ((2, 2, 2), ("pod", "data", "model"), TrainHparams(hierarchical=True, zero1=True),
+     "rwkv6-1.6b", "A.10"),
+    ((4, 2), ("data", "model"), TrainHparams(zero1=True), "rwkv6-1.6b", "A.10"),
+    ((2, 2, 1), ("pod", "data", "model"), TrainHparams(hierarchical=True, fsdp=True),
+     "olmo-1b", "A.9"),
 ], ids=["model-2-hierarchical", "model-2-flat", "fsdp"])
-def test_model_axis_and_fsdp_raise(shape, axes, hp):
-    cfg = smoke_config("olmo-1b")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
+def test_model_axis_and_fsdp_raise(shape, axes, hp, arch, item):
+    cfg = smoke_config(arch)
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP {re.escape(item)}\b"):
         make_train_step(get_api(cfg, device="cpu"), cfg, OptConfig(), mesh_layout(shape, axes),
                         hp, {"tokens": (8, 16)})
 

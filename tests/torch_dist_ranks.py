@@ -18,11 +18,14 @@ takes the steps after the restored one (or from 0) up to ``steps`` on the
 global batches ``batches/{i}/...`` of the ``.npz``, saving a checkpoint
 after each step of ``ckpt["after"]``.  It writes ``loss``, ``grad_norm``
 and ``lr`` per step, ``coords``, the state after the last step as this rank
-holds it (``params/{key}`` whole, ``m/{key}`` and ``v/{key}`` the rank's
-slices, ``step``), the moments gathered whole (``full_m/{key}``,
-``full_v/{key}``) and, with ``ties``, per leaf the entries of this rank's
-shard that the int8 quantizer met within ``margin`` of a rounding tie
-(``ties/{key}``) and its scale (``scale/{key}``) in the first step.
+holds it (``params/{key}`` gathered whole over ``model``, ``m/{key}`` and
+``v/{key}`` the rank's slices, ``step``), the shape of the rank's slice of
+each parameter (``local/{key}``) and their elements (``numel``), the
+moments gathered whole (``full_m/{key}``, ``full_v/{key}``), the last
+step's ``comm`` (``comm/{axis}``: calls, bytes) and, with ``ties``, per
+leaf the entries of this rank's shard that the int8 quantizer met within
+``margin`` of a rounding tie (``ties/{key}``) and its scale
+(``scale/{key}``) in the first step.
 """
 from __future__ import annotations
 
@@ -124,7 +127,7 @@ def _step_task(task: dict, rank: int, out: str) -> None:
     with np.load(task["batches"]) as f:
         batches = [{k.split("/")[2]: f[k] for k in f.files if k.startswith(f"batches/{i}/")}
                    for i in range(task["steps"])]
-    api = get_api(cfg, device="cpu")
+    api = get_api(cfg, device="cpu", mesh=mesh)
     hp = trainstep.TrainHparams(**task["hp"])
     step = trainstep.make_train_step(api, cfg, OptConfig(**task["opt"]), mesh, hp, batches[0])
     state = step.init_state(seed=0)
@@ -135,7 +138,8 @@ def _step_task(task: dict, rank: int, out: str) -> None:
     else:
         with np.load(task["init"]) as f:
             flat = {k[len("params/"):]: f[k] for k in f.files if k.startswith("params/")}
-        state["model"].load_state_dict(params_from_jax(flat, cfg))
+        state["model"].load_state_dict(params_from_jax(flat, cfg, model=step.model,
+                                                       index=step.model_idx))
 
     ties, scales = [], []
     margin = task.get("ties")
@@ -161,9 +165,13 @@ def _step_task(task: dict, rank: int, out: str) -> None:
     arrays = {k: np.asarray(v) for k, v in res.items()}
     arrays["coords"] = np.asarray([mesh.coords()[a] for a in axes])
     named = dict(state["model"].named_parameters())
+    arrays["numel"] = np.asarray(sum(p.numel() for p in named.values()))
+    for axis, c in step.comm.items():
+        arrays[f"comm/{axis}"] = np.asarray([c["calls"], c["bytes"]])
     for key, names in step.leaves.items():
         p = (torch.stack([named[n] for n in names]) if isinstance(names, tuple) else named[names])
-        arrays[f"params/{key}"] = p.detach().numpy()
+        arrays[f"local/{key}"] = np.asarray(p.shape)
+        arrays[f"params/{key}"] = step.gather_model(key, p.detach()).numpy()
         for g in ("m", "v"):
             arrays[f"{g}/{key}"] = state["opt"][g][key].numpy()
             arrays[f"full_{g}/{key}"] = step.gather(key, state["opt"][g][key]).numpy()
