@@ -2535,25 +2535,28 @@ def tp_train(mesh, rank: int, world: int) -> dict:
     launches = tp_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(ms[1:])
+    # the last step's collectives, before tp_step_parts' pass adds to them
+    comm, calls = json.loads(json.dumps(step.comm)), step.axis.log
+    step.axis.log = None
     parts = tp_step_parts(step, state, batches[0], med)
     if rank == 0:
         log(parts)
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
     want = {k: v for k, v in expected_launches(cfg, "train").items() if k in per_step}
     by_kind = {}
-    for what, shape, nbytes in step.axis.log:
+    for what, shape, nbytes in calls:
         c = by_kind.setdefault((what, shape), [0, 0])
         c[0], c[1] = c[0] + 1, c[1] + nbytes
-    step.axis.log = None
     if rank == 0:
-        log("model-axis collectives of one step by kind and shape (calls, bytes), largest first: "
+        log("model-axis collectives of the forward and backward of one step by kind and shape "
+            "(calls, bytes), largest first: "
             + "; ".join(f"{w} {s}: {n}, {b}" for (w, s), (n, b) in
                         sorted(by_kind.items(), key=lambda kv: -kv[1][1])))
         log(f"losses {[round(x, 4) for x in losses]}")
         log(f"step {med:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}; step 0 {ms[0]:.1f} ms), "
             f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tok/s, peak device memory {peak:.2f} GiB "
             f"on rank 0; launches per step {per_step}; collectives per step (calls, bytes handed "
-            f"in) {step.comm}")
+            f"in) {comm}")
     peaks = [torch.zeros((), device=mesh.device) for _ in range(world)]
     torch.distributed.all_gather(peaks, torch.tensor(peak, device=mesh.device))
     if rank == 0:
