@@ -126,9 +126,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the path's, collective calls and bytes per mesh axis, and the link
    between the cards (``nvidia-smi topo -m``).
 
+10. fsdp: ZeRO-3 over the data axes (``dist.fsdp``): gemma2-9b at full
+   width cut to 2 layers (a local and a global layer) in fp32, one row of
+   256 tokens a rank, one flat step with ``fsdp`` on mesh (pod 1, data 2,
+   model 1), two ranks on one card over gloo with CUDA tensors (a check),
+   each rank's loss, grad norm, parameter blocks and moment blocks against
+   the single-device ``train_step`` on the card from the same seed and
+   global batch; on a host of 4 or more cards the same check over NCCL on
+   (1, 4, 1) and (2, 2, 1), then full gemma2-9b (42 layers) in bf16 with
+   fp32 moments, batch 8 x 1024 (2 rows a rank), 6 flat FSDP steps on
+   (1, 4, 1): the losses (the last batch's falls after its step), step
+   ms, tok/s, peak memory on every rank, the kernels' launches a step
+   against the path's, the DP group's collective calls and bytes against
+   those the leaves imply, and the forward and backward alone against
+   the rest of the step.
+
+gemma2-9b (local/global attention, softcap 50, GQA 16/8, D 256, d 3584)
+also runs in the kernels phase (flash forward at its prefill with and
+without the window, its backward at an FSDP rank's 2 rows, RMSNorm at d
+3584 both ways), the reference phase (2 layers, fp32, and one AdamW step)
+and the serve phase (42 layers, parameters against ``param_counts()``).
+
 ``--only dist`` runs the device and build phases and then the dist phase
 alone; ``--only ranks`` its multi-rank check alone; ``--only tp`` the tp
-phase alone (on a 4-card call, the NCCL check and the bf16 run).
+phase alone (on a 4-card call, the NCCL check and the bf16 run); ``--only
+fsdp`` the fsdp phase alone (on a 4-card call, the NCCL checks and the
+bf16 run).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -181,6 +204,9 @@ WHISPER_CONTEXT = 448  # whisper's real text context (the config's 32768 rows si
 SERVE_PROMPT = {WHISPER_ARCH: WHISPER_CONTEXT - MAX_NEW}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 TRAIN_TEXT = {WHISPER_ARCH: WHISPER_CONTEXT}  # whisper trains on 1500 frames and 448 tokens
+FSDP_ARCH = "gemma2-9b"
+FSDP_ROWS = 2  # a rank's rows of the FSDP cell's global batch of 8 x 1024 on 4 cards
+GEMMA2_WINDOW = 4096  # gemma2-9b's local layers' sliding window
 LAUNCH_LAYERS, LAUNCH_STEPS = 2, 4  # the launcher phase: two checkpoints of 4.55 GB
 
 
@@ -257,19 +283,23 @@ def time_flash(case: dict, what: str, library: bool = True, **kw) -> dict:
     Sk, causal = k.shape[2], kw.get("causal", True)
     ms = time_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = time_ms(lambda: ref.mha_reference(q, k, v, **kw))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True)) if library else None
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True))
+    library_ms = sdpa_ms if library else None
     flops = 4.0 * D * B * Hq * flash_pairs(Sq, Sk, causal)  # 2 flops per multiply-add
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms, bound_by = bound(nbytes, flops, q.dtype)
     lib = (f"library (scaled_dot_product_attention, enable_gqa=True) {library_ms:.4f} ms"
-           if library else "library: none (scaled_dot_product_attention has no softcap)")
+           if library else "library: none (scaled_dot_product_attention has no softcap); "
+           f"yardstick: scaled_dot_product_attention at this shape without the softcap "
+           f"{sdpa_ms:.4f} ms")
     log(f"  flash_attention at {what} (B={B}, Hq={Hq}, Hkv={k.shape[1]}, Sq={Sq}, Sk={Sk}, "
         f"D={D}, {str(q.dtype)[6:]}, {kw or 'causal'}): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, {lib}, bound {bound_ms:.4f} ms by {bound_by} "
         f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=case["err"])
+                bound_by=bound_by, max_abs_err=case["err"],
+                **({} if library else {"sdpa_without_softcap_ms": sdpa_ms}))
 
 
 def check_flash(gen) -> dict:
@@ -316,6 +346,11 @@ def check_flash(gen) -> dict:
          "whisper's decoder self-attention"),  # 6.5 tiles of 64: a ragged causal tile
         (TRAIN_BATCH, 10, 2, TRAIN_SEQ, TRAIN_SEQ, 128, torch.bfloat16, {},
          "qwen2.5-14b's TP-4 training"),  # a rank's 10 of 40 q heads, 2 of 8 kv heads
+        # gemma2-9b's prefill: its local layers' window of 4096 masks nothing at 1024
+        (SERVE_BATCH, 16, 8, PROMPT_LEN, PROMPT_LEN, 256, torch.bfloat16,
+         dict(window=GEMMA2_WINDOW, softcap=50.0), "gemma2-9b's prefill, local layer"),
+        (SERVE_BATCH, 16, 8, PROMPT_LEN, PROMPT_LEN, 256, torch.bfloat16, dict(softcap=50.0),
+         "gemma2-9b's prefill, global layer"),
     ]
     timed = {}
     for B, Hq, Hkv, Sq, Sk, D, dtype, kw, what in cases:
@@ -354,7 +389,9 @@ def check_flash(gen) -> dict:
                 at_whisper_cross_decode=at["whisper's decode-step cross-attention"],
                 at_whisper_decoder_self=at["whisper's decoder self-attention"],
                 at_internvl2_prefill=at["internvl2's prefill"],
-                at_qwen_tp4_train=at["qwen2.5-14b's TP-4 training"])
+                at_qwen_tp4_train=at["qwen2.5-14b's TP-4 training"],
+                at_gemma2_prefill_local=at["gemma2-9b's prefill, local layer"],
+                at_gemma2_prefill_global=at["gemma2-9b's prefill, global layer"])
 
 
 def check_rmsnorm(gen, d_model: int) -> dict:
@@ -389,6 +426,9 @@ def check_rmsnorm(gen, d_model: int) -> dict:
         (vlm_rows, 896, torch.bfloat16),  # internvl2 prefill: 256 patches + 1024 tokens
         (SERVE_BATCH, 896, torch.bfloat16),  # its decode steps
         (rows_main, 5120, torch.bfloat16),  # qwen2.5-14b's TP-4 training (4 x 1024 rows)
+        (rows_main, 3584, torch.bfloat16),  # gemma2-9b prefill
+        (SERVE_BATCH, 3584, torch.bfloat16),  # its decode steps
+        (FSDP_ROWS * TRAIN_SEQ, 3584, torch.bfloat16),  # a rank's rows of its FSDP training
     ]
     main = None
     widths = {}  # the new paths' widths at their prefill rows
@@ -406,19 +446,22 @@ def check_rmsnorm(gen, d_model: int) -> dict:
             raise AssertionError(f"rmsnorm disagrees with its plain version: {err}")
         if main is None:
             main = dict(x=x, s=s, err=err, dtype=dtype)
-        elif (rows == rows_main and d in (512, 1536, 5120, 6144, 7168, 8192)
+        elif (rows == rows_main and d in (512, 1536, 3584, 5120, 6144, 7168, 8192)
               or (rows, d) == (vlm_rows, 896)):
             widths[d] = (x, s)
+        elif (rows, d) == (FSDP_ROWS * TRAIN_SEQ, 3584):
+            widths["3584 (FSDP rank)"] = (x, s)
 
     by_width = {}
-    for d, (x, s) in sorted(widths.items()):
+    for d, (x, s) in sorted(widths.items(), key=lambda kv: str(kv[0]).zfill(20)):
         nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
         by_width[d] = dict(ms=time_ms(lambda: rmsnorm(x, s)),
                            plain_ms=time_ms(lambda: ref.rmsnorm_reference(x, s)),
-                           library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=s, eps=1e-6)),
+                           library_ms=time_ms(lambda: F.rms_norm(x, (x.shape[-1],), weight=s,
+                                                                 eps=1e-6)),
                            bound_ms=bound(nbytes, 4.0 * x.numel(), x.dtype)[0])
-    log("  rmsnorm at the MoE, hybrid and VLM paths' prefill widths and qwen2.5-14b's TP-4 "
-        "training (bf16): " + "; ".join(
+    log("  rmsnorm at the MoE, hybrid, VLM and gemma2-9b paths' prefill widths, qwen2.5-14b's "
+        "TP-4 training and a gemma2-9b FSDP rank's training rows (bf16): " + "; ".join(
         f"d={d} ({widths[d][0].shape[0]} rows) kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
         f"{t['bound_ms']:.4f} ms" for d, t in by_width.items()))
@@ -569,6 +612,9 @@ def time_flash_bwd(args, what: str, err: float, library: bool = True,
     plain_ms = time_ms(lambda: ref.mha_backward_reference(q, k, v, out, lse, dout, **kw), reps=5)
     library_ms, backend = (sdpa_backward_ms(q, k, v, dout, what, causal, every_backend)
                            if library else (None, None))
+    yardstick = None
+    if not library:  # SDPA has no softcap: its backward at the shape without it, a yardstick
+        yardstick = sdpa_backward_ms(q, k, v, dout, f"{what} without the softcap", causal)
     # q.k, dO.v, P^T dO, dS K, dS^T Q: 2 flops per multiply-add each
     flops = 10.0 * D * B * Hq * flash_pairs(Sq, Sk, causal)
     nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel() + dout.numel()) \
@@ -576,13 +622,15 @@ def time_flash_bwd(args, what: str, err: float, library: bool = True,
     bound_ms, bound_by = bound(nbytes, flops, q.dtype)
     lib = (f"library (scaled_dot_product_attention backward, {backend} backend) "
            f"{library_ms:.4f} ms" if library
-           else "library: none (scaled_dot_product_attention has no softcap)")
+           else "library: none (scaled_dot_product_attention has no softcap); yardstick: its "
+           f"backward without the softcap {yardstick[0]:.4f} ms ({yardstick[1]} backend)")
     log(f"  flash_attention_bwd at {what} (B={B}, Hq={Hq}, Hkv={k.shape[1]}, Sq={Sq}, Sk={Sk}, "
         f"D={D}, {str(q.dtype)[6:]}, {kw or 'causal'}): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, {lib}, bound {bound_ms:.4f} ms by {bound_by} "
         f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                **({} if library else {"sdpa_without_softcap_ms": yardstick[0]}))
 
 
 def check_flash_bwd(gen) -> dict:
@@ -625,6 +673,11 @@ def check_flash_bwd(gen) -> dict:
          "grok-1's training"),
         (TRAIN_BATCH, 10, 2, TRAIN_SEQ, TRAIN_SEQ, 128, bf16, {},
          "qwen2.5-14b's TP-4 training"),  # a rank's 10 of 40 q heads, 2 of 8 kv heads
+        # a gemma2-9b FSDP rank's 2 rows: softcap 50 at D = 256, GQA 16/8
+        (FSDP_ROWS, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 256, bf16,
+         dict(window=GEMMA2_WINDOW, softcap=50.0), "gemma2-9b's FSDP training, local layer"),
+        (FSDP_ROWS, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 256, bf16, dict(softcap=50.0),
+         "gemma2-9b's FSDP training, global layer"),
     ]
     timed = {}
     for B, Hq, Hkv, Sq, Sk, D, dtype, kw, what in cases:
@@ -681,7 +734,9 @@ def check_flash_bwd(gen) -> dict:
                 at_whisper_decoder_self=at["whisper's decoder self-attention"],
                 at_internvl2_train=at["internvl2's training"],
                 at_grok_train=at["grok-1's training"],
-                at_qwen_tp4_train=at["qwen2.5-14b's TP-4 training"])
+                at_qwen_tp4_train=at["qwen2.5-14b's TP-4 training"],
+                at_gemma2_fsdp_train_local=at["gemma2-9b's FSDP training, local layer"],
+                at_gemma2_fsdp_train_global=at["gemma2-9b's FSDP training, global layer"])
 
 
 def launch_split(fn, what: str, calls: int = 5) -> dict:
@@ -777,6 +832,7 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
         (rows_main, 6144, torch.bfloat16, "train"),  # grok-1
         (vlm_rows, 896, torch.bfloat16, "train"),  # internvl2: 256 patches + 1024 tokens
         (rows_main, 5120, torch.bfloat16, "train"),  # qwen2.5-14b at TP 4: ln1, ln2, final
+        (FSDP_ROWS * TRAIN_SEQ, 3584, torch.bfloat16, "train"),  # a gemma2-9b FSDP rank
     ]
     main = determinism_args = None
     widths = {}  # the new training paths' widths
@@ -824,7 +880,8 @@ def check_rmsnorm_bwd(gen, d_model: int) -> dict:
                                y, (xl, sl), g, retain_graph=True)),
                            bound_ms=t_bound, bound_by=t_by, max_abs_err=case["err"])
         del xl, sl, y
-    log("  rmsnorm_bwd at the MoE, VLM and qwen2.5-14b TP-4 training paths' widths (bf16): "
+    log("  rmsnorm_bwd at the MoE, VLM, qwen2.5-14b TP-4 and gemma2-9b FSDP training paths' "
+        "widths (bf16): "
         + "; ".join(
         f"d={d} ({t['rows']} rows) kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
         f"library (rms_norm backward) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
@@ -1362,6 +1419,13 @@ def serve(cfg) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     if cfg.family in ("audio", "vlm") and n_params != analytic_params(cfg):
         raise AssertionError(f"{n_params} parameters != {analytic_params(cfg)} from the config")
+    if cfg.name == FSDP_ARCH:  # param_counts() leaves out the norm scales
+        counted = cfg.param_counts()[0] + (2 * cfg.num_layers + 1) * cfg.d_model
+        log(f"  parameters {n_params:,} = param_counts() {cfg.param_counts()[0]:,} + "
+            f"{2 * cfg.num_layers + 1} norm scales of {cfg.d_model}: "
+            f"{'ok' if n_params == counted else 'FAIL'}")
+        if n_params != counted:
+            raise AssertionError(f"{n_params} parameters != {counted} from param_counts()")
     prompt = SERVE_PROMPT.get(cfg.name, PROMPT_LEN)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, prompt)).astype(np.int64)
@@ -2335,50 +2399,15 @@ TP_REF_LAYERS = 2  # the fp32 check's cut of qwen2.5-14b's 48 layers
 
 def tp_ranks(cards: int, smi: str) -> dict:
     """The ``tp:`` phase: ranks of the model axis, each this script with
-    ``--tp-rank`` (:func:`tp_rank`); rank 0's log is printed.  On one card
-    two ranks over gloo with CUDA tensors (NCCL refuses two ranks on one
-    card: ``tools/dist_one_card_probe.py``), mesh (1, 1, 2): a check, not
-    the launcher's path.  On a host of 4 or more cards four ranks over
-    NCCL, one a card, mesh (1, 1, 4), then full qwen2.5-14b in bf16.  Every
-    rank is killed if one fails or the time runs out.  Returns rank 0's
+    ``--tp-rank`` (:func:`tp_rank`).  On one card two ranks over gloo with
+    CUDA tensors (NCCL refuses two ranks on one card:
+    ``tools/dist_one_card_probe.py``), mesh (1, 1, 2): a check, not the
+    launcher's path.  On a host of 4 or more cards four ranks over NCCL, one
+    a card, mesh (1, 1, 4), then full qwen2.5-14b in bf16.  Returns rank 0's
     kernel launches per path."""
     world, backend = (4, "nccl") if cards >= 4 else (2, "gloo")
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    torch.cuda.empty_cache()
-    procs, t0 = [], time.perf_counter()
-    try:
-        for r in range(world):
-            with open(os.path.join(workdir, f"rank{r}.log"), "w") as f:
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
-                     "--tp-world", str(world), "--tp-backend", backend, "--dist-dir", workdir],
-                    stdout=f, stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
-        while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
-                break
-            time.sleep(0.5)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        with open(os.path.join(workdir, "rank0.log")) as f:
-            for line in f.read().splitlines():
-                log(f"    {line}")
-        failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
-        for r, _ in failed[:1]:
-            if r:
-                with open(os.path.join(workdir, f"rank{r}.log")) as f:
-                    log(f"    rank {r}: {f.read()[-3000:]}")
-        launched = {}
-        if not failed:
-            with open(os.path.join(workdir, "launches.json")) as f:
-                launched = json.load(f)
-        shutil.rmtree(workdir, ignore_errors=True)
-    if failed:
-        raise AssertionError(f"the tp phase failed: ranks and exit codes {failed}")
-    log(f"  tp phase: {world} ranks over {backend} in {time.perf_counter() - t0:.1f} s; {smi}")
+    launched = spawn_ranks("--tp-rank", world, backend, TP_RANK_TIMEOUT_S, "tp")
+    log(f"  {smi}")
     return launched
 
 
@@ -2638,6 +2667,341 @@ def tp_rank(rank: int, world: int, backend: str, workdir: str) -> int:
         shutdown()
 
 
+FSDP_RANK_TIMEOUT_S = 900
+FSDP_REF_LAYERS = 2  # the fp32 check's cut of gemma2-9b: one unit, a local and a global layer
+FSDP_STEPS = 6
+
+
+def spawn_ranks(flag: str, world: int, backend: str, timeout_s: float, what: str) -> dict:
+    """Ranks of a multi-rank phase, each this script with ``flag`` (its rank),
+    ``--rank-world``, ``--rank-backend`` and ``--dist-dir``; rank 0's log is
+    printed.  Every rank is killed if one fails or the time runs out.
+    Returns the kernel launches rank 0 wrote per path."""
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{what}_")
+    torch.cuda.empty_cache()
+    procs, t0 = [], time.perf_counter()
+    try:
+        for r in range(world):
+            with open(os.path.join(workdir, f"rank{r}.log"), "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), flag, str(r),
+                     "--rank-world", str(world), "--rank-backend", backend, "--dist-dir", workdir],
+                    stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        with open(os.path.join(workdir, "rank0.log")) as f:
+            for line in f.read().splitlines():
+                log(f"    {line}")
+        failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+        for r, _ in failed[:1]:
+            if r:
+                with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                    log(f"    rank {r}: {f.read()[-3000:]}")
+        launched = {}
+        if not failed:
+            with open(os.path.join(workdir, "launches.json")) as f:
+                launched = json.load(f)
+        shutil.rmtree(workdir, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"the {what} phase failed: ranks and exit codes {failed}")
+    log(f"  {what} phase: {world} ranks over {backend} in {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
+def fsdp_ranks(cards: int, smi: str) -> dict:
+    """The ``fsdp:`` phase: ZeRO-3 over the data axes (``dist.fsdp``), ranks
+    each this script with ``--fsdp-rank`` (:func:`fsdp_rank`).  On one card
+    two ranks over gloo with CUDA tensors, mesh (1, 2, 1): a check, not the
+    launcher's path.  On a host of 4 or more cards four ranks over NCCL, one
+    a card: the check at (1, 4, 1) and (2, 2, 1), then full gemma2-9b in
+    bf16 at (1, 4, 1).  Returns rank 0's kernel launches per path."""
+    world, backend = (4, "nccl") if cards >= 4 else (2, "gloo")
+    launched = spawn_ranks("--fsdp-rank", world, backend, FSDP_RANK_TIMEOUT_S, "fsdp")
+    log(f"  {smi}")
+    return launched
+
+
+def fsdp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
+    """gemma2-9b at full width cut to FSDP_REF_LAYERS layers (one local and
+    one global layer) in fp32, one row of TRAIN_REF_SEQ tokens a rank: one
+    flat step with ``fsdp`` against the single-device ``train_step`` on the
+    same card from the same seed on the same global batch (``init_state``
+    gives each rank its blocks of the weights ``api.init`` draws).  Each
+    rank holds its blocks: the loss, the grad norm, every parameter block
+    where |g| > 1e-3 max|g| of the leaf (within 1e-2 lr), and the gradient
+    read from every moment block (within 1e-3 max|g|).  With ``sequential``
+    (ranks sharing a card) the ranks build the reference one after the
+    other.  Returns the kernels' launches of the step."""
+    from repro_torch import configs
+    from repro_torch.models import get_api
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step, \
+        train_step
+
+    cfg = configs.get_config(FSDP_ARCH).replace(num_layers=FSDP_REF_LAYERS,
+                                                param_dtype="float32", compute_dtype="float32")
+    batch = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=world, seq=TRAIN_REF_SEQ),
+                          model_cfg=cfg).batch_at(0)
+    opt = OptConfig(**TRAIN_OPT)
+    b1, dev = opt.beta1, mesh.device
+    t0 = time.perf_counter()
+    step = make_train_step(get_api(cfg, dev, mesh=mesh, fsdp=True), cfg, opt, mesh,
+                           TrainHparams(fsdp=True), batch)
+    keep = {}
+    for turn in range(world if sequential else 1):
+        if sequential:
+            torch.distributed.barrier()
+        if sequential and turn != rank:
+            continue
+        model = get_api(cfg, dev).init(seed=1)
+        opt_state = adamw_init(model)
+        ref = {k: v.item() for k, v in train_step(model, opt_state, batch_to_torch(
+            batch, dev), opt).items()}
+        g_of = (1 - b1) * min(1.0, opt.clip_norm / max(ref["grad_norm"], 1e-9))
+        for (key, p_ref), (_, m_ref) in zip(jax_keyed(dict(model.named_parameters()), cfg),
+                                            jax_keyed(opt_state["m"], cfg)):
+            keep[key] = (step.shard(key, p_ref).clone(), step.shard(key, m_ref) / g_of,
+                         (m_ref.abs().max() / g_of).item())
+        del model, opt_state, p_ref, m_ref
+        torch.cuda.empty_cache()
+    if sequential:
+        torch.distributed.barrier()
+    t1 = time.perf_counter()
+    state = step.init_state(seed=1)
+    tp_zero_counts()
+    metrics = {k: v.item() for k, v in step(state, batch_to_torch(batch, dev)).items()}
+    launches = tp_launch_counts()
+    t2 = time.perf_counter()
+    named = {n: p.detach() for n, p in state["model"].named_parameters()}
+    held = sum(p.numel() for p in named.values())
+    g_fsdp = (1 - b1) * min(1.0, opt.clip_norm / max(metrics["grad_norm"], 1e-9))
+    lr, p_err, g_err = ref["lr"], 0.0, 0.0
+    for key in step.leaves:
+        mine = step.param(named, key)
+        p_ref, g_ref, top = keep.pop(key)
+        if mine.shape != p_ref.shape or state["opt"]["m"][key].shape != p_ref.shape:
+            raise AssertionError(f"{key}: the rank holds {tuple(mine.shape)}, its block is "
+                                 f"{tuple(p_ref.shape)}")
+        big = g_ref.abs() > 1e-3 * top
+        if big.any():
+            p_err = max(p_err, (mine - p_ref)[big].abs().max().item())
+        g = state["opt"]["m"][key] / g_fsdp
+        g_err = max(g_err, ((g - g_ref).abs().max() / (1e-3 * top)).item())
+        del mine, p_ref, g_ref
+    loss_err = abs(metrics["loss"] - ref["loss"]) / abs(ref["loss"])
+    norm_err = abs(metrics["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    ok = loss_err <= 1e-5 and norm_err <= 1e-4 and p_err <= 1e-2 * lr and g_err <= 1
+    total = sum(int(np.prod(s)) for s in step.shapes.values())
+    log(f"rank {rank} of mesh {tuple(mesh.shape)} ({mesh.device}): {cfg.name} at full width cut "
+        f"to {cfg.num_layers} layers, fp32, {world} x {TRAIN_REF_SEQ} tokens (one row a rank); "
+        f"holds {held / 1e9:.3f} B of {total / 1e9:.3f} B parameters; the reference "
+        f"{t1 - t0:.1f} s, init_state and the step {t2 - t1:.1f} s (first call); flat step "
+        f"with fsdp vs the single-device train_step on the card: loss {metrics['loss']:.6f} / "
+        f"{ref['loss']:.6f} (rel err {loss_err:.3g}, tol 1e-5), grad norm "
+        f"{metrics['grad_norm']:.6g} / {ref['grad_norm']:.6g} (rel err {norm_err:.3g}, tol 1e-4), "
+        f"its parameter blocks where |g| > 1e-3 max|g| max_abs_err {p_err:.3g} (tol "
+        f"{1e-2 * lr:.3g}, 1e-2 x lr), its moment blocks' gradient at {g_err:.3g} of "
+        f"1e-3 max|g|: {'ok' if ok else 'FAIL'}")
+    if rank == 0:
+        log(f"collectives of the step (calls, bytes handed in): {step.comm}; launches "
+            f"{launches}")
+    if not ok:
+        raise AssertionError(f"rank {rank}: the FSDP step disagrees with the single-device step")
+    return launches
+
+
+def fsdp_bytes(step) -> tuple:
+    """(calls, bytes) of a flat FSDP step over the DP group that the leaves
+    imply: each cut leaf gathered (all-gather output or broadcast, in the
+    param dtype) and its gradient reduced (fp32) once a use, a layer's
+    tensor at a time; the tied table twice (the embedding and the loss);
+    then the loss, the whole leaves' fp32 gradients and the cut leaves'
+    squares all-reduced."""
+    cfg = step.cfg
+    calls = nbytes = n_cut = 0
+    for key, names in step.leaves.items():
+        numel = int(np.prod(step.local[key]))
+        if step.dims[key] is None:
+            calls, nbytes = calls + 1, nbytes + 4 * numel
+            continue
+        n_cut += 1
+        uses = 2 if key == "embed/tok" and cfg.tie_embeddings else 1
+        pieces = len(names) if isinstance(names, tuple) else 1
+        calls += 2 * uses * pieces
+        nbytes += uses * numel * (cfg.pdtype.itemsize + 4)
+    return calls + 2, nbytes + 4 + 4 * n_cut
+
+
+def fsdp_train(mesh, rank: int, world: int) -> dict:
+    """Full gemma2-9b in bf16 (fp32 moments) with ``fsdp`` (one rank a
+    card), global batch FSDP_ROWS x world x TRAIN_SEQ of the affine data,
+    FSDP_STEPS flat steps: every loss finite and the last batch's loss
+    lower after its step; step ms (median of steps 1..), tok/s, peak memory
+    on every rank, the kernels' launches a step against the path's, the DP
+    group's collectives a step against the bytes the leaves imply, then a
+    step's forward and backward alone against the rest.  Full depth.
+    Returns the launches."""
+    from repro_torch import configs
+    from repro_torch.models import get_api
+    from repro_torch.models.registry import loss_fn
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step
+
+    cfg = configs.get_config(FSDP_ARCH)
+    rows = FSDP_ROWS * world
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=rows, seq=TRAIN_SEQ,
+                                    mode="affine"), model_cfg=cfg)
+    step = make_train_step(get_api(cfg, mesh.device, mesh=mesh, fsdp=True), cfg,
+                           OptConfig(**TRAIN_OPT), mesh, TrainHparams(fsdp=True),
+                           data.batch_at(0))
+    t0 = time.perf_counter()
+    state = step.init_state(seed=0)
+    torch.cuda.synchronize()
+    held = sum(p.numel() for p in state["model"].parameters())
+    total = sum(int(np.prod(s)) for s in step.shapes.values())
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        log(f"{cfg.name}: {cfg.num_layers} layers (full depth), bf16 with fp32 moments, "
+            f"{held / 1e9:.3f} B of {total / 1e9:.3f} B parameters a rank, initialised in "
+            f"{time.perf_counter() - t0:.1f} s (peak {init_peak:.2f} GiB while drawing); batch "
+            f"{rows} x {TRAIN_SEQ} ({FSDP_ROWS} rows a rank)")
+    batches = [batch_to_torch(data.batch_at(i), mesh.device) for i in range(FSDP_STEPS)]
+    tp_zero_counts()
+    losses, ms = [], []
+    for i in range(FSDP_STEPS):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batches[i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = tp_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    comm = json.loads(json.dumps(step.comm))  # the last step's
+    with torch.no_grad():  # the last batch after its step, over the DP group
+        after = loss_fn(cfg)(state["model"], step.local_batch(batches[-1])).float()
+        torch.distributed.all_reduce(after)
+        after = after.item() / step.n_dp
+    med = statistics.median(ms[1:])
+    parts = fsdp_step_parts(step, state, batches[0], med)
+    per_step = {k: n / FSDP_STEPS for k, n in launches.items()}
+    want = {k: v for k, v in expected_launches(cfg, "train").items() if k in per_step}
+    calls, nbytes = fsdp_bytes(step)
+    dp = "+".join(step.dp)
+    got = comm.get(dp, {})
+    leaves_bytes = sum(int(np.prod(s)) * cfg.pdtype.itemsize for s in step.local.values())
+    if rank == 0:
+        log(parts)
+        log(f"losses {[round(x, 4) for x in losses]}; the last batch after its step "
+            f"{after:.4f}")
+        log(f"step {med:.1f} ms (median of steps 1..{FSDP_STEPS - 1}; step 0 {ms[0]:.1f} ms), "
+            f"{rows * TRAIN_SEQ / med * 1e3:.0f} tok/s, peak device memory {peak:.2f} GiB on "
+            f"rank 0; launches per step per rank {per_step}; collectives per step (calls, bytes "
+            f"handed in) {comm}; the leaves imply {calls} calls and {nbytes / 1e9:.3f} GB over "
+            f"{dp} (the whole model in bf16 is {leaves_bytes / 1e9:.3f} GB: each cut leaf "
+            f"gathered once a use in bf16 and its gradient reduced in fp32)")
+    peaks = [torch.zeros((), device=mesh.device) for _ in range(world)]
+    torch.distributed.all_gather(peaks, torch.tensor(peak, device=mesh.device))
+    if rank == 0:
+        log(f"peak device memory per rank: {[round(p.item(), 2) for p in peaks]} GiB")
+    if not all(np.isfinite(losses)) or not np.isfinite(after):
+        raise AssertionError(f"the losses are not finite: {losses}, {after}")
+    if not after < losses[-1]:
+        raise AssertionError(f"the last batch's loss did not fall after its step: "
+                             f"{losses[-1]} -> {after}")
+    if per_step != want:
+        raise AssertionError(f"kernel launches per step {per_step} != {want} implied by the path")
+    if (got.get("calls"), got.get("bytes")) != (calls, nbytes):
+        raise AssertionError(f"collectives over {dp} {got} != ({calls}, {nbytes}) the leaves "
+                             "imply")
+    return launches
+
+
+def fsdp_step_parts(step, state, batch, step_ms: float) -> str:
+    """Where an FSDP step's time goes: one forward and backward alone
+    (``_accum_grads``, the gathers and gradient reductions in it) against
+    the rest of the step (the whole leaves' all-reduce, the norm, AdamW on
+    the blocks), and one all-gather of the largest layer's bf16 blocks
+    alone (median of 20, CUDA events)."""
+    from repro_torch.dist.fsdp import _AllGather
+    from repro_torch.train.trainstep import _accum_grads
+
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = _accum_grads(state["model"], step.local_batch(batch), 1)
+    torch.cuda.synchronize()
+    fwd_bwd = (time.perf_counter() - t0) * 1e3
+    del loss, grads
+    wi = state["model"].layers[0].ffn.wi
+    times = []
+    for _ in range(23):
+        torch.distributed.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad():
+            full = _AllGather.apply(wi, wi.fsdp_dim, step.fsdp)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del full
+    ag = statistics.median(times[3:])
+    size = int(np.prod(wi.fsdp_shape)) * wi.element_size()
+    return (f"a step's parts: forward and backward alone {fwd_bwd:.1f} ms (ZeRO-3's gathers and "
+            f"gradient reductions in it), the rest of the step (the whole leaves' all-reduce, "
+            f"the norm, AdamW on the blocks) {step_ms - fwd_bwd:.1f} ms; one all-gather of a "
+            f"layer's ffn.wi ({tuple(wi.fsdp_shape)}, {size / 1e6:.1f} MB) {ag:.3f} ms, "
+            f"{size / ag / 1e6:.1f} GB/s of output")
+
+
+def fsdp_rank(rank: int, world: int, backend: str, workdir: str) -> int:
+    """One rank of :func:`fsdp_ranks`: the fp32 checks, then on 4 cards the
+    bf16 run; rank 0 writes the launches of each path."""
+    from repro_torch.launch.mesh import make_mesh, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one_card = backend == "gloo"
+    shapes = [(1, 2, 1)] if one_card else [(1, world, 1), (2, world // 2, 1)]
+    init = dict(device="cuda:0" if one_card else f"cuda:{rank}",
+                init_method=f"file://{workdir}/store", world_size=world, rank=rank,
+                **({"backend": "gloo"} if one_card else {}))
+    meshes = [make_mesh(s, ("pod", "data", "model"), **init) for s in shapes]
+    try:
+        what = ("2 ranks on one card over gloo (a check, not the launcher's path)" if one_card
+                else f"{world} ranks over NCCL, one a card")
+        if rank == 0:
+            log(f"meshes (pod, data, model) = {shapes}, {what}")
+        launched = {}
+        for mesh in meshes:
+            launched[f"fsdp {FSDP_ARCH} fp32 {FSDP_REF_LAYERS}-layer check, mesh "
+                     f"{tuple(mesh.shape)}"] = fsdp_check(mesh, rank, world, sequential=one_card)
+            torch.cuda.empty_cache()
+        if not one_card:
+            launched[f"fsdp {FSDP_ARCH} bf16 train, mesh {tuple(meshes[0].shape)}"] = \
+                fsdp_train(meshes[0], rank, world)
+        if rank == 0:
+            with open(os.path.join(workdir, "launches.json"), "w") as f:
+                json.dump(launched, f)
+        return 0
+    finally:
+        shutdown()
+
+
 def ptxas_report(build_log: str) -> list:
     """One line per kernel instantiation from ``nvcc -Xptxas -v``: its name
     and template arguments, registers, shared memory and spills."""
@@ -2673,17 +3037,33 @@ def dist_phase(gemma, smi: str, single_ms) -> dict:
     return launched
 
 
+_PHASE = {"name": None, "t0": time.perf_counter(), "start": time.perf_counter()}
+
+
+def phase(name) -> None:
+    """Start phase ``name`` (None: the end of the run) after a line with the
+    seconds the previous phase took and the run so far (host clock)."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        log(f"  ({_PHASE['name']} phase {now - _PHASE['t0']:.1f} s; the run so far "
+            f"{now - _PHASE['start']:.1f} s)")
+    if name is not None:
+        log(f"{name}:")
+    _PHASE.update(name=name, t0=now)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("dist", "ranks", "tp"),
+    ap.add_argument("--only", choices=("dist", "ranks", "tp", "fsdp"),
                     help="the device and build phases, then only the dist phase, its "
-                         "multi-rank check or the tp phase")
+                         "multi-rank check, the tp phase or the fsdp phase")
     ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)  # a rank of dist_ranks
     ap.add_argument("--dist-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # a rank of tp_ranks
-    ap.add_argument("--tp-world", type=int, help=argparse.SUPPRESS)
-    ap.add_argument("--tp-backend", help=argparse.SUPPRESS)
+    ap.add_argument("--fsdp-rank", type=int, help=argparse.SUPPRESS)  # a rank of fsdp_ranks
+    ap.add_argument("--rank-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--rank-backend", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2693,7 +3073,9 @@ def main(argv=None) -> int:
     if args.dist_rank is not None:
         return dist_rank(args.dist_rank, args.dist_world, args.dist_dir)
     if args.tp_rank is not None:
-        return tp_rank(args.tp_rank, args.tp_world, args.tp_backend, args.dist_dir)
+        return tp_rank(args.tp_rank, args.rank_world, args.rank_backend, args.dist_dir)
+    if args.fsdp_rank is not None:
+        return fsdp_rank(args.fsdp_rank, args.rank_world, args.rank_backend, args.dist_dir)
     from repro_torch import configs
     from repro_torch.kernels import build
 
@@ -2706,7 +3088,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {device_name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    log("build:")
+    phase("build")
     t0 = time.perf_counter()
     times = build.build_all()
     log(f"  built {sorted(times)} in {time.perf_counter() - t0:.1f} s")
@@ -2716,13 +3098,16 @@ def main(argv=None) -> int:
 
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     if args.only:
-        log("tp:" if args.only == "tp" else "dist:")
+        phase(args.only if args.only in ("tp", "fsdp") else "dist")
         if args.only == "dist":
             dist_phase(gemma, smi, None)
         elif args.only == "tp":
             tp_ranks(torch.cuda.device_count(), smi)
+        elif args.only == "fsdp":
+            fsdp_ranks(torch.cuda.device_count(), smi)
         else:
             dist_ranks(torch.cuda.device_count())
+        phase(None)
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
@@ -2733,8 +3118,9 @@ def main(argv=None) -> int:
     jamba = jamba.replace(num_layers=SERVE_LAYERS[HYBRID_ARCH], moe=dataclasses.replace(
         jamba.moe, num_experts=SERVE_EXPERTS[HYBRID_ARCH]))
     whisper, internvl2 = configs.get_config(WHISPER_ARCH), configs.get_config(VLM_ARCH)
+    gemma2 = configs.get_config(FSDP_ARCH)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    log("kernels:")
+    phase("kernels")
     floor_ms = launch_floor_ms()
     log(f"  launch floor: one launch of a one-element kernel (add_) takes {floor_ms:.4f} ms "
         f"in time_ms's window")
@@ -2744,9 +3130,10 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launch_floor_ms"] = floor_ms
     torch.cuda.empty_cache()
-    log("reference:")
+    phase("reference")
     for cfg, cut, full_depth in (
             (gemma, "2-layer", False), (rwkv, "2-layer", False),
+            (gemma2, "2-layer (one local and one global layer)", False),
             (moe_reference_config(deepseek),
              "cut to 2 layers (first_dense 1) and 16 experts (top-8 kept),", False),
             (hybrid_reference_config(jamba),
@@ -2759,20 +3146,22 @@ def main(argv=None) -> int:
     deepseek_train, grok_train = (moe_train_config(configs.get_config(a)) for a in MOE_ARCHS)
     for cfg, cut in ((gemma.replace(num_layers=2), "2-layer"),
                      (rwkv.replace(num_layers=2), "2-layer"),
+                     (gemma2.replace(num_layers=FSDP_REF_LAYERS), "2-layer (one local and one "
+                                                                  "global layer)"),
                      (whisper, "at full depth (12 encoder + 12 decoder layers)"),
                      (internvl2, "at full depth (24 layers)"),
                      (deepseek_train, moe_cut(deepseek_train)), (grok_train, moe_cut(grok_train))):
         check_train_reference(cfg, cut)
         torch.cuda.empty_cache()
         release_host_memory()
-    log("serve:")
+    phase("serve")
     runs = {}
-    for cfg in (gemma, rwkv, deepseek, grok, jamba, whisper, internvl2):
+    for cfg in (gemma, rwkv, deepseek, grok, jamba, whisper, internvl2, gemma2):
         torch.cuda.reset_peak_memory_stats()
         runs[cfg.name] = serve(cfg)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
-    log("train:")
+    phase("train")
     trained, step_ms = {}, {}
     for cfg, cut in ((gemma, ""), (rwkv, ""), (whisper, ""), (internvl2, ""),
                      (deepseek_train, moe_cut(deepseek_train)), (grok_train, moe_cut(grok_train))):
@@ -2780,15 +3169,18 @@ def main(argv=None) -> int:
         path = f"train {cfg.name}" + (f" ({cfg.num_layers} layers, {cfg.moe.num_experts} experts)"
                                       if cut else "")
         trained[path], step_ms[cfg.name] = train(cfg, cut)
-    log("launcher:")
+    phase("launcher")
     torch.cuda.empty_cache()
     launched = launcher(rwkv)
-    log("dist:")
+    phase("dist")
     torch.cuda.empty_cache()
     launched[f"dist {gemma.name}"] = dist_phase(gemma, smi, step_ms[gemma.name])
-    log("tp:")
+    phase("tp")
     torch.cuda.empty_cache()
     launched.update(tp_ranks(torch.cuda.device_count(), smi))
+    phase("fsdp")
+    torch.cuda.empty_cache()
+    launched.update(fsdp_ranks(torch.cuda.device_count(), smi))
     # each kernel's launches in the run of the path that drives it; the
     # forward kernels run in serving and training alike
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],
@@ -2798,6 +3190,7 @@ def main(argv=None) -> int:
                  runs[jamba.name],
              f"serve {whisper.name}": runs[whisper.name],
              f"serve {internvl2.name}": runs[internvl2.name],
+             f"serve {gemma2.name}": runs[gemma2.name],
              **trained, **launched}
     driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",
                  "wkv6": f"serve {rwkv.name}", "wkv6_step": f"serve {rwkv.name}",
@@ -2806,6 +3199,7 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches"] = paths[driven_by[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if n.get(k["name"])}
+    phase(None)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,12 +22,13 @@ keeps for the next save.
 
 The state of a distributed step (``train.trainstep.MeshStep``) holds each
 rank's ZeRO-1 slice of the moments under JAX's keys, and on a ``model``
-axis above 1 each rank's ``model`` slice of every parameter.  Saving it
-gathers the parameters and the moments whole over ``model`` and ``data``
-and rank 0 writes the same file as a single-device save; restoring it,
-every rank reads the file and keeps its slices under the target mesh
-(JAX's elastic restore), so a checkpoint moves between meshes and between
-the port and JAX.
+axis above 1 each rank's ``model`` slice of every parameter; under ZeRO-3
+(``fsdp``) its blocks of the parameters and the moments over pod x data.
+Saving it gathers the parameters and the moments whole over ``model`` and
+the DP axes and rank 0 writes the same file as a single-device save;
+restoring it, every rank reads the file and keeps its slices (or blocks)
+under the target mesh (JAX's elastic restore), so a checkpoint moves
+between meshes, with and without ZeRO-3, and between the port and JAX.
 """
 from __future__ import annotations
 
@@ -107,9 +108,8 @@ def _snapshot(state: dict, mesh_step=None) -> Optional[Dict[str, Dict[str, torch
                 "opt/m": {n: _host_copy(t) for n, t in opt["m"].items()},
                 "opt/v": {n: _host_copy(t) for n, t in opt["v"].items()}}
     else:
-        stacked = {k: torch.stack([named[n] for n in names]) if isinstance(names, tuple)
-                   else named[names] for k, names in mesh_step.leaves.items()}
-        snap = {"params": gathered(stacked, mesh_step.gather_model),
+        stacked = {k: mesh_step.param(named, k) for k in mesh_step.leaves}
+        snap = {"params": gathered(stacked, mesh_step.whole_param),
                 "opt/m": gathered(opt["m"], mesh_step.gather),
                 "opt/v": gathered(opt["v"], mesh_step.gather)}
         del stacked
@@ -205,8 +205,7 @@ def restore_checkpoint(ckpt_dir: str, state: dict, step: Optional[int] = None,
             if mesh_step is None:
                 return params_from_jax(tree, model.cfg, dtype)
             if prefix == "params":
-                return params_from_jax(tree, model.cfg, dtype, model=mesh_step.model,
-                                       index=mesh_step.model_idx)
+                return mesh_step.param_state(tree, dtype)
             return {k: torch.from_numpy(np.asarray(a, dtype=np.float32)) for k, a in tree.items()}
         got = {prefix: group(prefix, dtype) for prefix, dtype in _GROUPS}
         saved_step = data["opt/step"]

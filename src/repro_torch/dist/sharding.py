@@ -22,7 +22,9 @@ degrades to replicated — a poor layout is acceptable, a failed step is not.
 A rank of a ``model`` axis above 1 holds only its slice of each leaf: the
 block at its ``model`` coordinate along :func:`model_dim` (``local_shape``,
 ``model_slice``), which the train step, the weight bridge and the
-checkpoints share.
+checkpoints share.  With ZeRO-3 (``fsdp``) a rank holds only a block of
+that slice: the one at its DP index (:func:`dp_index`, ordered ``("pod",
+"data")``) along :func:`fsdp_dim` (:func:`fsdp_slice`).
 """
 from __future__ import annotations
 
@@ -116,13 +118,28 @@ def model_slice(key: str, shape: Tuple[int, ...], model: int, index: int,
 
 def param_specs(shapes: Mapping[str, Tuple[int, ...]], mesh, cfg,
                 fsdp: bool = False) -> Dict[str, Spec]:
-    """Spec of every leaf of a parameter (or same-shaped moment) tree."""
-    if fsdp:
-        raise NotImplementedError(
-            "param_specs(fsdp=True): ZeRO-3 is not ported to repro_torch yet (ROADMAP A.9)")
-    model = mesh_axis_sizes(mesh).get("model", 1)
+    """Spec of every leaf of a parameter (or same-shaped moment) tree.
+
+    With ``fsdp`` (ZeRO-3) each leaf is also cut over the DP axes, ordered
+    ``("pod", "data")``, on the dim :func:`zero1_dim` picks at their whole
+    width (:func:`fsdp_dim` wherever there is more than one DP rank)."""
+    sizes = mesh_axis_sizes(mesh)
+    model = sizes.get("model", 1)
+    dp = dp_axes(mesh)
+    n_dp = 1
+    for a in dp:
+        n_dp *= sizes[a]
     is_moe = getattr(cfg, "moe", None) is not None
-    return {key: param_pspec(key, tuple(shape), model, is_moe) for key, shape in shapes.items()}
+    specs = {}
+    for key, shape in shapes.items():
+        shape = tuple(shape)
+        base = list(param_pspec(key, shape, model, is_moe))
+        if fsdp and dp:
+            d = zero1_dim(key, shape, model, n_dp, is_moe)
+            if d is not None:
+                base[d] = dp if len(dp) > 1 else dp[0]
+        specs[key] = tuple(base)
+    return specs
 
 
 def zero1_dim(
@@ -142,6 +159,49 @@ def zero1_dim(
         if base[d] is None and size > 0 and size % data == 0:
             return d
     return None
+
+
+def fsdp_dim(key: str, shape: Tuple[int, ...], model: int, n_dp: int,
+             is_moe: bool) -> Optional[int]:
+    """The dim of JAX leaf ``key`` (global stacked ``shape``) that ZeRO-3
+    cuts over the ``n_dp`` ranks of the DP axes (None: whole on every DP
+    rank): ``zero1_dim`` at the mesh's real ``model`` size.  On a stacked
+    leaf, dim 0 is the layer (or unit) axis: a rank then holds whole layers."""
+    return zero1_dim(key, shape, model, n_dp, is_moe) if n_dp > 1 else None
+
+
+def dp_index(pod_idx: int, data_idx: int, data: int) -> int:
+    """The block of the rank at (``pod_idx``, ``data_idx``) in a leaf cut
+    over ``("pod", "data")``: the batch's rows (``batch_specs``) and the
+    FSDP parameter blocks (``param_specs(fsdp=True)``), in the order of the
+    ranks of the DP group."""
+    return pod_idx * data + data_idx
+
+
+def moment_index(pod_idx: int, data_idx: int, pod: int) -> int:
+    """The block of the rank at (``pod_idx``, ``data_idx``) in JAX's FSDP
+    moments, cut over ``("data", "pod")`` (``zero1_specs(use_pod=True)``).
+    At ``pod`` > 1 it differs from :func:`dp_index`: the port keeps the
+    moments in the parameters' blocks and permutes where JAX's shards are
+    compared."""
+    return data_idx * pod + pod_idx
+
+
+def fsdp_slice(key: str, shape: Tuple[int, ...], model: int, n_dp: int, index: int,
+               is_moe: bool) -> Tuple[slice, ...]:
+    """The index of DP block ``index`` (:func:`dp_index`) inside a rank's
+    ``model`` slice of JAX leaf ``key`` (global stacked ``shape``); every
+    dim whole where the leaf has no :func:`fsdp_dim`."""
+    local = list(shape)
+    md = model_dim(key, shape, model, is_moe)
+    if md is not None:
+        local[md] //= model
+    out = [slice(None)] * len(shape)
+    d = fsdp_dim(key, tuple(shape), model, n_dp, is_moe)
+    if d is not None:
+        size = local[d] // n_dp
+        out[d] = slice(index * size, (index + 1) * size)
+    return tuple(out)
 
 
 def zero1_specs(shapes: Mapping[str, Tuple[int, ...]], mesh, cfg,

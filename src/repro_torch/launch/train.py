@@ -16,14 +16,16 @@ plane, as ``repro.launch.train`` does on one device.
    (``ckpt.manager``), and a rerun resumes from the latest one.
    Under ``python -m torch.distributed.run`` (``RANK``, ``WORLD_SIZE``,
    ``LOCAL_RANK`` set), or with ``--hierarchical``, ``--compress``,
-   ``--zero1`` or ``--model``, it builds ``make_host_mesh(model=)`` over
+   ``--zero1``, ``--fsdp`` or ``--model``, it builds ``make_host_mesh(model=)`` over
    the world (data × model; ``--model N`` > 1: pod 1 × data × model N,
    tensor and expert parallel over ``model``) and trains through
    ``train.trainstep.make_train_step``, as JAX's ``--smoke`` path does:
    the flat all-reduce step, or with
    ``--hierarchical`` the reduce-scatter / cross-pod / ZeRO-1 step
    (``--compress``: int8 values across pods; ``--zero1``: sharded moments
-   in the flat step).  Each rank takes its block of the global batch; the
+   in the flat step; ``--fsdp``: ZeRO-3, each rank holding its blocks of
+   the parameters and the moments over the DP axes and gathering each
+   layer as it runs).  Each rank takes its block of the global batch; the
    checkpoint gathers the moments and rank 0 writes it, and a rerun at
    another world size restores its own slices.  Only rank 0 prints.
 
@@ -43,6 +45,9 @@ Runs on the card unless ``--device`` says otherwise:
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m repro_torch.launch.train --arch qwen2.5-14b --model 4 --hierarchical --zero1 \
       --steps 6 --batch 4 --seq 1024                  # tensor parallel over 4 cards
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch gemma2-9b --fsdp --steps 6 --batch 8 \
+      --seq 1024                                      # ZeRO-3 over 4 cards
 
 Every family trains with its own loss (``ModelAPI.loss``): the dense ones
 (gemma-2b, olmo-1b, gemma2-9b, qwen2.5-14b), rwkv6, the MoE ones
@@ -52,9 +57,11 @@ and internvl2-1b on ``patches`` before ``--seq`` tokens; the synthetic data
 draws the frames and patches.  jamba-1.5-large-398b does not train yet and
 raises ``NotImplementedError`` (ROADMAP B.10).  At full width one card
 holds whisper-small and internvl2-1b whole; the MoE models only cut
-(``chip_smoke.py`` cuts them), and qwen2.5-14b over ``--model 4``.  At
-``--model`` > 1 the families without tensor parallelism raise (rwkv6,
-jamba, whisper, internvl2: ROADMAP A.10); ``fsdp`` is not ported (A.9).
+(``chip_smoke.py`` cuts them), qwen2.5-14b over ``--model 4`` and
+gemma2-9b with ``--fsdp`` over 4 cards.  At ``--model`` > 1 the families
+without tensor parallelism raise (rwkv6, jamba, whisper, internvl2:
+ROADMAP A.10); ``--fsdp`` takes the dense and MoE families (whisper and the
+VLM raise, A.9), and with ``--hierarchical`` one pod (ROADMAP C.9).
 """
 from __future__ import annotations
 
@@ -109,12 +116,12 @@ def control_plane_line(arch: str, cp: dict) -> str:
 def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float, grad_accum: int = 1,
                log_every: int = 5, device="cuda", seed: int = 0, ckpt_dir=None,
                ckpt_every: int = 20, mesh=None, hierarchical: bool = False,
-               compress: bool = False, zero1: bool = False) -> dict:
+               compress: bool = False, zero1: bool = False, fsdp: bool = False) -> dict:
     """The data plane: train ``cfg`` from ``make_train_state(seed)``, or from
     the latest checkpoint in ``ckpt_dir``, up to ``steps``.  With ``mesh``
     (``launch.mesh``; this process is one of its ranks, on ``mesh.device``)
-    through the distributed step of ``hierarchical``, ``compress`` and
-    ``zero1`` (``make_train_step``), and only rank 0 prints.
+    through the distributed step of ``hierarchical``, ``compress``,
+    ``zero1`` and ``fsdp`` (``make_train_step``), and only rank 0 prints.
 
     The periodic save after step ``i`` (``(i + 1) % ckpt_every == 0``) runs
     in the background and is joined before the next one; the last step is
@@ -130,12 +137,13 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, lr: float, grad_accum: 
     :class:`~repro_torch.ckpt.manager.Writer`, None for the final save and
     on the ranks that do not write).
     """
-    api = get_api(cfg, device=mesh.device if mesh is not None else device, mesh=mesh)
+    api = get_api(cfg, device=mesh.device if mesh is not None else device, mesh=mesh,
+                  fsdp=fsdp)
     data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=batch, seq=seq),
                          model_cfg=cfg)
     opt = OptConfig(lr=lr, warmup_steps=5, total_steps=max(steps, 10))
     hp = TrainHparams(grad_accum=grad_accum, hierarchical=hierarchical, compress=compress,
-                      zero1=zero1)
+                      zero1=zero1, fsdp=fsdp)
     if mesh is None:
         mesh_step = None
         state = make_train_state(api, seed=seed)
@@ -209,11 +217,14 @@ def main(argv=None) -> None:
     ap.add_argument("--compress", action="store_true",
                     help="int8 cross-pod gradients (with --hierarchical)")
     ap.add_argument("--zero1", action="store_true", help="shard the AdamW moments over data")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="ZeRO-3: shard the parameters and moments over the DP axes")
     ap.add_argument("--model", type=int, default=1,
                     help="ranks of the model axis: tensor and expert parallelism")
     args = ap.parse_args(argv)
 
-    flags = dict(hierarchical=args.hierarchical, compress=args.compress, zero1=args.zero1)
+    flags = dict(hierarchical=args.hierarchical, compress=args.compress, zero1=args.zero1,
+                 fsdp=args.fsdp)
     mesh = None
     if any(flags.values()) or "RANK" in os.environ or args.model > 1:
         mesh = make_host_mesh(model=args.model, device=args.device)

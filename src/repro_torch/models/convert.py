@@ -51,7 +51,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..dist.sharding import model_dim, model_slice
+from ..dist.fsdp import Cut
+from ..dist.sharding import fsdp_dim, model_dim, model_slice
 from .registry import model_class
 from .transformer import layer_plan
 
@@ -207,6 +208,28 @@ def model_dims(cfg, model: int) -> Dict[str, Optional[int]]:
         else:
             names = (names,)
         out.update((n, d) for n in names)
+    return out
+
+
+def fsdp_cuts(cfg, model: int, n_dp: int) -> Dict[str, Optional[Cut]]:
+    """For each parameter name of the port's model of ``cfg``, how ZeRO-3
+    over ``n_dp`` DP ranks cuts its (per-layer) tensor
+    (``dist.sharding.fsdp_dim`` on JAX's stacked leaf at a ``model`` axis
+    of that size): ``(dim, None)`` for a cut along the tensor's ``dim``,
+    ``(None, owner)`` for a layer that DP index ``owner`` holds whole (the
+    stacked layer axis cut), or None for a tensor whole on every DP rank."""
+    leaves, shapes = stacked_shapes(cfg)
+    is_moe = cfg.moe is not None
+    out = {}
+    for key, names in leaves.items():
+        d = fsdp_dim(key, shapes[key], model, n_dp, is_moe)
+        if not isinstance(names, tuple):
+            out[names] = None if d is None else (d, None)
+        elif d == 0:
+            per = len(names) // n_dp
+            out.update((n, (None, u // per)) for u, n in enumerate(names))
+        else:
+            out.update((n, None if d is None else (d - 1, None)) for n in names)
     return out
 
 

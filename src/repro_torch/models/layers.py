@@ -230,15 +230,16 @@ class Embed(nn.Module):
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype, device=x.device)
         return x
 
+    def unembed_matrix(self) -> torch.Tensor:
+        """The (d, V) unembedding, the whole vocabulary on every rank of a
+        model axis: the tied ``tok`` transposed (a view), or ``out``."""
+        axis = tp.axis_of(self)
+        return tp.whole(self.tok, axis).T if self.cfg.tie_embeddings else tp.whole(self.out, axis)
+
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """fp32 logits (..., V), the whole vocabulary on every rank of a
         model axis (the loss takes :meth:`unembed_weight` instead)."""
-        axis = tp.axis_of(self)
-        if self.cfg.tie_embeddings:
-            logits = x @ tp.whole(self.tok, axis).to(x.dtype).T
-        else:
-            logits = x @ tp.whole(self.out, axis).to(x.dtype)
-        return softcap(logits.float(), self.cfg.logit_softcap)
+        return softcap((x @ self.unembed_matrix().to(x.dtype)).float(), self.cfg.logit_softcap)
 
     def unembed_weight(self):
         """(w (d, V_r), v0): this rank's vocabulary slice of the (d, V)
@@ -272,8 +273,10 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> tor
     return nll.mean()
 
 
-def _chunk_nll(embed: Embed, h: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    return _nll(embed.unembed(h), targets)  # (B, chunk), from fp32 softcapped logits
+def _chunk_nll(w: torch.Tensor, cap, h: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The NLL (B, chunk) from the fp32 softcapped logits of the (d, V)
+    unembedding ``w``."""
+    return _nll(softcap((h @ w.to(h.dtype)).float(), cap), targets)
 
 
 def _chunk_nll_parallel(w: torch.Tensor, v0: int, cap, axis, h: torch.Tensor,
@@ -310,7 +313,9 @@ def cross_entropy_fused(h: torch.Tensor, embed: Embed, targets: torch.Tensor, ma
         chunk = S if S < chunk else math.gcd(S, chunk)
     axis = tp.axis_of(embed)
     if axis is None or embed.cfg.vocab_size % axis.size:  # the whole vocabulary
-        fn, lead = _chunk_nll, (embed,)
+        # the matrix is taken here, not inside the recomputed chunk: a
+        # gathered ZeRO-3 table is only swapped in while the forward runs
+        fn, lead = _chunk_nll, (embed.unembed_matrix(), embed.cfg.logit_softcap)
     else:
         w, v0 = embed.unembed_weight()
         h = tp.copy_to(h, axis)

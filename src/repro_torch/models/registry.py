@@ -14,9 +14,12 @@ API of one rank of the tensor- and expert-parallel model
 (``dist.tensor_parallel``): ``init(seed)`` builds the rank's modules at
 their local shapes and fills them with its slices of the very weights
 that ``init(seed)`` gives at ``model`` 1, drawn one module at a time on
-the device, so no rank ever holds the whole model.  It trains (``loss``);
-serving a sharded model (``cache_specs``) is ROADMAP A.9's, and the
-families without tensor parallelism raise (ROADMAP A.10).
+the device, so no rank ever holds the whole model.  With ``fsdp=True``
+(ZeRO-3, ``dist.fsdp``) the rank keeps only its block of each of those
+slices over the mesh's DP axes, and the decoder gathers each layer just
+before it runs (the dense and MoE families; whisper and the VLM raise).
+It trains (``loss``); serving a sharded model (``cache_specs``) is ROADMAP
+A.9's, and the families without tensor parallelism raise (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from torch import nn
 
 from .. import configs as _configs
+from ..dist.fsdp import DPAxis, block, cut_of
 from ..dist.tensor_parallel import ModelAxis
 from .config import MLAConfig, MambaConfig, ModelConfig, RWKVConfig
 from . import transformer, vlm, whisper
@@ -97,6 +101,7 @@ class ModelAPI:
     decode: Callable  # (model, tokens, cache) -> (logits, cache)
     init_cache: Callable  # (batch, s_max) -> cache
     axis: Optional[ModelAxis] = None  # the model axis of a rank (None: the whole model)
+    dp: Optional[DPAxis] = None  # the DP group of a rank's ZeRO-3 blocks (None: no fsdp)
 
 
 def model_class(cfg: ModelConfig):
@@ -135,37 +140,53 @@ def check_model_axis(cfg: ModelConfig, model: int) -> None:
             "yet (ROADMAP A.10)")
 
 
-def local_model(cfg: ModelConfig, device, axis: ModelAxis) -> nn.Module:
+def local_model(cfg: ModelConfig, device, axis: Optional[ModelAxis],
+                dp: Optional[DPAxis] = None) -> nn.Module:
     """The modules of one rank of ``axis``, parameters uninitialised at their
     local shapes on ``device``: each parameter carries ``tp_dim``, the dim
     of the slice it holds (``models.convert.model_dims``), and each module
-    ``tp``, the axis."""
-    from .convert import model_dims
+    ``tp``, the axis.  With ``dp`` (ZeRO-3) each parameter is the rank's
+    block of that slice (``models.convert.fsdp_cuts``), carrying
+    ``fsdp_dim``, ``fsdp_owner`` and ``fsdp_shape`` where it is cut, and
+    each module ``fsdp``, the DP group (``dist.fsdp``)."""
+    from .convert import fsdp_cuts, model_dims
 
-    dims = model_dims(cfg, axis.size)
+    size = axis.size if axis is not None else 1
+    dims = model_dims(cfg, size)
+    cuts = fsdp_cuts(cfg, size, dp.size) if dp is not None else {}
     model = model_class(cfg)(cfg, torch.device("meta"))
     for prefix, mod in model.named_modules():
         mod.tp = axis
+        if dp is not None:
+            mod.fsdp = dp
         for name, p in list(mod._parameters.items()):
-            dim = dims[f"{prefix}.{name}" if prefix else name]
-            shape = list(p.shape)
+            full = f"{prefix}.{name}" if prefix else name
+            dim, shape = dims[full], list(p.shape)
             if dim is not None:
-                shape[dim] //= axis.size
+                shape[dim] //= size
+            cut, gathered = cuts.get(full), tuple(shape)
+            if cut is not None and cut[0] is not None:
+                shape[cut[0]] //= dp.size
+            elif cut is not None and cut[1] != dp.index:
+                shape = [0]
             local = nn.Parameter(torch.empty(shape, dtype=p.dtype, device=device))
             local.tp_dim = dim
+            if cut is not None:
+                local.fsdp_dim, local.fsdp_owner, local.fsdp_shape = cut[0], cut[1], gathered
             mod._parameters[name] = local
     return model
 
 
 @torch.no_grad()
 def init_local(model: nn.Module, seed: int, device) -> nn.Module:
-    """Fill a :func:`local_model` with its slices of ``init(seed)``'s
-    weights: the whole model's modules are drawn one at a time on
-    ``device`` from the same generator, in the same order, and dropped once
-    their slices are kept."""
+    """Fill a :func:`local_model` with its slices (or blocks) of
+    ``init(seed)``'s weights: the whole model's modules are drawn one at a
+    time on ``device`` from the same generator, in the same order, and
+    dropped once their slices are kept."""
     whole = model_class(model.cfg)(model.cfg, torch.device("meta"))
     gen = torch.Generator(device=device).manual_seed(seed)
     local = dict(model.named_parameters())
+    dp = getattr(model, "fsdp", None)
     for prefix, mod in whole.named_modules():
         if mod is whole or not hasattr(mod, "reset_parameters"):
             continue
@@ -173,28 +194,43 @@ def init_local(model: nn.Module, seed: int, device) -> nn.Module:
         mod.reset_parameters(gen)
         for name, p in mod.named_parameters(recurse=False):
             q = local[f"{prefix}.{name}"]
-            q.copy_(p if q.tp_dim is None else model.tp.own(p, q.tp_dim))
+            part = p if q.tp_dim is None else model.tp.own(p, q.tp_dim)
+            q.copy_(block(part, cut_of(q), dp))
         mod.to_empty(device="meta", recurse=False)
     return model
 
 
-def get_api(cfg: ModelConfig, device="cuda", mesh=None) -> ModelAPI:
+# the families whose decoder gathers its layers under ZeRO-3 (``dist.fsdp``)
+FSDP_FAMILIES = ("dense", "moe")
+
+
+def get_api(cfg: ModelConfig, device="cuda", mesh=None, fsdp: bool = False) -> ModelAPI:
     """The model API of ``cfg``'s arch on ``device``; with ``mesh`` (a
-    built ``launch.mesh.Mesh``), of this rank of its ``model`` axis."""
+    built ``launch.mesh.Mesh``), of this rank of its ``model`` axis; with
+    ``fsdp`` too, of this rank's ZeRO-3 blocks over the mesh's DP axes."""
     transformer.check_supported(cfg)
     device = torch.device(device)
     cls = model_class(cfg)
-    axis = None
+    axis = dp = None
     if mesh is not None:
         check_model_axis(cfg, dict(zip(mesh.axis_names, mesh.shape)).get("model", 1))
         axis = ModelAxis.of(mesh)
+    if fsdp:
+        if mesh is None:
+            raise ValueError("fsdp cuts the parameters over a mesh's DP axes: pass mesh=")
+        if cfg.family not in FSDP_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: ZeRO-3 (fsdp) for the {cfg.family} family is not ported to "
+                "repro_torch yet: the decoder-only dense and MoE families gather their "
+                "layers (ROADMAP A.9)")
+        dp = DPAxis.of(mesh)
 
     def init(seed: int = 0):
         """Random weights from ``torch.Generator(seed)`` on ``device``, with
         the JAX initialiser's distributions (this rank's slices of them on
-        a model axis)."""
-        if axis is not None:
-            return init_local(local_model(cfg, device, axis), seed, device)
+        a model axis, its blocks of those under ZeRO-3)."""
+        if axis is not None or dp is not None:
+            return init_local(local_model(cfg, device, axis, dp), seed, device)
         model = cls(cfg, device)
         model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
         return model
@@ -224,13 +260,14 @@ def get_api(cfg: ModelConfig, device="cuda", mesh=None) -> ModelAPI:
     def decode_step(model, tokens, cache):
         return model(tokens, cache=cache, mode="decode")
 
-    if axis is not None:
+    if axis is not None or dp is not None:
         def make_cache(batch, s_max):
             raise NotImplementedError(
-                f"{cfg.name}: serving at a model axis of {axis.size} (cache_specs) is not "
+                f"{cfg.name}: serving a model sharded over a mesh (cache_specs) is not "
                 "ported to repro_torch yet (ROADMAP A.9)")
 
-    return ModelAPI(cfg, device, init, loss_fn(cfg), prefill, decode_step, make_cache, axis)
+    return ModelAPI(cfg, device, init, loss_fn(cfg), prefill, decode_step, make_cache, axis,
+                    dp)
 
 
 def modality_inputs(cfg: ModelConfig, rng: np.random.Generator, batch: int) -> Dict[str, np.ndarray]:

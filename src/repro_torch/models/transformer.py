@@ -32,7 +32,10 @@ by ``models.registry.local_model``: the same modules, each parameter a
 slice of JAX's leaf, and the layers (``layers.py``, ``attention.py``,
 ``moe.py``) run the axis's collectives around the replicated residual
 stream.  Such a model trains; its cache path raises (sharded serving is
-ROADMAP A.9's).
+ROADMAP A.9's).  Under ZeRO-3 (``dist.fsdp``) each parameter is the rank's
+block, and :class:`DecoderLM` gathers the embedding, each layer and the
+final norm just before their use (``fsdp.gathered``), and ``lm_loss`` the
+tied table again for the fused loss.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..dist import fsdp
 from .attention import GQAAttention, MLAAttention
 from .layers import MLP, Embed, Norm, cross_entropy_fused
 from .moe import MoE
@@ -224,13 +228,19 @@ class DecoderLM(nn.Module):
         elif cache is None:
             raise ValueError(f"mode={mode!r} requires a cache")
         pos = cache["pos"] if mode == "decode" else None
-        x = inputs_embeds if inputs_embeds is not None else self.embed.embed(tokens)
+        if inputs_embeds is not None:
+            x = inputs_embeds
+        else:
+            with fsdp.gathered(self.embed):
+                x = self.embed.embed(tokens)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
-            x, aux = layer(x, cache["layers"][i] if cache is not None else None, pos)
+            with fsdp.gathered(layer):  # ZeRO-3: this layer's weights whole, just now
+                x, aux = layer(x, cache["layers"][i] if cache is not None else None, pos)
             if aux is not None:
                 aux_total = aux_total + aux
-        x = self.final_norm(x)
+        with fsdp.gathered(self.final_norm):
+            x = self.final_norm(x)
         new_cache = None
         if cache is not None:
             new_pos = cache["pos"] + (1 if mode == "decode" else x.shape[1])
@@ -238,7 +248,8 @@ class DecoderLM(nn.Module):
         if not return_hidden:
             if last_only:
                 x = x[:, -1:, :]
-            x = self.embed.unembed(x)
+            with fsdp.gathered(self.embed):
+                x = self.embed.unembed(x)
         return (x, aux_total, new_cache) if return_aux else (x, new_cache)
 
 
@@ -257,7 +268,8 @@ def lm_loss(model: DecoderLM, batch) -> torch.Tensor:
     final norm, plus 0.01 x the MoE auxiliary loss for an MoE config, as
     JAX's ``lm_loss``."""
     h, aux, _ = model(batch["tokens"], mode="train", return_hidden=True, return_aux=True)
-    loss = cross_entropy_fused(h, model.embed, batch["targets"], batch.get("mask"))
+    with fsdp.gathered(model.embed):  # ZeRO-3: the (tied) table again, for the loss
+        loss = cross_entropy_fused(h, model.embed, batch["targets"], batch.get("mask"))
     if model.cfg.moe is not None:
         loss = loss + 0.01 * aux
     return loss

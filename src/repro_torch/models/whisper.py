@@ -102,9 +102,13 @@ class Whisper(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
 
+    def unembed_matrix(self) -> torch.Tensor:
+        """The tied table transposed, (d, V) (a view; the fused loss's)."""
+        return self.tok.T
+
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """fp32 logits (..., V) of the tied table, no softcap."""
-        return (x @ self.tok.to(x.dtype).T).float()
+        return (x @ self.unembed_matrix().to(x.dtype)).float()
 
     def forward(self, tokens, frames=None, cache=None, mode: str = "train",
                 last_only: bool = False, return_hidden: bool = False):

@@ -55,8 +55,23 @@ On the card (NCCL, one card a rank): the same without ``--device cpu``;
 them.  With tensor parallelism, qwen2.5-14b on 4 cards:
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --arch qwen2.5-14b --model 4 --hierarchical --zero1
-``fsdp`` raises ``NotImplementedError`` (ROADMAP A.9), and so do the
-families without tensor parallelism at ``model`` > 1 (ROADMAP A.10).
+With ``fsdp`` (ZeRO-3, ``dist.fsdp``; the api from ``get_api(cfg, device,
+mesh=mesh, fsdp=True)``) each rank holds only its block of each leaf's
+``model`` slice over pod x data (``fsdp_dim``, block ``pod_idx * data +
+data_idx``) and the moments of that block: the decoder gathers each layer
+as it runs and the gather's backward sums the gradient into the blocks,
+so the step all-reduces only the whole leaves' gradients, sums the
+blocks' squares over pod x data for the norm and runs AdamW on the
+blocks, with no gather after it.  JAX cuts its FSDP moments in ``("data",
+"pod")`` order (``zero1_specs(use_pod=True)``); the port keeps them in the
+parameters' ``("pod", "data")`` blocks, and a checkpoint gathers both
+whole.  The hierarchical step with ``fsdp`` adds the cross-pod pass at
+pod 1; across pods it raises (JAX's fails there: ROADMAP C.9).  On 4
+cards:
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch gemma2-9b --fsdp --batch 8 --seq 1024
+The families without tensor parallelism raise at ``model`` > 1 (ROADMAP
+A.10), and whisper and the VLM under ``fsdp`` (A.9).
 """
 from __future__ import annotations
 
@@ -68,11 +83,13 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..dist.sharding import batch_specs, local_shape, model_dim, zero1_dim
+from ..dist import fsdp
+from ..dist.sharding import (batch_specs, dp_index, fsdp_dim, local_shape, model_dim,
+                             zero1_dim)
 from ..dist.tensor_parallel import all_gather as _all_gather
 from ..dist.tensor_parallel import reduce_scatter as _reduce_scatter
 from ..launch.mesh import dp_axes, mesh_axis_sizes
-from ..models.convert import stacked_shapes
+from ..models.convert import fsdp_cuts, params_from_jax, stacked_shapes
 from ..models.registry import check_model_axis, loss_fn
 from .optimizer import (OptConfig, adamw_init, adamw_leaf, adamw_update, bias_corrections,
                         clip_scale, schedule)
@@ -84,16 +101,12 @@ class TrainHparams:
     hierarchical: bool = False  # hierarchical collectives (make_train_step)
     compress: bool = False  # int8 cross-pod gradient compression (hierarchical step)
     zero1: bool = False  # shard optimizer state over data axis (make_train_step)
-    fsdp: bool = False  # ZeRO-3 (not ported: ROADMAP A.9)
+    fsdp: bool = False  # ZeRO-3: shard params over the DP axes; gather per layer
 
 
 def _check_hparams(hp: TrainHparams, mesh: bool = False) -> None:
-    """Refuse what the step does not port: ``fsdp``, and without a ``mesh``
-    the distributed flags."""
-    if hp.fsdp:
-        raise NotImplementedError("TrainHparams.fsdp: ZeRO-3 is not ported to repro_torch "
-                                  "yet (ROADMAP A.9)")
-    for flag in () if mesh else ("hierarchical", "compress", "zero1"):
+    """Refuse the distributed flags without a ``mesh``."""
+    for flag in () if mesh else ("hierarchical", "compress", "zero1", "fsdp"):
         if getattr(hp, flag):
             raise NotImplementedError(
                 f"TrainHparams.{flag} needs a mesh: build the distributed step with "
@@ -184,34 +197,47 @@ class MeshStep:
     ``step(state, batch)`` takes the global batch, trains ``state`` in place
     and returns ``{"loss", "lr", "grad_norm"}`` (0-dim tensors, the same on
     every rank).  ``init_state(seed)`` builds the state: this rank's model
-    (its ``model`` slices of every leaf, on ``mesh.device``) and its AdamW
-    moments.  ``api`` must come from ``get_api(cfg, device, mesh=mesh)``
-    where the mesh's ``model`` axis is above 1.
+    (its ``model`` slices of every leaf, on ``mesh.device``; under ``fsdp``
+    its blocks of them) and its AdamW moments.  ``api`` must come from
+    ``get_api(cfg, device, mesh=mesh)`` where the mesh's ``model`` axis is
+    above 1, and with ``fsdp=True`` under ``hp.fsdp``.
 
     ``leaves`` maps each JAX key to its port names (``jax_leaves``),
     ``shapes`` to its global stacked shape, ``mdims`` to the dim the
     ``model`` axis cuts (None: whole on every rank) and ``local`` to the
     shape of this rank's slice, ``dims`` to the dim its moments are cut
     along over ``data`` (None: whole), which is where ``zero1_specs`` puts
-    ``"data"``.
+    ``"data"``; under ``fsdp``, ``dims`` is the dim that cuts both the
+    parameters and the moments over the whole DP group (``fsdp_dim``), and
+    ``names`` maps each key to the port names of this rank's block (the
+    layers it owns where the stacked layer axis is cut).
     ``comm`` counts the last step's collectives per axis (``"data"``,
     ``"pod"``, ``"model"`` — the forward's and backward's as well as the
-    step's —, and ``"pod+data"`` for the groups over both): calls, and
-    bytes as the sizes of the tensors handed in (a reduce-scatter's input,
-    an all-reduce's buffer, an all-gather's output)."""
+    step's —, and ``"pod+data"`` for the groups over both, where ZeRO-3's
+    gathers count): calls, and bytes as the sizes of the tensors handed in
+    (a reduce-scatter's input, an all-reduce's buffer, an all-gather's
+    output)."""
 
     def __init__(self, api, cfg, opt: OptConfig, mesh, hp: TrainHparams, batch_shape):
         _check_hparams(hp, mesh=True)
         sizes = mesh_axis_sizes(mesh)
         if "data" not in sizes:
             raise ValueError(f"the mesh {mesh.axis_names} has no data axis")
+        if hp.fsdp and hp.hierarchical and sizes.get("pod", 1) > 1:
+            raise NotImplementedError(
+                "the hierarchical step with fsdp across pods: JAX's reference fails there "
+                "(its moments are cut over data x pod, its gradients over data alone; "
+                "ROADMAP C.9)")
         _check_trains(cfg)
         self.model = sizes.get("model", 1)
         check_model_axis(cfg, self.model)
-        self.axis = api.axis
+        self.axis, self.fsdp = api.axis, api.dp
         if (self.axis.size if self.axis is not None else 1) != self.model:
             raise ValueError(f"the mesh's model axis is {self.model}: build the api with "
                              "get_api(cfg, device, mesh=mesh)")
+        if (self.fsdp is not None) != hp.fsdp:
+            raise ValueError(f"TrainHparams.fsdp is {hp.fsdp}: build the api with "
+                             f"get_api(cfg, device, mesh=mesh, fsdp={hp.fsdp})")
         self.api, self.cfg, self.opt, self.mesh, self.hp = api, cfg, opt, mesh, hp
         self.dp = dp_axes(mesh)
         self.data, self.pod = sizes["data"], sizes.get("pod", 1)
@@ -221,35 +247,54 @@ class MeshStep:
         self.leaves, self.shapes = stacked_shapes(cfg)
         self.mdims = {k: model_dim(k, s, self.model, is_moe) for k, s in self.shapes.items()}
         self.local = {k: local_shape(k, s, sizes, is_moe) for k, s in self.shapes.items()}
-        sharded = hp.zero1 or hp.hierarchical  # JAX: zero1 specs for either
-        self.dims = {k: zero1_dim(k, s, self.model, self.data, is_moe) if sharded else None
-                     for k, s in self.shapes.items()}
+        coords = mesh.coords()
+        self.data_idx, self.model_idx = coords["data"], coords.get("model", 0)
+        self.dp_idx = dp_index(coords.get("pod", 0), self.data_idx, self.data)
+        dpname = "+".join(self.dp)
+        if hp.fsdp:  # parameters and moments in the same blocks over pod x data
+            self.dims = {k: fsdp_dim(k, s, self.model, self.n_dp, is_moe)
+                         for k, s in self.shapes.items()}
+            self.cut_axis, self.cut_n, self.cut_idx = dpname, self.n_dp, self.dp_idx
+        else:
+            sharded = hp.zero1 or hp.hierarchical  # JAX: zero1 specs for either
+            self.dims = {k: zero1_dim(k, s, self.model, self.data, is_moe) if sharded else None
+                         for k, s in self.shapes.items()}
+            self.cut_axis, self.cut_n, self.cut_idx = "data", self.data, self.data_idx
+        self.names = {k: self._block_names(k) for k in self.leaves}
+        self.cuts = fsdp_cuts(cfg, self.model, self.n_dp) if hp.fsdp else {}
         self.batch_specs = batch_specs(batch_shape, mesh)
         self.batch_rows = {k: tuple(getattr(v, "shape", v))[0] for k, v in batch_shape.items()}
 
-        coords = mesh.coords()
-        self.data_idx, self.model_idx = coords["data"], coords.get("model", 0)
-        self.dp_idx = coords.get("pod", 0) * self.data + self.data_idx
         self.groups = {a: mesh.group(a) for a in self.dp}
         # the group over pod x data: the world at model 1, else this model
         # coordinate's (a single data axis is its own group)
-        self.groups.setdefault("+".join(self.dp), mesh.dp_group if self.model > 1
-                               else dist.group.WORLD)
+        self.groups.setdefault(dpname, mesh.dp_group if self.model > 1 else dist.group.WORLD)
         if self.model > 1:
             self.groups["model"] = mesh.group("model")
+        self.sizes = {"data": self.data, "pod": self.pod, dpname: self.n_dp, "model": self.model}
         # the rank at pod 0, data 0 of this rank's model coordinate
         self.dp_src = int(np.ravel_multi_index(
             [coords[a] if a == "model" else 0 for a in mesh.axis_names], mesh.shape))
         self.comm: Dict[str, Dict[str, int]] = {}
 
     # ---- layout ----------------------------------------------------------
+    def _block_names(self, key: str):
+        """The port names of this rank's block of JAX leaf ``key``: the
+        layers it owns where ZeRO-3 cuts the stacked layer axis."""
+        names = self.leaves[key]
+        if self.hp.fsdp and isinstance(names, tuple) and self.dims[key] == 0:
+            per = len(names) // self.n_dp
+            return names[self.dp_idx * per:(self.dp_idx + 1) * per]
+        return names
+
     def _cut(self, key: str, local: torch.Tensor) -> torch.Tensor:
-        """This rank's ``data`` slice of its ``model`` slice ``local`` (a view)."""
+        """This rank's block of its ``model`` slice ``local`` (a view): its
+        ``data`` slice (ZeRO-1), or its DP block (ZeRO-3)."""
         dim = self.dims[key]
         if dim is None:
             return local
-        size = local.shape[dim] // self.data
-        return local.narrow(dim, self.data_idx * size, size)
+        size = local.shape[dim] // self.cut_n
+        return local.narrow(dim, self.cut_idx * size, size)
 
     def model_slice(self, key: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's ``model`` slice of JAX leaf ``key`` (a view of ``whole``)."""
@@ -261,7 +306,8 @@ class MeshStep:
 
     def shard(self, key: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's slice of JAX leaf ``key``'s moments (a view of
-        ``whole``): its ``model`` slice cut over ``data``."""
+        ``whole``): its ``model`` slice cut over ``data`` (over pod x data
+        under ``fsdp``)."""
         return self._cut(key, self.model_slice(key, whole))
 
     def gather_model(self, key: str, local: torch.Tensor) -> torch.Tensor:
@@ -271,12 +317,31 @@ class MeshStep:
         return local if dim is None else self._gather(local, dim, "model", count=False)
 
     def gather(self, key: str, shard: torch.Tensor) -> torch.Tensor:
-        """JAX leaf ``key`` whole from every rank's moment ``shard`` (a
-        collective over ``data`` and one over ``model`` where the leaf is
-        cut)."""
+        """JAX leaf ``key`` whole from every rank's moment ``shard`` (or,
+        under ``fsdp``, parameter block): a collective over ``data`` (pod x
+        data) and one over ``model`` where the leaf is cut."""
         dim = self.dims[key]
-        local = shard if dim is None else self._gather(shard, dim, "data", count=False)
+        local = shard if dim is None else self._gather(shard, dim, self.cut_axis, count=False)
         return self.gather_model(key, local)
+
+    def param(self, params: Mapping[str, torch.Tensor], key: str) -> torch.Tensor:
+        """This rank's part of JAX leaf ``key`` from the model's named
+        ``params``, stacked along the layer axis: its ``model`` slice, or
+        under ``fsdp`` its block of it."""
+        return self._stacked(params, self.names[key])
+
+    def whole_param(self, key: str, part: torch.Tensor) -> torch.Tensor:
+        """JAX leaf ``key`` whole from every rank's :meth:`param`."""
+        return self.gather(key, part) if self.hp.fsdp else self.gather_model(key, part)
+
+    def param_state(self, flat: Mapping[str, Any], dtype=None) -> Dict[str, torch.Tensor]:
+        """The state dict of this rank's model from JAX's flat
+        ``params/...`` leaves (numpy, whole): its ``model`` slices, and
+        under ``fsdp`` its blocks of them (empty where it owns no layer)."""
+        state = params_from_jax(flat, self.cfg, dtype, model=self.model, index=self.model_idx)
+        if self.hp.fsdp:
+            state = {n: fsdp.block(t, self.cuts[n], self.fsdp).clone() for n, t in state.items()}
+        return state
 
     def init_opt(self) -> dict:
         """Zero fp32 moments of this rank's slices and step 0."""
@@ -287,7 +352,7 @@ class MeshStep:
             for k, shape in self.local.items():
                 shape, dim = list(shape), self.dims[k]
                 if dim is not None:
-                    shape[dim] //= self.data
+                    shape[dim] //= self.cut_n
                 out[k] = torch.zeros(shape, dtype=torch.float32, device=dev)
             return out
 
@@ -295,14 +360,15 @@ class MeshStep:
 
     def init_state(self, seed: int = 0) -> dict:
         """{"model": ``api.init(seed)`` — at ``model`` > 1 this rank's slices
-        of the weights ``init(seed)`` gives the whole model —, the weights
-        of the rank at pod 0, data 0 on every rank of its ``model``
-        coordinate, "opt": :meth:`init_opt`}."""
+        of the weights ``init(seed)`` gives the whole model, under ``fsdp``
+        its blocks of them —, without ``fsdp`` the weights of the rank at
+        pod 0, data 0 on every rank of its ``model`` coordinate, "opt":
+        :meth:`init_opt`}."""
         dev, want = self.api.device, self.mesh.device
         if dev.type != want.type or dev.index not in (None, want.index):
             raise ValueError(f"the model's device {dev} is not the mesh's {want}")
         model = self.api.init(seed)
-        if self.n_dp > 1:
+        if self.n_dp > 1 and not self.hp.fsdp:
             with torch.no_grad():
                 for p in model.parameters():
                     dist.broadcast(p, src=self.dp_src, group=self.groups["+".join(self.dp)])
@@ -344,11 +410,10 @@ class MeshStep:
 
     def _gather(self, t: torch.Tensor, dim: int, axis: str = "data",
                 count: bool = True) -> torch.Tensor:
-        """All-gather over ``axis`` (``data`` or ``model``) along ``dim``
-        (counted in ``comm`` inside the step)."""
+        """All-gather over ``axis`` (``data``, the DP group or ``model``)
+        along ``dim`` (counted in ``comm`` inside the step)."""
         t = t.movedim(dim, 0).contiguous()
-        out = t.new_empty((t.shape[0] * (self.data if axis == "data" else self.model),)
-                          + t.shape[1:])
+        out = t.new_empty((t.shape[0] * self.sizes[axis],) + t.shape[1:])
         if count:
             self._count(axis, out)
         _all_gather(out, t, group=self.groups[axis])
@@ -376,38 +441,52 @@ class MeshStep:
                 parts[i] = summed[j]
 
     # ---- the step --------------------------------------------------------
-    def _stacked(self, tensors: Mapping[str, torch.Tensor], key: str, pop: bool = False):
-        names = self.leaves[key]
+    @staticmethod
+    def _stacked(tensors: Mapping[str, torch.Tensor], names, pop: bool = False):
         get = tensors.pop if pop else tensors.__getitem__
         return torch.stack([get(n) for n in names]) if isinstance(names, tuple) else get(names)
+
+    def _reduced(self, grads: Dict[str, torch.Tensor], key: str):
+        """(the mean gradient over the DP group of this rank's part of leaf
+        ``key`` — the whole leaf in the flat step without ``fsdp`` —,
+        whether that part is cut, so that the global norm sums its squares
+        over DP).  Under ``fsdp`` the gather's backward has summed a cut
+        leaf's gradient into its block already."""
+        hp, dp = self.hp, "+".join(self.dp)
+        dim = self.dims[key]
+        g = self._stacked(grads, self.names[key], pop=True).float()
+        if hp.fsdp:
+            gs = g if dim is not None else self._all_reduce(g, dp)
+        elif hp.hierarchical:
+            gs = self._scatter(g, dim) if dim is not None else self._all_reduce(g, "data")
+        else:  # flat: the whole gradient, then this rank's slice
+            gs = self._all_reduce(g, dp)
+        if hp.hierarchical and "pod" in self.groups:
+            gs = self._cross_pod(gs, key)
+        return gs / self.n_dp, dim is not None and (hp.fsdp or hp.hierarchical)
 
     def __call__(self, state: dict, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model, st, hp = state["model"], state["opt"], self.hp
         self.comm = {}
-        if self.axis is not None:  # the forward's and backward's collectives count here too
-            self.axis.comm = self.comm
+        for axis in (self.axis, self.fsdp):  # the forward's and backward's collectives
+            if axis is not None:
+                axis.comm = self.comm
         loss, grads = _accum_grads(model, self.local_batch(batch), hp.grad_accum)
         dp = "+".join(self.dp)
         loss = self._all_reduce(loss.float().clone(), dp) / self.n_dp
         with torch.no_grad():
             shards, parts, cut = {}, [], []
-            for key, dim in self.dims.items():
-                g = self._stacked(grads, key, pop=True).float()
-                if hp.hierarchical:
-                    gs = self._scatter(g, dim) if dim is not None else self._all_reduce(g, "data")
-                    if "pod" in self.groups:
-                        gs = self._cross_pod(gs, key)
-                    gs = gs / self.n_dp
-                    cut.append(dim is not None)
-                else:  # flat: the whole gradient, then this rank's slice
-                    gs = self._all_reduce(g, dp) / self.n_dp
-                    cut.append(False)
+            for key in self.dims:
+                gs, scattered = self._reduced(grads, key)
                 parts.append(torch.sum(gs * gs))
-                shards[key] = gs if hp.hierarchical or dim is None else self._cut(key, gs).clone()
-                del g, gs
-            # the squares summed over data where the leaf is scattered, then
-            # over model where it is cut: each whole leaf counts once
-            self._sum_over(parts, [i for i, c in enumerate(cut) if c], "data")
+                cut.append(scattered)
+                # the flat step's ZeRO-1: this rank's slice of the whole gradient
+                flat_cut = not (hp.fsdp or hp.hierarchical) and self.dims[key] is not None
+                shards[key] = self._cut(key, gs).clone() if flat_cut else gs
+                del gs
+            # the squares summed over the DP axes where the leaf is cut there,
+            # then over model where it is cut: each whole leaf counts once
+            self._sum_over(parts, [i for i, c in enumerate(cut) if c], self.cut_axis)
             self._sum_over(parts, [i for i, k in enumerate(self.dims)
                                    if self.mdims[k] is not None], "model")
             sq = torch.zeros((), dtype=torch.float32, device=loss.device)
@@ -419,16 +498,19 @@ class MeshStep:
             lr, bc = schedule(self.opt, step), bias_corrections(self.opt, step)
             params = dict(model.named_parameters())
             for key, dim in self.dims.items():
-                p = self._cut(key, self._stacked(params, key))
+                names = self.names[key]
+                p = self._stacked(params, names)
+                if not hp.fsdp:
+                    p = self._cut(key, p)
                 new = adamw_leaf(p.float(), shards.pop(key) * clip, st["m"][key], st["v"][key],
                                  lr, bc, self.opt).to(p.dtype)
-                full = new if dim is None else self._gather(new, dim)
-                names = self.leaves[key]
+                if not hp.fsdp and dim is not None:  # ZeRO-1: the slices joined again
+                    new = self._gather(new, dim, "data")
                 if isinstance(names, tuple):
                     for u, name in enumerate(names):
-                        params[name].copy_(full[u])
+                        params[name].copy_(new[u])
                 else:
-                    params[names].copy_(full)
+                    params[names].copy_(new)
             st["step"] = step + 1
         return {"loss": loss, "lr": lr, "grad_norm": gnorm}
 

@@ -61,24 +61,33 @@ def main(path: str) -> None:
                 lambda p, leaf: jnp.asarray(f["params/" + _path_str(p)], leaf.dtype),
                 state["params"])
         state = jax.device_put(state, s_shard)
+        position = {d.id: np.ravel_multi_index(idx, shape)
+                    for idx, d in np.ndenumerate(mesh.devices)}
+
+        def dump(prefix=""):
+            out = {}
+            for p, leaf in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
+                out[f"{prefix}params/{_path_str(p)}"] = np.asarray(leaf, np.float32)
+            for g in ("m", "v"):
+                for p, leaf in jax.tree_util.tree_flatten_with_path(state["opt"][g])[0]:
+                    for shard in leaf.addressable_shards:
+                        r = position[shard.device.id]
+                        out[f"{prefix}{g}/{r}/{_path_str(p)}"] = np.asarray(shard.data)
+            return out
+
         res = {"loss": [], "grad_norm": [], "lr": []}
+        kept = {}
         for i in range(case["steps"]):
             state, metrics = step(state, {k: jnp.asarray(v) for k, v in batches[i].items()})
             for k in res:
                 res[k].append(float(metrics[k]))
             if case.get("ckpt"):
                 save_checkpoint(case["ckpt"], i, state)
+            if i in case.get("keep", ()):
+                kept.update(dump(f"after{i}/"))
         arrays = {k: np.asarray(v) for k, v in res.items()}
-        position = {d.id: np.ravel_multi_index(idx, shape)
-                    for idx, d in np.ndenumerate(mesh.devices)}
         arrays["device_ids"] = np.asarray([d.id for d in mesh.devices.flat])
-        for p, leaf in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
-            arrays[f"params/{_path_str(p)}"] = np.asarray(leaf, np.float32)
-        for g in ("m", "v"):
-            for p, leaf in jax.tree_util.tree_flatten_with_path(state["opt"][g])[0]:
-                for shard in leaf.addressable_shards:
-                    r = position[shard.device.id]
-                    arrays[f"{g}/{r}/{_path_str(p)}"] = np.asarray(shard.data)
+        arrays.update(dump(), **kept)
         np.savez(os.path.join(job["out"], f"{case['name']}.jax.npz"), **arrays)
 
 

@@ -48,6 +48,9 @@ def _randn(gen, shape, dtype):
     (2, 8, 1, 300, 300, 256, {}),
     (1, 4, 2, 50, 70, 16, dict(window=8)),
     (4, 10, 2, 1024, 1024, 128, {}),  # a rank of qwen2.5-14b at TP 4: 10 of 40 q heads
+    # gemma2-9b's prefill: GQA 16/8, D 256, softcap 50; its local layers' window
+    (4, 16, 8, 1024, 1024, 256, dict(window=4096, softcap=50.0)),
+    (4, 16, 8, 1024, 1024, 256, dict(softcap=50.0)),
 ])
 def test_flash_kernel_matches_plain(gen, dtype, B, Hq, Hkv, Sq, Sk, D, kw):
     q = _randn(gen, (B, Hq, Sq, D), dtype)
@@ -126,7 +129,8 @@ def _check_model_layout(gen, dtype, shape, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 256), (3, 5, 512), (4095, 2048), (7, 896), (5, 3584), (3, 8192),
-                                   (4096, 5120)])  # qwen2.5-14b's training at TP 4
+                                   (4096, 5120),  # qwen2.5-14b's training at TP 4
+                                   (4096, 3584), (2048, 3584)])  # gemma2-9b: prefill, a rank
 def test_rmsnorm_kernel_matches_plain(gen, dtype, shape):
     x = _randn(gen, shape, dtype)
     s = _randn(gen, shape[-1:], dtype)
@@ -183,6 +187,9 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (4, 14, 2, 1280, 1280, 64, torch.bfloat16, {}),  # internvl2: 7 q heads a kv head
     (4, 48, 8, 1024, 1024, 128, torch.bfloat16, dict(softcap=30.0)),  # grok-1: 6 a kv head
     (4, 10, 2, 1024, 1024, 128, torch.bfloat16, {}),  # a rank of qwen2.5-14b at TP 4
+    # a gemma2-9b rank's 2 rows under FSDP on 4 cards: GQA 16/8, D 256, softcap 50
+    (2, 16, 8, 1024, 1024, 256, torch.bfloat16, dict(window=4096, softcap=50.0)),
+    (2, 16, 8, 1024, 1024, 256, torch.bfloat16, dict(softcap=50.0)),
 ])
 def test_flash_backward_kernel_matches_plain(gen, B, Hq, Hkv, Sq, Sk, D, dtype, kw):
     """The forward's LSE against the plain one, then the backward kernel
@@ -266,6 +273,7 @@ def _rmsnorm_bwd_close(dx, ds, want_dx, want_ds, dtype):
     (4096, 6144, torch.bfloat16),
     (5120, 896, torch.bfloat16),
     (4096, 5120, torch.bfloat16),  # qwen2.5-14b's training at TP 4: ln1, ln2, final
+    (2048, 3584, torch.bfloat16),  # a gemma2-9b rank's 2 x 1024 rows under FSDP
 ])
 def test_rmsnorm_backward_kernel_matches_plain(gen, rows, d, dtype):
     x, g = _randn(gen, (rows, d), dtype), _randn(gen, (rows, d), dtype)

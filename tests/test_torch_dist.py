@@ -1,8 +1,9 @@
 """The port's distributed train steps over the data axes against JAX's, on
 the CPU.
 
-* The sharding rules (``repro_torch.dist.sharding``) against JAX's for all
-  10 architectures at full size, on JAX's stacked shapes
+* The sharding rules (``repro_torch.dist.sharding``, ZeRO-3's
+  ``param_specs(fsdp=True)`` too) against JAX's for all 10 architectures
+  at full size, on JAX's stacked shapes
   (``jax.eval_shape`` of ``api.init``), with stub meshes (2, 2, 1),
   (1, 4, 1) and (2, 2, 2) over (pod, data, model).
 * One step of the flat and the hierarchical steps on 4 gloo ranks
@@ -110,18 +111,29 @@ def test_sharding_rules_match_jax(arch, shape, axes):
              "odd": np.zeros((6, 3), np.int32), "scalar": np.zeros((), np.float32)}
     assert sharding.batch_specs(batch, mesh) == {
         k: tuple(s) for k, s in jsharding.batch_specs(batch, stub).items()}
-    with pytest.raises(NotImplementedError, match=r"A\.9"):
-        sharding.param_specs(shapes, mesh, cfg, fsdp=True)
+    fsdp_specs = as_tuples(jsharding.param_specs(jtree, stub, jcfg, fsdp=True))
+    assert sharding.param_specs(shapes, mesh, cfg, fsdp=True) == fsdp_specs
+    # each DP index's block inside its model slice, where JAX's ZeRO-3 spec
+    # puts ("pod", "data")
+    n_dp = sizes["pod"] * sizes["data"]
+    for key, s in shapes.items():
+        local = sharding.local_shape(key, s, sizes, cfg.moe is not None)
+        for b in range(n_dp):
+            want = tuple(slice(b * (n // n_dp), (b + 1) * (n // n_dp)) if a == ("pod", "data")
+                         else slice(None) for n, a in zip(local, fsdp_specs[key]))
+            assert sharding.fsdp_slice(key, s, sizes["model"], n_dp, b,
+                                       cfg.moe is not None) == want, (key, b)
 
 
 # a model axis above 1 trains the attention, MLP and MoE families
-# (tests/test_torch_tp.py); rwkv6's has no tensor parallelism (A.10)
+# (tests/test_torch_tp.py); rwkv6's has no tensor parallelism (A.10); the
+# hierarchical step with fsdp across pods fails in JAX (C.9)
 @pytest.mark.parametrize("shape,axes,hp,arch,item", [
     ((2, 2, 2), ("pod", "data", "model"), TrainHparams(hierarchical=True, zero1=True),
      "rwkv6-1.6b", "A.10"),
     ((4, 2), ("data", "model"), TrainHparams(zero1=True), "rwkv6-1.6b", "A.10"),
     ((2, 2, 1), ("pod", "data", "model"), TrainHparams(hierarchical=True, fsdp=True),
-     "olmo-1b", "A.9"),
+     "olmo-1b", "C.9"),
 ], ids=["model-2-hierarchical", "model-2-flat", "fsdp"])
 def test_model_axis_and_fsdp_raise(shape, axes, hp, arch, item):
     cfg = smoke_config(arch)

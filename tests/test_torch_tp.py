@@ -27,8 +27,8 @@ and expert parallelism — against JAX's, on the CPU.
   and the number of parameter elements of a rank at (1, 1, 4).
 * The step's ``comm`` counts the model axis's traffic.
 * The families without tensor parallelism (rwkv6, jamba, whisper,
-  internvl2) raise at ``model`` > 1 naming ROADMAP A.10, and ``fsdp``
-  naming A.9.
+  internvl2) raise at ``model`` > 1 naming ROADMAP A.10; ``fsdp`` with the
+  hierarchical step across pods raises naming C.9.
 """
 import os
 
@@ -205,7 +205,17 @@ def test_families_without_tp_raise(arch):
 
 
 def test_fsdp_still_raises():
+    """ZeRO-3 composes with the model axis (the hierarchical step at
+    (1, 2, 2) is held against JAX's in tests/test_torch_fsdp.py); it still
+    raises for the hierarchical step across pods (ROADMAP C.9) and for a
+    family whose layers it does not gather (A.9)."""
     cfg = smoke_config(QWEN)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        make_train_step(get_api(cfg, device="cpu"), cfg, OptConfig(), mesh_layout((1, 2, 2), AXES),
+    with pytest.raises(NotImplementedError, match=r"ROADMAP C\.9"):
+        make_train_step(get_api(cfg, device="cpu"), cfg, OptConfig(), mesh_layout((2, 1, 2), AXES),
                         TrainHparams(hierarchical=True, fsdp=True), {"tokens": (8, 16)})
+    with pytest.raises(ValueError, match=r"fsdp=True"):  # the api must hold the blocks
+        make_train_step(get_api(cfg, device="cpu"), cfg, OptConfig(), mesh_layout((1, 4, 1), AXES),
+                        TrainHparams(hierarchical=True, fsdp=True), {"tokens": (8, 16)})
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
+        get_api(smoke_config("whisper-small"), device="cpu", mesh=mesh_layout((1, 4, 1), AXES),
+                fsdp=True)

@@ -329,8 +329,8 @@ def test_distributed_hparams_are_not_ported(flag):
     cfg = smoke_config("olmo-1b").replace(num_layers=2)
     state = make_train_state(get_api(cfg, device="cpu"))
     batch = batch_to_torch(_batch(cfg), "cpu")
-    # the data-axes flags need a mesh (make_train_step, A.7); ZeRO-3 is A.9
-    with pytest.raises(NotImplementedError, match="A.9" if flag == "fsdp" else "A.7"):
+    # the data-axes flags, ZeRO-3's too, need a mesh (make_train_step, A.7)
+    with pytest.raises(NotImplementedError, match=r"needs a mesh.*A\.7"):
         train_step(state["model"], state["opt"], batch, optimizer.OptConfig(),
                    TrainHparams(**{flag: True}))
 

@@ -10,7 +10,8 @@ test and brings every one down if any fails or the time runs out.
 
 A task ``{"name", "arch", "mesh": [shape, axes], "hp", "opt", "init",
 "batches", "steps"}``, with optional ``"ties": margin``, ``"ckpt": {"dir",
-"after": [steps]}``, ``"restore": dir`` and ``"restore_step"``, builds
+"after": [steps]}``, ``"keep": [steps]``, ``"restore": dir`` and
+``"restore_step"``, builds
 ``make_train_step`` on the mesh for the smoke config of ``arch``, loads the
 weights of ``init`` (an ``.npz`` of JAX's flat ``params/...`` leaves) or
 restores the checkpoint ``restore`` (its latest, or ``restore_step``), and
@@ -18,11 +19,13 @@ takes the steps after the restored one (or from 0) up to ``steps`` on the
 global batches ``batches/{i}/...`` of the ``.npz``, saving a checkpoint
 after each step of ``ckpt["after"]``.  It writes ``loss``, ``grad_norm``
 and ``lr`` per step, ``coords``, the state after the last step as this rank
-holds it (``params/{key}`` gathered whole over ``model``, ``m/{key}`` and
-``v/{key}`` the rank's slices, ``step``), the shape of the rank's slice of
-each parameter (``local/{key}``) and their elements (``numel``), the
+holds it (``params/{key}`` gathered whole over ``model`` and, under
+``fsdp``, the DP axes, ``m/{key}`` and ``v/{key}`` the rank's slices,
+``step``), the shape of the rank's slice (or ZeRO-3 block) of each
+parameter (``local/{key}``) and their elements (``numel``), the
 moments gathered whole (``full_m/{key}``, ``full_v/{key}``), the last
-step's ``comm`` (``comm/{axis}``: calls, bytes) and, with ``ties``, per
+step's ``comm`` (``comm/{axis}``: calls, bytes), with ``keep`` the state
+after each of those steps as above under ``after{i}/`` and, with ``ties``, per
 leaf the entries of this rank's shard that the int8 quantizer met within
 ``margin`` of a rounding tie (``ties/{key}``) and its scale
 (``scale/{key}``) in the first step.
@@ -117,7 +120,6 @@ def _step_task(task: dict, rank: int, out: str) -> None:
     from repro_torch.ckpt.manager import restore_checkpoint, save_checkpoint
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import get_api, smoke_config
-    from repro_torch.models.convert import params_from_jax
     from repro_torch.train import trainstep
     from repro_torch.train.optimizer import OptConfig
 
@@ -127,8 +129,8 @@ def _step_task(task: dict, rank: int, out: str) -> None:
     with np.load(task["batches"]) as f:
         batches = [{k.split("/")[2]: f[k] for k in f.files if k.startswith(f"batches/{i}/")}
                    for i in range(task["steps"])]
-    api = get_api(cfg, device="cpu", mesh=mesh)
     hp = trainstep.TrainHparams(**task["hp"])
+    api = get_api(cfg, device="cpu", mesh=mesh, fsdp=hp.fsdp)
     step = trainstep.make_train_step(api, cfg, OptConfig(**task["opt"]), mesh, hp, batches[0])
     state = step.init_state(seed=0)
     first = 0
@@ -138,8 +140,7 @@ def _step_task(task: dict, rank: int, out: str) -> None:
     else:
         with np.load(task["init"]) as f:
             flat = {k[len("params/"):]: f[k] for k in f.files if k.startswith("params/")}
-        state["model"].load_state_dict(params_from_jax(flat, cfg, model=step.model,
-                                                       index=step.model_idx))
+        state["model"].load_state_dict(step.param_state(flat))
 
     ties, scales = [], []
     margin = task.get("ties")
@@ -152,7 +153,21 @@ def _step_task(task: dict, rank: int, out: str) -> None:
             return quantize(gs, scale)
 
         trainstep.quantize_int8 = recorded
+    def dump(prefix=""):
+        out = {}
+        named = dict(state["model"].named_parameters())
+        for key in step.leaves:
+            p = step.param(named, key).detach()
+            out[f"{prefix}local/{key}"] = np.asarray(p.shape)
+            out[f"{prefix}params/{key}"] = step.whole_param(key, p).numpy().copy()
+            for g in ("m", "v"):
+                out[f"{prefix}{g}/{key}"] = state["opt"][g][key].numpy().copy()
+                out[f"{prefix}full_{g}/{key}"] = step.gather(
+                    key, state["opt"][g][key]).numpy().copy()
+        return out
+
     res = {"loss": [], "grad_norm": [], "lr": []}
+    kept = {}
     try:
         for i in range(first, task["steps"]):
             metrics = step(state, trainstep.batch_to_torch(batches[i], "cpu"))
@@ -160,21 +175,16 @@ def _step_task(task: dict, rank: int, out: str) -> None:
                 res[k].append(metrics[k].item())
             if i in task.get("ckpt", {}).get("after", ()):
                 save_checkpoint(task["ckpt"]["dir"], i, state, mesh_step=step)
+            if i in task.get("keep", ()):
+                kept.update(dump(f"after{i}/"))
     finally:
         trainstep.quantize_int8 = quantize
     arrays = {k: np.asarray(v) for k, v in res.items()}
     arrays["coords"] = np.asarray([mesh.coords()[a] for a in axes])
-    named = dict(state["model"].named_parameters())
-    arrays["numel"] = np.asarray(sum(p.numel() for p in named.values()))
+    arrays["numel"] = np.asarray(sum(p.numel() for p in state["model"].parameters()))
     for axis, c in step.comm.items():
         arrays[f"comm/{axis}"] = np.asarray([c["calls"], c["bytes"]])
-    for key, names in step.leaves.items():
-        p = (torch.stack([named[n] for n in names]) if isinstance(names, tuple) else named[names])
-        arrays[f"local/{key}"] = np.asarray(p.shape)
-        arrays[f"params/{key}"] = step.gather_model(key, p.detach()).numpy()
-        for g in ("m", "v"):
-            arrays[f"{g}/{key}"] = state["opt"][g][key].numpy()
-            arrays[f"full_{g}/{key}"] = step.gather(key, state["opt"][g][key]).numpy()
+    arrays.update(dump(), **kept)
     arrays["step"] = state["opt"]["step"].numpy()
     keys = list(step.dims)
     for j, (mask, scale) in enumerate(zip(ties[:len(keys)], scales)):
