@@ -40,15 +40,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    deepseek-v3-671b at full width cut to 2 layers (one dense, one MoE) and
    16 experts (top-8 kept), and jamba-1.5-large-398b at full width cut to
    one unit (8 layers) and 3 experts (top-2 kept), and whisper-small (with
-   1500 frames) and internvl2-1b (with 256 patches) at full width and full
-   depth, each drawn on the card
+   1500 frames; 2 encoder and 2 decoder layers) and internvl2-1b (with 256
+   patches; 2 layers) at full width, each drawn on the card
    and copied to the CPU, on the card (kernels) against the same weights
    on the CPU (plain versions): logits, the decode step's logits and greedy
    tokens, and for the MoE models the routing decisions and the picks
    dropped at capacity that differ; then
    one AdamW step on the card against the same step on the CPU, in fp32, of
-   gemma-2b and rwkv6-1.6b cut to 2 layers, whisper-small and internvl2-1b
-   at full depth, and deepseek-v3 and grok-1 as the train phase cuts them:
+   gemma-2b, rwkv6-1.6b, whisper-small and internvl2-1b cut to 2 layers
+   (whisper: 2 + 2), deepseek-v3 cut to its one MoE layer (16 experts) and
+   grok-1 to 1 layer and 3 experts (the host's fp32 step takes ~25 s a
+   billion parameters, so these cuts keep the one-card run in its limit):
    the loss, every parameter's gradient, the parameter update and the MoE
    models' routing decisions that differ, after a check that the host and
    the card hold 16 bytes a parameter;
@@ -141,6 +143,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    those the leaves imply, and the forward and backward alone against
    the rest of the step.
 
+11. serve_tp: sharded serving (prefill and greedy decode on every rank of
+   a mesh, ``ServeEngine(..., mesh=)``): on one card two ranks over gloo
+   with CUDA tensors, fp32, against the single-device model on the same
+   card from the same seed, 2 rows of 128 tokens + 8 new: qwen2.5-14b and
+   gemma-2b cut to 2 layers and deepseek-v3 as the reference phase cuts it
+   at (1, 1, 2), gemma2-9b cut to 2 layers with ``fsdp`` at (1, 2, 1);
+   each rank's logits, the greedy tokens gathered over the DP group, the
+   MoE routing decisions, and the rank's cache bytes against those
+   ``cache_specs`` gives it.  On a host of 4 or more cards the same over
+   NCCL at (1, 1, 4) and (1, 2, 2) (gemma2-9b at (1, 4, 1) and (1, 2, 2)),
+   then full qwen2.5-14b and deepseek-v3 cut to 4 layers in bf16 at TP 4,
+   batch 4 x 1024 + 32: prefill ms, decode ms/token, tok/s, peak memory
+   on every rank, launches, the model axis's collectives of a prefill and
+   of a decode step by kind and shape, and qwen2.5-14b's greedy tokens
+   against the whole model served on rank 0's card (recorded, not held).
+
+qwen2.5-14b (48 layers, GQA 40/8, D 128, d 5120, q/k/v biases) serves
+whole on one card in the serve phase, its prefill's flash shape (4 x 40 /
+8 heads x 1024) runs in the kernels phase, and its parameters are held
+against ``param_counts()``.
+
 gemma2-9b (local/global attention, softcap 50, GQA 16/8, D 256, d 3584)
 also runs in the kernels phase (flash forward at its prefill with and
 without the window, its backward at an FSDP rank's 2 rows, RMSNorm at d
@@ -151,7 +174,8 @@ and the serve phase (42 layers, parameters against ``param_counts()``).
 alone; ``--only ranks`` its multi-rank check alone; ``--only tp`` the tp
 phase alone (on a 4-card call, the NCCL check and the bf16 run); ``--only
 fsdp`` the fsdp phase alone (on a 4-card call, the NCCL checks and the
-bf16 run).
+bf16 run); ``--only serve_tp`` the serve_tp phase alone (on a 4-card call,
+the NCCL checks and the bf16 runs at TP 4).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -346,6 +370,8 @@ def check_flash(gen) -> dict:
          "whisper's decoder self-attention"),  # 6.5 tiles of 64: a ragged causal tile
         (TRAIN_BATCH, 10, 2, TRAIN_SEQ, TRAIN_SEQ, 128, torch.bfloat16, {},
          "qwen2.5-14b's TP-4 training"),  # a rank's 10 of 40 q heads, 2 of 8 kv heads
+        (SERVE_BATCH, 40, 8, PROMPT_LEN, PROMPT_LEN, 128, torch.bfloat16, {},
+         "qwen2.5-14b's prefill"),  # the whole model on one card: all 40 / 8 heads
         # gemma2-9b's prefill: its local layers' window of 4096 masks nothing at 1024
         (SERVE_BATCH, 16, 8, PROMPT_LEN, PROMPT_LEN, 256, torch.bfloat16,
          dict(window=GEMMA2_WINDOW, softcap=50.0), "gemma2-9b's prefill, local layer"),
@@ -390,6 +416,7 @@ def check_flash(gen) -> dict:
                 at_whisper_decoder_self=at["whisper's decoder self-attention"],
                 at_internvl2_prefill=at["internvl2's prefill"],
                 at_qwen_tp4_train=at["qwen2.5-14b's TP-4 training"],
+                at_qwen_prefill=at["qwen2.5-14b's prefill"],
                 at_gemma2_prefill_local=at["gemma2-9b's prefill, local layer"],
                 at_gemma2_prefill_global=at["gemma2-9b's prefill, global layer"])
 
@@ -1063,6 +1090,17 @@ def moe_train_config(cfg):
     return cfg.replace(num_layers=1, moe=dataclasses.replace(cfg.moe, num_experts=4))
 
 
+def moe_train_reference_config(cfg):
+    """The MoE train cells cut further for their fp32 card-vs-CPU step, whose
+    CPU side takes ~25 s a billion parameters on the chip machine's host:
+    deepseek-v3 to its one MoE layer (``first_dense`` 0; MLA and 16 experts,
+    top-8 kept), grok-1 to 3 of its 8 experts (top-2 kept, so the router
+    still chooses)."""
+    if cfg.attn_kind == "mla":
+        return cfg.replace(num_layers=1, moe=dataclasses.replace(cfg.moe, first_dense=0))
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=3))
+
+
 def moe_cut(cfg) -> str:
     from repro_torch import configs
 
@@ -1081,8 +1119,8 @@ def routing_recorded(calls: list):
 
     route = moe.route
 
-    def recorded(mod, xt, cfg_, capacity=None):
-        r = route(mod, xt, cfg_, capacity)
+    def recorded(mod, xt, cfg_, capacity=None, rows_dp=None):
+        r = route(mod, xt, cfg_, capacity, rows_dp)
         calls.append((r.expert_idx.detach().cpu(), (r.slot == r.dispatch.numel()).cpu()))
         return r
 
@@ -1419,11 +1457,14 @@ def serve(cfg) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     if cfg.family in ("audio", "vlm") and n_params != analytic_params(cfg):
         raise AssertionError(f"{n_params} parameters != {analytic_params(cfg)} from the config")
-    if cfg.name == FSDP_ARCH:  # param_counts() leaves out the norm scales
-        counted = cfg.param_counts()[0] + (2 * cfg.num_layers + 1) * cfg.d_model
+    if cfg.name in (FSDP_ARCH, TP_ARCH):  # param_counts() leaves out norms and biases
+        bias = cfg.num_layers * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim \
+            if cfg.qkv_bias else 0
+        counted = cfg.param_counts()[0] + (2 * cfg.num_layers + 1) * cfg.d_model + bias
         log(f"  parameters {n_params:,} = param_counts() {cfg.param_counts()[0]:,} + "
-            f"{2 * cfg.num_layers + 1} norm scales of {cfg.d_model}: "
-            f"{'ok' if n_params == counted else 'FAIL'}")
+            f"{2 * cfg.num_layers + 1} norm scales of {cfg.d_model}"
+            + (f" + {bias:,} q/k/v biases" if bias else "")
+            + f": {'ok' if n_params == counted else 'FAIL'}")
         if n_params != counted:
             raise AssertionError(f"{n_params} parameters != {counted} from param_counts()")
     prompt = SERVE_PROMPT.get(cfg.name, PROMPT_LEN)
@@ -3002,6 +3043,379 @@ def fsdp_rank(rank: int, world: int, backend: str, workdir: str) -> int:
         shutdown()
 
 
+SERVE_TP_RANK_TIMEOUT_S = 900
+SERVE_TP_PROMPT, SERVE_TP_NEW = 128, 4  # the fp32 checks' prompt and new tokens
+SERVE_TP_TOL = 1e-3  # fp32 logits: sums over d taken in another order, as the reference phase
+
+
+def serve_tp_ranks(cards: int, smi: str) -> dict:
+    """The ``serve_tp:`` phase: sharded serving (prefill and greedy decode on
+    every rank of a mesh), ranks each this script with ``--serve-tp-rank``
+    (:func:`serve_tp_rank`).  On one card two ranks over gloo with CUDA
+    tensors (a check, not the launcher's path); on a host of 4 or more
+    cards four ranks over NCCL, one a card, then full qwen2.5-14b in bf16
+    at TP 4.  Returns rank 0's kernel launches per path."""
+    world, backend = (4, "nccl") if cards >= 4 else (2, "gloo")
+    launched = spawn_ranks("--serve-tp-rank", world, backend, SERVE_TP_RANK_TIMEOUT_S,
+                           "serve_tp")
+    log(f"  {smi}")
+    return launched
+
+
+def serve_tp_cases(world: int) -> list:
+    """(config, mesh shape, fsdp) of the fp32 checks: qwen2.5-14b and
+    gemma-2b cut to 2 layers and deepseek-v3 as the reference phase cuts it
+    on the model axis, gemma2-9b cut to 2 layers under ZeRO-3 on the data
+    axes; on 4 cards also at (1, 2, 2)."""
+    from repro_torch import configs
+
+    two = dict(num_layers=2, param_dtype="float32", compute_dtype="float32")
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    qwen = configs.get_config(TP_ARCH).replace(**two)
+    gemma = configs.get_config("gemma-2b").replace(**two)
+    deepseek = moe_reference_config(configs.get_config("deepseek-v3-671b")).replace(**fp32)
+    gemma2 = configs.get_config(FSDP_ARCH).replace(**two)
+    if world == 2:
+        return [(c, (1, 1, 2), False) for c in (qwen, gemma, deepseek)] + \
+            [(gemma2, (1, 2, 1), True)]
+    return [(c, m, False) for m in ((1, 1, 4), (1, 2, 2)) for c in (qwen, gemma, deepseek)] + \
+        [(gemma2, m, True) for m in ((1, 4, 1), (1, 2, 2))]
+
+
+def greedy_run(api, model, inputs: dict, new: int, mesh=None, routed=None) -> tuple:
+    """``ServeEngine.generate`` of ``new`` tokens from ``inputs`` (the whole
+    batch; on ``mesh`` the engine takes the rank's rows), recording each
+    call's last-position fp32 logits of the rank's rows and, with
+    ``routed``, each MoE routing call's top-k experts: (logits (rows, new,
+    V), the whole batch's tokens)."""
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import ServeEngine
+
+    steps, route = [], moe.route
+
+    def logged(fn):
+        def call(*args, **kw):
+            logits, cache = fn(*args, **kw)
+            steps.append(logits[:, -1].float())
+            return logits, cache
+        return call
+
+    def recorded(mod, xt, cfg_, capacity=None, rows_dp=None):
+        r = route(mod, xt, cfg_, capacity, rows_dp)
+        routed.append(r.expert_idx.cpu())
+        return r
+
+    B, S = inputs["tokens"].shape
+    eng = ServeEngine(dataclasses.replace(api, prefill=logged(api.prefill),
+                                          decode=logged(api.decode)),
+                      model, batch=B, s_max=S + new, mesh=mesh)
+    if routed is not None:
+        moe.route = recorded
+    try:
+        toks = eng.generate(inputs, max_new_tokens=new)
+    finally:
+        moe.route = route
+    return torch.stack(steps, 1), toks
+
+
+def cache_bytes(api, mesh, rows: int, s_max: int) -> tuple:
+    """(a rank's cache bytes, the bytes ``cache_specs`` gives it, the bytes
+    the port's rule gives it: its rows, and of a GQA layer's k and v the kv
+    heads ``kv0 .. kv1`` its query heads read, whole; MLA's latents whole)."""
+    from repro_torch.dist.sharding import cache_specs, mesh_axis_sizes, spec_slice
+    from repro_torch.models.attention import kv_heads
+    from repro_torch.models.convert import cache_shapes
+    from repro_torch.serve.engine import _tensors
+
+    cfg, sizes, coords = api.cfg, mesh_axis_sizes(mesh), mesh.coords()
+    held = sum(t.nbytes for t in _tensors(api.init_cache(rows, s_max)))
+    shapes = cache_shapes(cfg, rows, s_max)
+    kv0, kv1 = kv_heads(cfg, sizes["model"], coords["model"])
+
+    def nbytes(shape, spec):  # of the rank's block of a leaf cut as spec
+        return cfg.cdtype.itemsize * int(np.prod(
+            [len(range(n)[sl]) for n, sl in zip(shape, spec_slice(spec, shape, sizes, coords))]))
+
+    implied = rule = 0
+    for key, spec in cache_specs(shapes, mesh, cfg).items():
+        if not shapes[key]:
+            continue
+        implied += nbytes(shapes[key], spec)
+        rows_share = nbytes(shapes[key], tuple(None if a == "model" else a for a in spec))
+        gqa = len(shapes[key]) == 5 and shapes[key][3] == cfg.num_kv_heads
+        rule += rows_share * (kv1 - kv0) // cfg.num_kv_heads if gqa else rows_share
+    return held, implied, rule
+
+
+def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: bool) -> dict:
+    """``cfg`` (fp32) served on ``mesh`` (``fsdp``: ZeRO-3 blocks) against the
+    single-device model on the same card from the same seed, on world rows
+    of SERVE_TP_PROMPT tokens and SERVE_TP_NEW new ones: the rank's rows of
+    every call's logits within SERVE_TP_TOL, the greedy tokens equal (the
+    engine's, gathered over the DP group), every MoE routing decision equal,
+    and the rank's cache bytes against ``cache_specs``'.  With
+    ``sequential`` (ranks sharing a card) the ranks build the reference one
+    after the other.  Returns the kernels' launches of the rank's run."""
+    from repro_torch.dist.sharding import rows_of
+    from repro_torch.models import get_api
+
+    dev = mesh.device
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, cfg.vocab_size, size=(world, SERVE_TP_PROMPT)).astype(np.int64)
+    r0, n = rows_of(world, mesh)
+    t0 = time.perf_counter()
+    ref = None
+    for turn in range(world if sequential else 1):
+        if sequential:
+            torch.distributed.barrier()
+        if sequential and turn != rank:
+            continue
+        whole = get_api(cfg, dev)
+        model = whole.init(seed=1)
+        routed_ref = []
+        logits, toks = greedy_run(whole, model, {"tokens": tokens}, SERVE_TP_NEW,
+                                  routed=routed_ref)
+        ref = (logits[r0:r0 + n].cpu(), toks, routed_ref)
+        del model, logits
+        torch.cuda.empty_cache()
+    if sequential:
+        torch.distributed.barrier()
+    t1 = time.perf_counter()
+    api = get_api(cfg, dev, mesh=mesh, fsdp=fsdp)
+    model = api.init(seed=1)
+    held = sum(p.numel() for p in model.parameters())
+    tp_zero_counts()
+    routed = []
+    logits, toks = greedy_run(api, model, {"tokens": tokens}, SERVE_TP_NEW, mesh, routed)
+    launches = tp_launch_counts()
+    t2 = time.perf_counter()
+    err = (logits.cpu() - ref[0]).abs().max().item()
+    top = ref[0].abs().max().item()
+    # the reference routes every row; this rank its rows r0 .. r0 + n
+    per_row = [t.reshape(world, -1, t.shape[-1])[r0:r0 + n].reshape(-1, t.shape[-1])
+               for t in ref[2]]
+    differ = sum(int((a != b).sum()) for a, b in zip(routed, per_row))
+    same_calls = [tuple(a.shape) for a in routed] == [tuple(b.shape) for b in per_row]
+    held_b, implied_b, rule_b = cache_bytes(api, mesh, world, SERVE_TP_PROMPT + SERVE_TP_NEW)
+    ok = (err <= SERVE_TP_TOL and np.array_equal(toks, ref[1]) and same_calls and differ == 0
+          and held_b == rule_b)
+    log(f"rank {rank} of mesh {tuple(mesh.shape)} ({dev}): {cfg.name}, {cfg.num_layers} layers"
+        + (f", {cfg.moe.num_experts} experts" if cfg.moe else "") + (" with fsdp" if fsdp else "")
+        + f", fp32, {world} x {SERVE_TP_PROMPT} + {SERVE_TP_NEW}; holds {held / 1e9:.3f} B "
+        f"parameters; the reference {t1 - t0:.1f} s, the rank's runs {t2 - t1:.1f} s; against "
+        f"the single-device model on the card: logits of its rows max_abs_err {err:.3g} (tol "
+        f"{SERVE_TP_TOL}; max|logit| {top:.3g}), greedy tokens "
+        f"{'equal' if np.array_equal(toks, ref[1]) else 'DIFFER'}"
+        + (f", routing decisions that differ {differ} of {sum(a.numel() for a in routed)}"
+           if cfg.moe else "")
+        + f"; cache {held_b:,} B a rank, cache_specs gives {implied_b:,} B "
+        f"({held_b / implied_b:.2f}x; by the rule {rule_b:,} B); comm of generate "
+        f"{api.axis.comm if api.axis is not None else {}}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"rank {rank}: sharded serving of {cfg.name} disagrees with the "
+                             "single-device model")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_tp_full(mesh, rank: int, world: int, cfg) -> dict:
+    """``cfg`` in bf16 at TP ``world`` (one rank a card), batch SERVE_BATCH
+    x PROMPT_LEN + MAX_NEW through ``ServeEngine.generate``: prefill ms,
+    decode ms/token, tok/s and peak memory on every rank, the kernels'
+    launches against the path's, the model axis's collectives of a prefill
+    and of a decode step by kind and shape (``ModelAxis.log``), and what the
+    step's collectives cost alone (:func:`collective_costs`).  The peak is
+    read twice: while the rank's slices are drawn (each module is drawn
+    whole on the card, then cut) and while serving.  For qwen2.5-14b, rank
+    0 then serves the whole model on its card from the same seed and the
+    greedy tokens of both are compared (recorded, not held).  Returns the
+    launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.models import get_api
+    from repro_torch.serve.engine import ServeEngine
+
+    dev = mesh.device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api = get_api(cfg, dev, mesh=mesh)
+    t0 = time.perf_counter()
+    model = api.init(seed=0)
+    torch.cuda.synchronize()
+    held = sum(p.numel() for p in model.parameters())
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int64)
+    if rank == 0:
+        log(f"{cfg.name}: {cfg.num_layers} layers, {str(cfg.pdtype)[6:]}, {held / 1e9:.3f} B "
+            f"parameters a rank, initialised in {time.perf_counter() - t0:.1f} s (peak "
+            f"{init_peak:.2f} GiB while drawing); batch {SERVE_BATCH} x {PROMPT_LEN} + {MAX_NEW}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=PROMPT_LEN + MAX_NEW, mesh=mesh)
+    eng.generate({"tokens": tokens[:, :64]}, max_new_tokens=2)  # warm-up
+    torch.distributed.barrier()
+    flash_attention.launches = rmsnorm.launches = 0
+    t0 = time.perf_counter()
+    out = eng.generate({"tokens": tokens}, max_new_tokens=MAX_NEW)
+    total_s = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches, "rmsnorm": rmsnorm.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t = eng.timing
+    prefill_ms, decode_ms = t["prefill_s"] * 1e3, t["decode_s"] * 1e3 / t["decode_steps"]
+    # the model axis's collectives of one prefill and of one decode step
+    calls = {}
+    with torch.inference_mode():
+        cache = api.init_cache(SERVE_BATCH, PROMPT_LEN + 1)
+        api.axis.log = []
+        logits, cache = api.prefill(model, {"tokens": torch.from_numpy(tokens).to(dev)}, cache,
+                                    last_only=True)
+        calls["prefill"], api.axis.log = api.axis.log, []
+        logits, cache = api.decode(model, logits[:, -1].argmax(-1)[:, None], cache)
+        calls["decode step"], api.axis.log = api.axis.log, None
+    del cache
+    peaks = [torch.zeros((), device=dev) for _ in range(world)]
+    torch.distributed.all_gather(peaks, torch.tensor(peak, device=dev))
+    want = {k: v for k, v in expected_launches(cfg).items() if k in launches}
+    if rank == 0:
+        log(f"generated {out.shape}: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} "
+            f"ms/token, {SERVE_BATCH * MAX_NEW / total_s:.1f} tok/s over {total_s:.3f} s; "
+            f"launches {launches} (the path's {want}); peak device memory per rank "
+            f"{[round(p.item(), 2) for p in peaks]} GiB")
+        for part, logged in calls.items():
+            by = {}
+            for what, shape, nbytes in logged:
+                c = by.setdefault((what, shape), [0, 0])
+                c[0], c[1] = c[0] + 1, c[1] + nbytes
+            log(f"model-axis collectives of one {part}: {len(logged)} calls, "
+                f"{sum(b for _, _, b in logged) / 1e6:.3f} MB; by kind and shape (calls, "
+                "bytes), largest first: " + "; ".join(
+                    f"{w} {sh}: {c}, {b}" for (w, sh), (c, b) in
+                    sorted(by.items(), key=lambda kv: -kv[1][1])))
+    costs = collective_costs(api.axis, cfg)
+    if rank == 0:
+        log(costs)
+    # every rank takes part (the collectives); rank 0's log is the one printed
+    profile_phases(api, model, {"tokens": torch.from_numpy(tokens).to(dev)}, decode_ms)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want} implied by the path")
+    if out.shape != (SERVE_BATCH, MAX_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"generated ids out of range or logits not finite: {out.shape}")
+    del eng
+    if cfg.name == TP_ARCH:
+        tp_logits, tp_toks = greedy_run(api, model, {"tokens": tokens}, MAX_NEW, mesh)
+        del model
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+        if rank == 0:  # the whole model on this card, from the same seed
+            whole = get_api(cfg, dev)
+            one = whole.init(seed=0)
+            one_logits, one_toks = greedy_run(whole, one, {"tokens": tokens}, MAX_NEW)
+            agree = tp_toks == one_toks
+            steps = agree.all(0)
+            first = int(np.argmin(steps)) if not steps.all() else None
+            upto = MAX_NEW if first is None else first + 1
+            gap = (tp_logits[:, :upto] - one_logits[:, :upto]).abs().max().item()
+            log(f"greedy tokens at TP {world} against the whole model on one card (same "
+                f"seed): {int(agree.sum())} of {agree.size} agree; the first step at which a "
+                f"row parts: {first}; the largest logit gap up to it {gap:.4g} (max|logit| "
+                f"{one_logits.abs().max().item():.4g}); recorded, not held")
+            del one, whole
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return launches
+
+
+def collective_costs(axis, cfg, reps: int = 50) -> str:
+    """What a TP serve step's collectives cost alone over ``axis``: one
+    residual all-reduce of a prefill (SERVE_BATCH x PROMPT_LEN x d, CUDA
+    events, median of 20), and the host's time a call of a decode step's
+    residual all-reduce (SERVE_BATCH x 1 x d) and of a norm scale's
+    all-gather (d), ``reps`` calls back to back then a synchronise."""
+    d, dev = cfg.d_model, torch.device("cuda", torch.cuda.current_device())
+    big = torch.zeros((SERVE_BATCH, PROMPT_LEN, d), dtype=cfg.cdtype, device=dev)
+    times = []
+    for _ in range(23):
+        torch.distributed.barrier(group=axis.group)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.distributed.all_reduce(big, group=axis.group)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    prefill_ar = statistics.median(times[3:])
+    row = torch.zeros((SERVE_BATCH, 1, d), dtype=cfg.cdtype, device=dev)
+    scale = torch.zeros((d // axis.size,), dtype=cfg.pdtype, device=dev)
+    comm, per_call = axis.comm, {}
+    axis.comm = {}  # these calls are not the path's
+    for what, fn in (("all_reduce", lambda: axis.all_reduce(row.clone())),
+                     ("all_gather", lambda: axis.all_gather(scale, 0))):
+        fn()
+        torch.cuda.synchronize()
+        torch.distributed.barrier(group=axis.group)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        per_call[what] = (time.perf_counter() - t0) * 1e3 / reps
+    axis.comm = comm
+    n = 2 * cfg.num_layers
+    return (f"collectives alone: one prefill residual all-reduce ({tuple(big.shape)}, "
+            f"{big.numel() * big.element_size() / 1e6:.1f} MB) {prefill_ar:.3f} ms, x {n} = "
+            f"{prefill_ar * n:.1f} ms; a decode step's, host clock a call ({reps} back to back): "
+            f"all-reduce of {tuple(row.shape)} {per_call['all_reduce']:.4f} ms, all-gather of a "
+            f"norm scale ({d},) {per_call['all_gather']:.4f} ms, x {n} each = "
+            f"{(per_call['all_reduce'] + per_call['all_gather']) * n:.1f} ms")
+
+
+def serve_tp_rank(rank: int, world: int, backend: str, workdir: str) -> int:
+    """One rank of :func:`serve_tp_ranks`: the fp32 checks, then on 4 cards
+    full qwen2.5-14b and deepseek-v3 cut to 4 layers in bf16 at TP 4; rank 0
+    writes the launches of each path."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one_card = backend == "gloo"
+    cases = serve_tp_cases(world)
+    init = dict(device="cuda:0" if one_card else f"cuda:{rank}",
+                init_method=f"file://{workdir}/store", world_size=world, rank=rank,
+                **({"backend": "gloo"} if one_card else {}))
+    meshes = {}
+    for _, shape, _ in cases + ([] if one_card else [(None, (1, 1, world), False)]):
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("pod", "data", "model"), **init)
+    try:
+        what = ("2 ranks on one card over gloo (a check, not the launcher's path)" if one_card
+                else f"{world} ranks over NCCL, one a card")
+        if rank == 0:
+            log(f"meshes (pod, data, model) = {sorted(meshes)}, {what}")
+        launched = {}
+        for cfg, shape, fsdp in cases:
+            launched[f"serve_tp {cfg.name} fp32 {cfg.num_layers}-layer check"
+                     f"{' with fsdp' if fsdp else ''}, mesh {shape}"] = serve_tp_check(
+                meshes[shape], rank, world, cfg, fsdp, sequential=one_card)
+        if not one_card:
+            tp = meshes[(1, 1, world)]
+            qwen = configs.get_config(TP_ARCH)
+            launched[f"serve_tp {qwen.name} bf16, mesh {tp.shape}"] = \
+                serve_tp_full(tp, rank, world, qwen)
+            deepseek = configs.get_config("deepseek-v3-671b").replace(
+                num_layers=SERVE_LAYERS["deepseek-v3-671b"])
+            launched[f"serve_tp {deepseek.name} ({deepseek.num_layers} layers) bf16, mesh "
+                     f"{tp.shape}"] = serve_tp_full(tp, rank, world, deepseek)
+        if rank == 0:
+            with open(os.path.join(workdir, "launches.json"), "w") as f:
+                json.dump(launched, f)
+        return 0
+    finally:
+        shutdown()
+
+
 def ptxas_report(build_log: str) -> list:
     """One line per kernel instantiation from ``nvcc -Xptxas -v``: its name
     and template arguments, registers, shared memory and spills."""
@@ -3054,14 +3468,16 @@ def phase(name) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("dist", "ranks", "tp", "fsdp"),
+    ap.add_argument("--only", choices=("dist", "ranks", "tp", "fsdp", "serve_tp"),
                     help="the device and build phases, then only the dist phase, its "
-                         "multi-rank check, the tp phase or the fsdp phase")
+                         "multi-rank check, the tp phase, the fsdp phase or the serve_tp "
+                         "phase")
     ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)  # a rank of dist_ranks
     ap.add_argument("--dist-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # a rank of tp_ranks
     ap.add_argument("--fsdp-rank", type=int, help=argparse.SUPPRESS)  # a rank of fsdp_ranks
+    ap.add_argument("--serve-tp-rank", type=int, help=argparse.SUPPRESS)  # of serve_tp_ranks
     ap.add_argument("--rank-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank-backend", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3076,6 +3492,9 @@ def main(argv=None) -> int:
         return tp_rank(args.tp_rank, args.rank_world, args.rank_backend, args.dist_dir)
     if args.fsdp_rank is not None:
         return fsdp_rank(args.fsdp_rank, args.rank_world, args.rank_backend, args.dist_dir)
+    if args.serve_tp_rank is not None:
+        return serve_tp_rank(args.serve_tp_rank, args.rank_world, args.rank_backend,
+                             args.dist_dir)
     from repro_torch import configs
     from repro_torch.kernels import build
 
@@ -3098,13 +3517,15 @@ def main(argv=None) -> int:
 
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     if args.only:
-        phase(args.only if args.only in ("tp", "fsdp") else "dist")
+        phase(args.only if args.only in ("tp", "fsdp", "serve_tp") else "dist")
         if args.only == "dist":
             dist_phase(gemma, smi, None)
         elif args.only == "tp":
             tp_ranks(torch.cuda.device_count(), smi)
         elif args.only == "fsdp":
             fsdp_ranks(torch.cuda.device_count(), smi)
+        elif args.only == "serve_tp":
+            serve_tp_ranks(torch.cuda.device_count(), smi)
         else:
             dist_ranks(torch.cuda.device_count())
         phase(None)
@@ -3118,7 +3539,8 @@ def main(argv=None) -> int:
     jamba = jamba.replace(num_layers=SERVE_LAYERS[HYBRID_ARCH], moe=dataclasses.replace(
         jamba.moe, num_experts=SERVE_EXPERTS[HYBRID_ARCH]))
     whisper, internvl2 = configs.get_config(WHISPER_ARCH), configs.get_config(VLM_ARCH)
-    gemma2 = configs.get_config(FSDP_ARCH)
+    whisper_ref = whisper.replace(num_layers=2, encoder_layers=2)  # the references' depth
+    gemma2, qwen = configs.get_config(FSDP_ARCH), configs.get_config(TP_ARCH)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     phase("kernels")
     floor_ms = launch_floor_ms()
@@ -3138,25 +3560,26 @@ def main(argv=None) -> int:
              "cut to 2 layers (first_dense 1) and 16 experts (top-8 kept),", False),
             (hybrid_reference_config(jamba),
              "cut to one unit (8 layers) and 3 experts (top-2 kept),", False),
-            (whisper, "at full depth (12 encoder + 12 decoder layers, 1500 frames),", True),
-            (internvl2, "at full depth (24 layers, 256 patches),", True)):
+            (whisper_ref, "cut to 2 encoder + 2 decoder layers (1500 frames),", False),
+            (internvl2, "cut to 2 layers (256 patches),", False)):
         check_reference(cfg, cut, full_depth)
         torch.cuda.empty_cache()
         release_host_memory()
     deepseek_train, grok_train = (moe_train_config(configs.get_config(a)) for a in MOE_ARCHS)
+    deepseek_ref, grok_ref = (moe_train_reference_config(c) for c in (deepseek_train, grok_train))
     for cfg, cut in ((gemma.replace(num_layers=2), "2-layer"),
                      (rwkv.replace(num_layers=2), "2-layer"),
                      (gemma2.replace(num_layers=FSDP_REF_LAYERS), "2-layer (one local and one "
                                                                   "global layer)"),
-                     (whisper, "at full depth (12 encoder + 12 decoder layers)"),
-                     (internvl2, "at full depth (24 layers)"),
-                     (deepseek_train, moe_cut(deepseek_train)), (grok_train, moe_cut(grok_train))):
+                     (whisper_ref, "cut to 2 encoder + 2 decoder layers"),
+                     (internvl2.replace(num_layers=2), "cut to 2 layers"),
+                     (deepseek_ref, moe_cut(deepseek_ref)), (grok_ref, moe_cut(grok_ref))):
         check_train_reference(cfg, cut)
         torch.cuda.empty_cache()
         release_host_memory()
     phase("serve")
     runs = {}
-    for cfg in (gemma, rwkv, deepseek, grok, jamba, whisper, internvl2, gemma2):
+    for cfg in (gemma, rwkv, deepseek, grok, jamba, whisper, internvl2, gemma2, qwen):
         torch.cuda.reset_peak_memory_stats()
         runs[cfg.name] = serve(cfg)
         log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -3181,6 +3604,9 @@ def main(argv=None) -> int:
     phase("fsdp")
     torch.cuda.empty_cache()
     launched.update(fsdp_ranks(torch.cuda.device_count(), smi))
+    phase("serve_tp")
+    torch.cuda.empty_cache()
+    launched.update(serve_tp_ranks(torch.cuda.device_count(), smi))
     # each kernel's launches in the run of the path that drives it; the
     # forward kernels run in serving and training alike
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],
@@ -3191,6 +3617,7 @@ def main(argv=None) -> int:
              f"serve {whisper.name}": runs[whisper.name],
              f"serve {internvl2.name}": runs[internvl2.name],
              f"serve {gemma2.name}": runs[gemma2.name],
+             f"serve {qwen.name}": runs[qwen.name],
              **trained, **launched}
     driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",
                  "wkv6": f"serve {rwkv.name}", "wkv6_step": f"serve {rwkv.name}",

@@ -25,6 +25,11 @@ block at its ``model`` coordinate along :func:`model_dim` (``local_shape``,
 checkpoints share.  With ZeRO-3 (``fsdp``) a rank holds only a block of
 that slice: the one at its DP index (:func:`dp_index`, ordered ``("pod",
 "data")``) along :func:`fsdp_dim` (:func:`fsdp_slice`).
+
+The serving cache has rules of its own (:func:`cache_specs`), run on JAX's
+stacked cache leaves (``models.convert.cache_leaves``): its rows over the
+DP axes, its heads (or ``head_dim``, or the MLA latents' sequence dim)
+over ``model``.
 """
 from __future__ import annotations
 
@@ -248,3 +253,74 @@ def batch_specs(batch: Mapping[str, Any], mesh) -> Dict[str, Spec]:
         return ()
 
     return {k: spec(v) for k, v in batch.items()}
+
+
+def cache_specs(shapes: Mapping[str, Tuple[int, ...]], mesh, cfg,
+                seq_shard: bool = False) -> Dict[str, Spec]:
+    """Spec of every leaf of JAX's serving cache (``{key: stacked shape}``,
+    ``models.convert.cache_shapes``): the batch dim over the DP axes, then
+    the first of the last two dims that divides ``model`` (kv heads, else
+    ``head_dim``; on a rank-4 MLA latent, the sequence dim).  A leaf of
+    rank 4 or more carries the leading layer or unit dim, so its batch dim
+    is 1; ``seq_shard`` (a batch of 1 at long context) moves the DP cut to
+    the dim after the batch.  ``cfg`` is taken for ``param_specs``'
+    signature: the rules read shapes only."""
+    dp = dp_axes(mesh)
+    sizes = mesh_axis_sizes(mesh)
+    model = sizes.get("model", 1)
+    total = 1
+    for a in dp:
+        total *= sizes[a]
+
+    def spec(shape: Tuple[int, ...]) -> Spec:
+        nd = len(shape)
+        out: list = [None] * nd
+        if nd == 0:
+            return ()
+        bdim = 1 if nd >= 4 else 0
+        if seq_shard and bdim + 1 < nd:
+            bdim += 1
+        if dp and shape[bdim] > 1 and shape[bdim] % total == 0:
+            out[bdim] = dp if len(dp) > 1 else dp[0]
+        if model > 1 and nd >= 2:
+            for d in (nd - 2, nd - 1):
+                if d != bdim and shape[d] > 0 and shape[d] % model == 0:
+                    out[d] = "model"
+                    break
+        return tuple(out)
+
+    return {k: spec(tuple(s)) for k, s in shapes.items()}
+
+
+def spec_slice(spec: Spec, shape: Tuple[int, ...], sizes: Mapping[str, int],
+               coords: Mapping[str, int]) -> Tuple[slice, ...]:
+    """The index of the block of a leaf of ``shape`` cut as ``spec`` that
+    the rank at mesh ``coords`` holds (``sizes``: the mesh's axis sizes):
+    ``model`` at its ``model`` coordinate, the DP axes at its
+    :func:`dp_index`, as ``model_slice`` and ``batch_specs`` place them."""
+    out = []
+    for n, a in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        axes = () if a is None else (a,) if isinstance(a, str) else tuple(a)
+        index, count = 0, 1
+        for ax in axes:
+            index, count = index * sizes[ax] + coords.get(ax, 0), count * sizes[ax]
+        size = n // count
+        out.append(slice(index * size, (index + 1) * size) if axes else slice(None))
+    return tuple(out)
+
+
+def rows_of(n: int, mesh) -> Tuple[int, int]:
+    """(first row, rows) of this rank's block of a batch of ``n`` rows cut
+    as :func:`batch_specs` cuts it: block :func:`dp_index` of ``n`` / the
+    DP ranks, or every row where they do not divide ``n`` (the batch is
+    then whole on every rank).  ``mesh`` is a built mesh."""
+    dp = dp_axes(mesh)
+    sizes = mesh_axis_sizes(mesh)
+    total = 1
+    for a in dp:
+        total *= sizes[a]
+    if not dp or n <= 0 or n % total:
+        return 0, n
+    coords = mesh.coords()
+    index = dp_index(coords.get("pod", 0), coords.get("data", 0), sizes.get("data", 1))
+    return index * (n // total), n // total

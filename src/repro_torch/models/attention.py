@@ -43,6 +43,17 @@ are gathered and each rank takes the kv heads its query heads read.  MLA's
 down projections and norms run on the replicated residual stream with
 gathered weights.  Where the axis does not divide the query heads, every
 rank computes the whole attention from gathered weights.
+
+Serving on such a rank: a GQA layer's cache holds the kv heads that the
+rank's query heads read (:func:`kv_heads`: ``kv0 .. kv1``): prefill
+writes them beside the flash kernel's call on the rank's heads, and a
+decode step reads them for the rank's query heads, as on one device;
+where ``cache_specs`` cuts inside a kv head (``head_dim``, one kv head
+over four ranks) the rank keeps that head whole.  MLA's latents come from the gathered down projections on the
+replicated stream, so every rank writes the same whole ``c_kv`` and
+``k_rope`` (``cache_specs`` cuts their sequence dim); its absorbed decode
+takes the rank's heads of ``wuk``/``wuv`` and ends in the row-parallel
+``wo``.
 """
 from __future__ import annotations
 
@@ -71,17 +82,34 @@ def _mask_bias(q_pos, kv_pos, window=None, valid_len=None) -> torch.Tensor:
     return torch.where(ok, 0.0, -1e30).float()
 
 
-def _decode_attention(q, ck, cv, pos: int, window: Optional[int], cap: Optional[float]):
+def kv_heads(cfg, size: int, index: int) -> Tuple[int, int]:
+    """(kv0, kv1): the kv heads that the query heads of the rank at ``model``
+    coordinate ``index`` of an axis of ``size`` read, where the axis divides
+    the query heads; all of them where it does not (every rank then
+    computes the whole attention)."""
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    if size <= 1 or hq % size:
+        return 0, hkv
+    g, n = hq // hkv, hq // size
+    return index * n // g, ((index + 1) * n - 1) // g + 1
+
+
+def _decode_attention(q, ck, cv, pos: int, window: Optional[int], cap: Optional[float],
+                      idx=None):
     """q (B, 1, Hq, D) over the cache's first pos+1 slots; returns (B, 1, Hq, D).
+    ``idx`` (a rank's query heads whose kv heads do not fall in equal
+    groups) gives each query head's kv head in the cache.
 
     Slots past ``pos`` carry a -1e30 mask in JAX and so a weight of exactly
     zero; they are left out here instead of being masked, and without a
     window the remaining mask is all zeros and is left out too."""
     B, S, hq, hd = q.shape
-    hkv = ck.shape[2]
-    g = hq // hkv
     kv_k = ck[:, : pos + 1].to(q.dtype)
     kv_v = cv[:, : pos + 1].to(q.dtype)
+    if idx is not None:
+        kv_k, kv_v = kv_k[:, :, idx], kv_v[:, :, idx]
+    hkv = kv_k.shape[2]
+    g = hq // hkv
     qg = q.reshape(B, S, hkv, g, hd).permute(0, 2, 3, 1, 4)  # (B, hkv, g, S, D)
     kk = kv_k.permute(0, 2, 1, 3)[:, :, None]  # (B, hkv, 1, Sk, D)
     vv = kv_v.permute(0, 2, 1, 3)[:, :, None]
@@ -115,12 +143,10 @@ def gqa_attention(
     w = {n: getattr(mod, n) for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
          if hasattr(mod, n)}
     heads = axis is not None and hq % axis.size == 0 and tp.sliced(mod.wq, -1)
-    if axis is not None and cache is not None:
-        raise NotImplementedError(f"{cfg.name}: serving at a model axis of {axis.size} "
-                                  "(cache_specs) is not ported to repro_torch yet (ROADMAP A.9)")
+    idx = None
     if heads:  # this rank's query heads, and the kv heads they read
         g, hq = hq // hkv, hq // axis.size
-        kv0, kv1 = axis.index * hq // g, ((axis.index + 1) * hq - 1) // g + 1
+        kv0, kv1 = kv_heads(cfg, axis.size, axis.index)
         x = tp.copy_to(x, axis)
         if not (hkv % axis.size == 0 and tp.sliced(mod.wk, -1)):
             # wk/wv (and bk/bv) cut inside head_dim, or fewer kv heads than
@@ -144,10 +170,10 @@ def gqa_attention(
     v = v.reshape(B, S, hkv, hd)
     if heads:
         # the kv head of each local query head; where they do not fall in
-        # equal groups, each query head gets its own copy of its kv head
+        # equal groups, each query head reads its own copy of its kv head
         idx = [(axis.index * hq + i) // g - kv0 for i in range(hq)]
-        if hq % hkv or idx != [i // (hq // hkv) for i in range(hq)]:
-            k, v = k[:, :, idx], v[:, :, idx]
+        if not (hq % hkv or idx != [i // (hq // hkv) for i in range(hq)]):
+            idx = None
 
     if pos is None:  # train / prefill: positions 0..S-1
         q_pos = torch.arange(S, device=x.device)
@@ -164,9 +190,11 @@ def gqa_attention(
         cv[:, start : start + S] = v.to(cv.dtype)
 
     if pos is None:
+        if idx is not None:
+            k, v = k[:, :, idx], v[:, :, idx]
         out = ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
     else:
-        out = _decode_attention(q, ck, cv, pos, window, cfg.attn_softcap)
+        out = _decode_attention(q, ck, cv, pos, window, cfg.attn_softcap, idx)
     out = out.reshape(B, S, hq * hd) @ w["wo"].to(x.dtype)
     return tp.reduce_from(out, axis) if heads else out
 
@@ -279,9 +307,6 @@ def mla_attention(
     axis = tp.axis_of(mod)
     w = {n: getattr(mod, n) for n in ("wuq", "wuk", "wuv", "wo")}
     heads = axis is not None and h % axis.size == 0 and tp.sliced(mod.wuq, -1)
-    if axis is not None and cache is not None:
-        raise NotImplementedError(f"{cfg.name}: serving at a model axis of {axis.size} "
-                                  "(cache_specs) is not ported to repro_torch yet (ROADMAP A.9)")
     if heads:
         h //= axis.size
     elif axis is not None:  # the whole attention on every rank
@@ -318,13 +343,13 @@ def mla_attention(
     if pos is not None:  # decode: absorbed, over the cache's first pos+1 slots
         kv_c = cc[:, : pos + 1].to(x.dtype)
         kv_r = cr[:, : pos + 1].to(x.dtype)
-        wuk = mod.wuk.to(x.dtype).reshape(R, h, nope)
+        wuk = w["wuk"].to(x.dtype).reshape(R, h, nope)  # the rank's heads on a model axis
         q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, wuk)
         sc = torch.einsum("bqhr,bkr->bhqk", q_abs.float(), kv_c.float())
         sc = sc + torch.einsum("bqhr,bkr->bhqk", q_rope.float(), kv_r.float())
         pr = torch.softmax(sc * scale, dim=-1).to(x.dtype)
         out_c = torch.einsum("bhqk,bkr->bqhr", pr, kv_c)
-        wuv = mod.wuv.to(x.dtype).reshape(R, h, vdim)
+        wuv = w["wuv"].to(x.dtype).reshape(R, h, vdim)
         out = torch.einsum("bqhr,rhv->bqhv", out_c, wuv)
     else:  # train / prefill: expanded
         k_nope = (c_kv @ w["wuk"].to(x.dtype)).reshape(B, S, h, nope)

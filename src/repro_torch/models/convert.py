@@ -43,6 +43,12 @@ the ``"/"``-keyed flat tree, ``layers.{i}`` restacked into ``pro`` and
 ``enc_layers.{i}`` and ``dec_layers.{i}`` along theirs), each leaf a numpy
 array of the tensor's dtype (bf16 as f32, which numpy can hold).  The
 checkpoint manager writes it under ``params/`` and ``opt/{m,v}/``.
+
+The serving cache has a map of its own (:func:`cache_leaves`): the port's
+per-layer cache (``{"pos", "layers": [entry, ...]}``, whisper's ``enc``
+too) against JAX's stacked cache tree (``pos``, ``pro/{j}`` and
+``units/l{e}/{j}``; whisper's ``kv/{j}`` and ``enc``), on which
+``dist.sharding.cache_specs`` runs.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ import torch
 from ..dist.fsdp import Cut
 from ..dist.sharding import fsdp_dim, model_dim, model_slice
 from .registry import model_class
-from .transformer import layer_plan
+from .transformer import _cache_shapes, layer_plan
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -254,3 +260,49 @@ def params_to_jax(tensors: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.ndar
             raise ValueError(f"{key}: a layer of the {len(per_layer)} stacked is missing")
         flat[key] = np.stack(per_layer)
     return flat
+
+
+def cache_leaves(cfg) -> Dict[str, Any]:
+    """JAX's serving-cache leaves of ``cfg``'s model against the port's
+    cache, in JAX's flattening order: each ``"/"``-joined key maps to the
+    tuple of port places ``(i, j)`` (tensor ``j`` of ``cache["layers"][i]``)
+    stacked along its leading layer or unit axis, or to the port's key of
+    an unstacked entry (``"pos"``, a Python int in the port; whisper's
+    ``"enc"``)."""
+    out: Dict[str, Any] = {"pos": "pos"}
+    if cfg.family == "audio":
+        out["enc"] = "enc"
+        for j in range(2):
+            out[f"kv/{j}"] = tuple((i, j) for i in range(cfg.num_layers))
+    else:
+        plan = layer_plan(cfg)
+        n_pro, unit = len(plan.prologue), len(plan.unit)
+        if n_pro:
+            for j in range(len(_cache_shapes(plan.prologue[0], cfg, 1, 1))):
+                out[f"pro/{j}"] = tuple((p, j) for p in range(n_pro))
+        for e, spec in enumerate(plan.unit if plan.n_units else ()):
+            for j in range(len(_cache_shapes(spec, cfg, 1, 1))):
+                out[f"units/l{e}/{j}"] = tuple((n_pro + u * unit + e, j)
+                                               for u in range(plan.n_units))
+    return dict(sorted(out.items(), key=lambda kv: kv[0].split("/")))
+
+
+def cache_shapes(cfg, batch: int, s_max: int) -> Dict[str, Tuple[int, ...]]:
+    """JAX's stacked shape of each leaf of :func:`cache_leaves` for a batch
+    of ``batch`` rows and ``s_max`` slots (the VLM's cache has
+    ``vision_tokens`` more, as its ``init_cache`` makes it)."""
+    if cfg.family == "vlm":
+        s_max += cfg.vision_tokens
+    plan = layer_plan(cfg).layers()
+    out: Dict[str, Tuple[int, ...]] = {}
+    for key, places in cache_leaves(cfg).items():
+        if key == "pos":
+            out[key] = ()
+        elif key == "enc":
+            out[key] = (batch, cfg.encoder_seq, cfg.d_model)
+        elif cfg.family == "audio":
+            out[key] = (len(places), batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+        else:
+            i, j = places[0]
+            out[key] = (len(places),) + tuple(_cache_shapes(plan[i], cfg, batch, s_max)[j][0])
+    return out

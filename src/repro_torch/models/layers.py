@@ -238,8 +238,21 @@ class Embed(nn.Module):
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """fp32 logits (..., V), the whole vocabulary on every rank of a
-        model axis (the loss takes :meth:`unembed_weight` instead)."""
-        return softcap((x @ self.unembed_matrix().to(x.dtype)).float(), self.cfg.logit_softcap)
+        model axis, which moves logits, never the table: ``embed/out`` cut
+        along V gives the rank's vocabulary slice of the logits, gathered;
+        a tied ``embed/tok`` cut along ``d_model`` gives the partial logits
+        of the rank's columns, summed in fp32.  The softcap comes after.
+        (The loss takes :meth:`unembed_weight` instead.)"""
+        axis = tp.axis_of(self)
+        if self.cfg.tie_embeddings and tp.sliced(self.tok, -1):
+            cols = axis.own(tp.copy_to(x, axis), -1)
+            logits = tp.reduce_from((cols @ self.tok.to(x.dtype).T).float(), axis)
+        elif not self.cfg.tie_embeddings and tp.sliced(self.out, -1):
+            part = (tp.copy_to(x, axis) @ self.out.to(x.dtype)).float()
+            logits = tp.gather_whole(part, -1, axis)
+        else:
+            logits = (x @ self.unembed_matrix().to(x.dtype)).float()
+        return softcap(logits, self.cfg.logit_softcap)
 
     def unembed_weight(self):
         """(w (d, V_r), v0): this rank's vocabulary slice of the (d, V)

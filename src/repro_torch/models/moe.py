@@ -26,6 +26,15 @@ rank runs its own experts' rows of the table; else, where it divides the
 experts' FFN width, every expert on its column slice.  Either way the
 combine is a partial sum that is all-reduced.  The shared experts are
 column/row-parallel MLPs.
+
+In serving over the DP axes (``rows_dp``: the group of ranks that hold the
+other rows of the batch) the capacity and the slots are the whole batch's,
+as JAX's sharded prefill and decode compute them: each rank counts its
+picks of each expert, the counts are all-gathered over the group, and a
+pick keeps its slot if the picks of the ranks before it (in the group's
+order, which is the batch's row order) and its own earlier ones leave room
+under C = ceil(T_all k / E x capacity_factor).  The train step keeps each
+rank's own routing, as JAX's hierarchical step does.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..dist import tensor_parallel as tp
+from ..dist.tensor_parallel import all_gather
 from .layers import MLP, _param, dense_init, mlp_parallel, stacked_init
 
 
@@ -49,8 +59,11 @@ class Routing(NamedTuple):
     aux: torch.Tensor  # () fp32, the load-balance loss
 
 
-def route(mod: "MoE", xt: torch.Tensor, cfg, capacity: Optional[int] = None) -> Routing:
-    """Router, top-k, aux loss and capacity slotting of tokens ``xt`` (T, d)."""
+def route(mod: "MoE", xt: torch.Tensor, cfg, capacity: Optional[int] = None,
+          rows_dp=None) -> Routing:
+    """Router, top-k, aux loss and capacity slotting of tokens ``xt`` (T, d);
+    with ``rows_dp`` (a ``dist.fsdp.DPAxis``), of the rank's tokens among
+    the whole batch of the group's ranks (module docstring)."""
     e = cfg.moe
     T = xt.shape[0]
     E, k = e.num_experts, e.top_k
@@ -65,8 +78,6 @@ def route(mod: "MoE", xt: torch.Tensor, cfg, capacity: Optional[int] = None) -> 
     ce = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)
     aux = E * torch.sum(probs.mean(dim=0) * ce)
 
-    C = capacity if capacity is not None else int(math.ceil(T * k / E * e.capacity_factor))
-    C = max(C, 1)
     # a pick's position among the picks of its expert, in flat (token, k) order
     flat_e = expert_idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
@@ -74,14 +85,25 @@ def route(mod: "MoE", xt: torch.Tensor, cfg, capacity: Optional[int] = None) -> 
     first = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(flat_e)
     pos[order] = torch.arange(flat_e.numel(), device=xt.device) - first[flat_e[order]]
-    keep = pos < C
+    T_all, before = T, 0
+    if rows_dp is not None and rows_dp.size > 1:
+        every = counts.new_empty((rows_dp.size * E,))
+        rows_dp.count(every)
+        all_gather(every, counts, group=rows_dp.group)
+        before = every.view(rows_dp.size, E)[:rows_dp.index].sum(0)[flat_e]
+        T_all = T * rows_dp.size
+    C = capacity if capacity is not None else int(math.ceil(T_all * k / E * e.capacity_factor))
+    C = max(C, 1)
+    keep = pos + before < C
+    # over a DP group the table holds the rank's picks: at most T an expert
+    width = C if T_all == T else min(C, T)
     tok_of = torch.arange(T, device=xt.device).repeat_interleave(k)
 
-    dispatch = torch.full((E, C), T, dtype=torch.long, device=xt.device)
+    dispatch = torch.full((E, width), T, dtype=torch.long, device=xt.device)
     dispatch[flat_e[keep], pos[keep]] = tok_of[keep]
-    gates_ec = torch.zeros((E, C), dtype=torch.float32, device=xt.device)
+    gates_ec = torch.zeros((E, width), dtype=torch.float32, device=xt.device)
     gates_ec[flat_e[keep], pos[keep]] = gate_vals.reshape(-1)[keep]
-    slot = torch.where(keep, flat_e * C + pos, E * C).reshape(T, k)
+    slot = torch.where(keep, flat_e * width + pos, E * width).reshape(T, k)
     return Routing(expert_idx, gate_vals, dispatch, gates_ec, slot, aux)
 
 
@@ -97,13 +119,14 @@ def _expert_ffn(mod: "MoE", x: torch.Tensor, cfg) -> torch.Tensor:
     return torch.bmm(h, mod.wo.to(x.dtype))
 
 
-def moe_mlp(mod: "MoE", x: torch.Tensor, cfg,
-            capacity: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, S, d), aux fp32 scalar).  x: (B, S, d)."""
+def moe_mlp(mod: "MoE", x: torch.Tensor, cfg, capacity: Optional[int] = None,
+            rows_dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, S, d), aux fp32 scalar).  x: (B, S, d); ``rows_dp`` as
+    :func:`route`."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
-    r = route(mod, xt, cfg, capacity)
+    r = route(mod, xt, cfg, capacity, rows_dp)
     E, C = r.dispatch.shape
 
     xpad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
@@ -165,5 +188,5 @@ class MoE(nn.Module):
             if w is not None:
                 stacked_init(w.data, gen)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return moe_mlp(self, x, self.cfg)
+    def forward(self, x: torch.Tensor, rows_dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return moe_mlp(self, x, self.cfg, rows_dp=rows_dp)

@@ -18,8 +18,12 @@ the device, so no rank ever holds the whole model.  With ``fsdp=True``
 (ZeRO-3, ``dist.fsdp``) the rank keeps only its block of each of those
 slices over the mesh's DP axes, and the decoder gathers each layer just
 before it runs (the dense and MoE families; whisper and the VLM raise).
-It trains (``loss``); serving a sharded model (``cache_specs``) is ROADMAP
-A.9's, and the families without tensor parallelism raise (ROADMAP A.10).
+Such a model trains (``loss``) and serves: ``init_cache(batch, s_max)``
+gives the rank's cache (:func:`init_cache`), and ``prefill`` and
+``decode`` run on the rank's rows of the batch, the MoE layers routing the
+whole batch of the DP group (``models.moe``).  Every family serves over
+the DP axes; the families without tensor parallelism raise at ``model`` >
+1 (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from torch import nn
 
 from .. import configs as _configs
 from ..dist.fsdp import DPAxis, block, cut_of
+from ..dist.sharding import rows_of
 from ..dist.tensor_parallel import ModelAxis
 from .config import MLAConfig, MambaConfig, ModelConfig, RWKVConfig
 from . import transformer, vlm, whisper
@@ -204,6 +209,19 @@ def init_local(model: nn.Module, seed: int, device) -> nn.Module:
 FSDP_FAMILIES = ("dense", "moe")
 
 
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device, mesh=None) -> Dict[str, Any]:
+    """The zero-filled serving cache of ``cfg``'s family for a batch of
+    ``batch`` rows and ``s_max`` slots (the VLM's vision prefix takes
+    ``vision_tokens`` more); with a built ``mesh``, this rank's part of it
+    (``transformer.init_cache``; whisper's rows only)."""
+    if cfg.family == "audio":
+        rows = batch if mesh is None else rows_of(batch, mesh)[1]
+        return whisper.init_whisper_cache(cfg, rows, s_max, device)
+    if cfg.family == "vlm":  # the vision prefix takes the first vision_tokens slots
+        return transformer.init_cache(cfg, batch, s_max + cfg.vision_tokens, device, mesh)
+    return transformer.init_cache(cfg, batch, s_max, device, mesh)
+
+
 def get_api(cfg: ModelConfig, device="cuda", mesh=None, fsdp: bool = False) -> ModelAPI:
     """The model API of ``cfg``'s arch on ``device``; with ``mesh`` (a
     built ``launch.mesh.Mesh``), of this rank of its ``model`` axis; with
@@ -211,10 +229,12 @@ def get_api(cfg: ModelConfig, device="cuda", mesh=None, fsdp: bool = False) -> M
     transformer.check_supported(cfg)
     device = torch.device(device)
     cls = model_class(cfg)
-    axis = dp = None
+    axis = dp = rows_dp = None
     if mesh is not None:
         check_model_axis(cfg, dict(zip(mesh.axis_names, mesh.shape)).get("model", 1))
         axis = ModelAxis.of(mesh)
+        if cfg.moe is not None:  # the MoE layers' routing over the batch's ranks
+            rows_dp = DPAxis.of(mesh)
     if fsdp:
         if mesh is None:
             raise ValueError("fsdp cuts the parameters over a mesh's DP axes: pass mesh=")
@@ -239,32 +259,22 @@ def get_api(cfg: ModelConfig, device="cuda", mesh=None, fsdp: bool = False) -> M
         def prefill(model, batch, cache, last_only=False):
             return model(batch["tokens"], batch["frames"], cache=cache, mode="prefill",
                          last_only=last_only)
-
-        def make_cache(batch, s_max):
-            return whisper.init_whisper_cache(cfg, batch, s_max, device)
     elif cfg.family == "vlm":
         def prefill(model, batch, cache, last_only=False):
             return model(batch["tokens"], batch["patches"], cache=cache, mode="prefill",
                          last_only=last_only)
-
-        def make_cache(batch, s_max):
-            # the vision prefix takes the first vision_tokens slots
-            return transformer.init_cache(cfg, batch, s_max + cfg.vision_tokens, device)
     else:
         def prefill(model, batch, cache, last_only=False):
-            return model(batch["tokens"], cache=cache, mode="prefill", last_only=last_only)
-
-        def make_cache(batch, s_max):
-            return transformer.init_cache(cfg, batch, s_max, device)
+            return model(batch["tokens"], cache=cache, mode="prefill", last_only=last_only,
+                         rows_dp=rows_dp)
 
     def decode_step(model, tokens, cache):
-        return model(tokens, cache=cache, mode="decode")
+        if cfg.family in ("audio", "vlm"):
+            return model(tokens, cache=cache, mode="decode")
+        return model(tokens, cache=cache, mode="decode", rows_dp=rows_dp)
 
-    if axis is not None or dp is not None:
-        def make_cache(batch, s_max):
-            raise NotImplementedError(
-                f"{cfg.name}: serving a model sharded over a mesh (cache_specs) is not "
-                "ported to repro_torch yet (ROADMAP A.9)")
+    def make_cache(batch, s_max):
+        return init_cache(cfg, batch, s_max, device, mesh)
 
     return ModelAPI(cfg, device, init, loss_fn(cfg), prefill, decode_step, make_cache, axis,
                     dp)

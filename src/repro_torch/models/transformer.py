@@ -31,11 +31,14 @@ For a rank of a ``model`` axis, :class:`DecoderLM` and its blocks are built
 by ``models.registry.local_model``: the same modules, each parameter a
 slice of JAX's leaf, and the layers (``layers.py``, ``attention.py``,
 ``moe.py``) run the axis's collectives around the replicated residual
-stream.  Such a model trains; its cache path raises (sharded serving is
-ROADMAP A.9's).  Under ZeRO-3 (``dist.fsdp``) each parameter is the rank's
-block, and :class:`DecoderLM` gathers the embedding, each layer and the
-final norm just before their use (``fsdp.gathered``), and ``lm_loss`` the
-tied table again for the fused loss.
+stream.  Such a model trains and serves: with a mesh, :func:`init_cache`
+gives the rank's cache (its rows of the batch over the DP axes, and the
+kv heads its query heads read), and the logits come whole to every rank
+(``Embed.unembed``).  Under ZeRO-3 (``dist.fsdp``) each parameter is the
+rank's block, and :class:`DecoderLM` gathers the embedding, each layer and
+the final norm just before their use (``fsdp.gathered``), and ``lm_loss``
+the tied table again for the fused loss; in serving no gathered weight
+outlives its use.
 """
 from __future__ import annotations
 
@@ -46,7 +49,9 @@ import torch
 from torch import nn
 
 from ..dist import fsdp
-from .attention import GQAAttention, MLAAttention
+from ..dist.sharding import rows_of
+from ..launch.mesh import mesh_axis_sizes
+from .attention import GQAAttention, MLAAttention, kv_heads
 from .layers import MLP, Embed, Norm, cross_entropy_fused
 from .moe import MoE
 from .rwkv import RWKVChannelMix, RWKVTimeMix, rwkv_state_shapes
@@ -117,8 +122,9 @@ def check_supported(cfg) -> None:
         )
 
 
-def _cache_shapes(spec: LayerSpec, cfg, batch: int, s_max: int):
-    """(shape, dtype) of each tensor of one layer's cache entry."""
+def _cache_shapes(spec: LayerSpec, cfg, batch: int, s_max: int, hkv: Optional[int] = None):
+    """(shape, dtype) of each tensor of one layer's cache entry; a GQA
+    layer's holds ``hkv`` kv heads (default: all)."""
     dt = cfg.cdtype
     if spec.kind == "rwkv":
         s1, s2, s3 = rwkv_state_shapes(cfg, batch)
@@ -129,16 +135,31 @@ def _cache_shapes(spec: LayerSpec, cfg, batch: int, s_max: int):
     if cfg.attn_kind == "mla":
         m = cfg.mla
         return (((batch, s_max, m.kv_lora_rank), dt), ((batch, s_max, m.qk_rope_head_dim), dt))
-    kv = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+    kv = (batch, s_max, cfg.num_kv_heads if hkv is None else hkv, cfg.head_dim)
     return ((kv, dt), (kv, dt))
 
 
-def init_cache(cfg, batch: int, s_max: int, device) -> Dict[str, Any]:
-    """Zero-filled cache: one entry per layer (see the module docstring)."""
+def init_cache(cfg, batch: int, s_max: int, device, mesh=None) -> Dict[str, Any]:
+    """Zero-filled cache: one entry per layer (see the module docstring).
+    With a built ``mesh``, this rank's: its rows of the ``batch`` over the
+    DP axes (``dist.sharding.rows_of``, as ``batch_specs`` cuts the batch)
+    and, at ``model`` > 1, the kv heads ``kv0 .. kv1`` that its query heads
+    read (``attention.kv_heads``).  Where ``cache_specs`` cuts whole kv
+    heads that is the rank's slice of JAX's cache; where it cuts inside a
+    head (``head_dim``) or the MLA latents' sequence dim, the rank keeps
+    what it reads whole (the kv head; ``c_kv`` and ``k_rope``), as the
+    model axis gathers a weight cut inside a head."""
     check_supported(cfg)
+    hkv = None
+    if mesh is not None:
+        batch = rows_of(batch, mesh)[1]
+        model = mesh_axis_sizes(mesh).get("model", 1)
+        if model > 1:
+            kv0, kv1 = kv_heads(cfg, model, mesh.coords()["model"])
+            hkv = kv1 - kv0
     layers = [
         tuple(torch.zeros(shape, dtype=dtype, device=device)
-              for shape, dtype in _cache_shapes(spec, cfg, batch, s_max))
+              for shape, dtype in _cache_shapes(spec, cfg, batch, s_max, hkv))
         for spec in layer_plan(cfg).layers()
     ]
     return {"pos": 0, "layers": layers}
@@ -168,7 +189,7 @@ class Block(nn.Module):
             self.ffn = MoE(cfg, device) if spec.moe else MLP(cfg, device)
         self.moe = spec.moe
 
-    def forward(self, x, cache=None, pos=None):
+    def forward(self, x, cache=None, pos=None, rows_dp=None):
         if self.kind == "rwkv":
             x = x + self.mix(self.ln1(x), state=cache[:2] if cache is not None else None)
             return x + self.ffn(self.ln2(x), cache[2] if cache is not None else None), None
@@ -177,7 +198,7 @@ class Block(nn.Module):
         else:
             x = x + self.mix(self.ln1(x), window=self.window, cache=cache, pos=pos)
         if self.moe:
-            y, aux = self.ffn(self.ln2(x))
+            y, aux = self.ffn(self.ln2(x), rows_dp)
             return x + y, aux
         return x + self.ffn(self.ln2(x)), None
 
@@ -209,13 +230,16 @@ class DecoderLM(nn.Module):
                 m.reset_parameters(gen)
 
     def forward(self, tokens, cache=None, mode: str = "train", last_only: bool = False,
-                return_hidden: bool = False, return_aux: bool = False, inputs_embeds=None):
+                return_hidden: bool = False, return_aux: bool = False, inputs_embeds=None,
+                rows_dp=None):
         """Returns (logits fp32 (B, S, V), new_cache), or with
         ``return_hidden`` (the hidden state after the final norm (B, S, d),
         new_cache); with ``return_aux`` the summed MoE auxiliary loss (fp32
         scalar) comes second: (out, aux, new_cache).  ``inputs_embeds``
         (B, S, d) in the compute dtype takes the place of the embedded
         ``tokens`` (the VLM's projected patches and embedded text).
+        ``rows_dp`` (a ``dist.fsdp.DPAxis``, in serving over the DP axes):
+        the MoE layers route the whole batch of its ranks (``models.moe``).
 
         * mode="train":   cache ignored
         * mode="prefill": cache required; writes positions [0:S], pos := S
@@ -236,7 +260,8 @@ class DecoderLM(nn.Module):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
             with fsdp.gathered(layer):  # ZeRO-3: this layer's weights whole, just now
-                x, aux = layer(x, cache["layers"][i] if cache is not None else None, pos)
+                x, aux = layer(x, cache["layers"][i] if cache is not None else None, pos,
+                               rows_dp)
             if aux is not None:
                 aux_total = aux_total + aux
         with fsdp.gathered(self.final_norm):

@@ -48,6 +48,7 @@ def _randn(gen, shape, dtype):
     (2, 8, 1, 300, 300, 256, {}),
     (1, 4, 2, 50, 70, 16, dict(window=8)),
     (4, 10, 2, 1024, 1024, 128, {}),  # a rank of qwen2.5-14b at TP 4: 10 of 40 q heads
+    (4, 40, 8, 1024, 1024, 128, {}),  # qwen2.5-14b whole on one card: all 40 / 8 heads
     # gemma2-9b's prefill: GQA 16/8, D 256, softcap 50; its local layers' window
     (4, 16, 8, 1024, 1024, 256, dict(window=4096, softcap=50.0)),
     (4, 16, 8, 1024, 1024, 256, dict(softcap=50.0)),

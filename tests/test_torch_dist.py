@@ -125,6 +125,45 @@ def test_sharding_rules_match_jax(arch, shape, axes):
                                        cfg.moe is not None) == want, (key, b)
 
 
+_CACHES = {}
+
+
+@pytest.mark.parametrize("seq_shard", [False, True], ids=["rows", "seq"])
+@pytest.mark.parametrize("shape,axes", MESHES + [((1, 1, 4), ("pod", "data", "model")),
+                                                 ((2, 1, 2), ("pod", "data", "model"))],
+                         ids=["221", "141", "222", "114", "212"])
+@pytest.mark.parametrize("arch", sorted(configs.ARCH_IDS))
+def test_cache_specs_match_jax(arch, shape, axes, seq_shard):
+    """The serving cache's rules on the shapes of JAX's ``init_cache`` (batch
+    8, 32 slots), and the port's per-layer cache map reaches every JAX leaf
+    once, each layer's tensor at its place in the stacked leaf."""
+    from repro_torch.models.convert import cache_leaves, cache_shapes
+    from repro_torch.models.registry import init_cache
+
+    if arch not in _CACHES:
+        jcfg, cfg = jconfigs.get_config(arch), configs.get_config(arch)
+        jtree = jax.eval_shape(lambda: jget_api(jcfg).init_cache(8, 32))
+        _CACHES[arch] = jcfg, jtree, cfg
+    jcfg, jtree, cfg = _CACHES[arch]
+    shapes = cache_shapes(cfg, 8, 32)
+    assert shapes == {k: tuple(leaf.shape) for k, leaf in _flat(jtree).items()}
+    assert list(shapes) == list(_flat(jtree))
+    stub, mesh = _StubMesh(shape, axes), mesh_layout(shape, axes)
+    assert sharding.cache_specs(shapes, mesh, cfg, seq_shard=seq_shard) == {
+        k: tuple(s) for k, s in _flat(jsharding.cache_specs(
+            jtree, stub, jcfg, seq_shard=seq_shard)).items()}
+    # every port tensor lands once, and at the stacked leaf's per-layer shape
+    port = init_cache(cfg, 8, 32, "meta")
+    places = [p for v in cache_leaves(cfg).values() for p in (v if isinstance(v, tuple) else [v])]
+    want = [(i, j) for i, entry in enumerate(port["layers"]) for j in range(len(entry))]
+    assert sorted(p for p in places if isinstance(p, tuple)) == want
+    assert sorted(p for p in places if isinstance(p, str)) == sorted(
+        k for k in port if k != "layers")
+    for key, v in cache_leaves(cfg).items():
+        for i, j in (v if isinstance(v, tuple) else ()):
+            assert tuple(port["layers"][i][j].shape) == shapes[key][1:], (key, i, j)
+
+
 # a model axis above 1 trains the attention, MLP and MoE families
 # (tests/test_torch_tp.py); rwkv6's has no tensor parallelism (A.10); the
 # hierarchical step with fsdp across pods fails in JAX (C.9)

@@ -29,7 +29,21 @@ after each of those steps as above under ``after{i}/`` and, with ``ties``, per
 leaf the entries of this rank's shard that the int8 quantizer met within
 ``margin`` of a rounding tie (``ties/{key}``) and its scale
 (``scale/{key}``) in the first step.
+
+A task with ``"serve": {"fsdp", "max_new", "s_max"}`` serves instead
+(:func:`_serve_task`): the smoke model of ``arch`` (``cfg`` overrides,
+a dict for a nested config) on the mesh from ``api.init(0)``, each rank its
+slices of the single-device weights, greedy from the prompts of
+``inputs``.  It writes the rank's ``logits/{i}`` (its rows of call ``i``'s
+last-position logits), ``tokens`` (``ServeEngine.generate``'s, the whole
+batch's), its cache after the prefill and after the last step
+(``cache/{prefill,last}/{layer}/{j}``), its MoE layers' routing
+(``routing/{i}``: the top-k experts of its tokens, ``kept/{i}``: the picks
+each expert kept), ``comm/prefill`` and ``comm/decode`` (the model axis's
+calls and bytes of the prefill and of one decode step), ``profile``
+(``comm_profile``'s values) and ``coords``.
 """
+
 from __future__ import annotations
 
 import json
@@ -193,6 +207,77 @@ def _step_task(task: dict, rank: int, out: str) -> None:
     np.savez(os.path.join(out, f"{task['name']}.rank{rank}.npz"), **arrays)
 
 
+def _serve_task(task: dict, rank: int, out: str) -> None:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_api, smoke_config
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = smoke_config(task["arch"])
+    if task.get("cfg"):
+        cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+                             else v for k, v in task["cfg"].items()})
+    shape, axes = task["mesh"]
+    sv = task["serve"]
+    mesh = make_mesh(tuple(shape), tuple(axes), device="cpu")
+    api = get_api(cfg, device="cpu", mesh=mesh, fsdp=sv["fsdp"])
+    model = api.init(seed=0)
+    with np.load(task["inputs"]) as f:
+        inputs = {k: f[k] for k in f.files}
+    B = inputs["tokens"].shape[0]
+    eng = ServeEngine(api, model, batch=B, s_max=sv["s_max"], mesh=mesh)
+    local = {k: torch.as_tensor(v) for k, v in eng.local_inputs(inputs).items()}
+
+    arrays, seen = {}, {"routing": [], "kept": []}
+    route = moe.route
+
+    def recorded(mod, xt, c, capacity=None, rows_dp=None):
+        r = route(mod, xt, c, capacity, rows_dp)
+        seen["routing"].append(r.expert_idx.numpy().copy())
+        seen["kept"].append((r.dispatch != xt.shape[0]).sum(1).numpy())
+        return r
+
+    def dump(tag, cache):
+        for i, entry in enumerate(cache["layers"]):
+            for j, t in enumerate(entry):
+                arrays[f"cache/{tag}/{i}/{j}"] = t.float().numpy().copy()
+
+    def comm():
+        c = api.axis.comm.get("model", {}) if api.axis is not None else {}
+        return np.asarray([c.get("calls", 0), c.get("bytes", 0)])
+
+    moe.route = recorded
+    try:
+        with torch.inference_mode():
+            cache = api.init_cache(B, sv["s_max"])
+            logits, cache = api.prefill(model, local, cache, last_only=True)
+            arrays["comm/prefill"] = comm()
+            dump("prefill", cache)
+            steps = [logits[:, -1]]
+            for i in range(sv["max_new"] - 1):
+                if api.axis is not None:
+                    api.axis.comm = {}
+                logits, cache = api.decode(model, steps[-1].argmax(-1)[:, None], cache)
+                if i == 0:
+                    arrays["comm/decode"] = comm()
+                steps.append(logits[:, -1])
+            dump("last", cache)
+    finally:
+        moe.route = route
+    arrays.update({f"logits/{i}": t.numpy().copy() for i, t in enumerate(steps)})
+    for what in ("routing", "kept"):
+        arrays.update({f"{what}/{i}": a for i, a in enumerate(seen[what])})
+    arrays["tokens"] = eng.generate(inputs, max_new_tokens=sv["max_new"])
+    prof = eng.comm_profile()
+    arrays["profile"] = np.asarray([prof[k] for k in sorted(prof)])
+    arrays["coords"] = np.asarray([mesh.coords()[a] for a in axes])
+    np.savez(os.path.join(out, f"{task['name']}.rank{rank}.npz"), **arrays)
+
+
 def main(path: str, rank: int) -> None:
     import torch
 
@@ -204,7 +289,7 @@ def main(path: str, rank: int) -> None:
     init_world("cpu", init_method=f"file://{job['store']}", world_size=job["world"], rank=rank)
     try:
         for task in job["tasks"]:
-            _step_task(task, rank, job["out"])
+            (_serve_task if "serve" in task else _step_task)(task, rank, job["out"])
     finally:
         shutdown()
 
