@@ -40,17 +40,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    deepseek-v3-671b at full width cut to 2 layers (one dense, one MoE) and
    16 experts (top-8 kept), and jamba-1.5-large-398b at full width cut to
    one unit (8 layers) and 3 experts (top-2 kept), and whisper-small (with
-   1500 frames; 2 encoder and 2 decoder layers) and internvl2-1b (with 256
-   patches; 2 layers) at full width, each drawn on the card
+   1500 frames) and internvl2-1b (with 256 patches) at full width and full
+   depth, each drawn on the card
    and copied to the CPU, on the card (kernels) against the same weights
    on the CPU (plain versions): logits, the decode step's logits and greedy
    tokens, and for the MoE models the routing decisions and the picks
    dropped at capacity that differ; then
    one AdamW step on the card against the same step on the CPU, in fp32, of
-   gemma-2b, rwkv6-1.6b, whisper-small and internvl2-1b cut to 2 layers
-   (whisper: 2 + 2), deepseek-v3 cut to its one MoE layer (16 experts) and
-   grok-1 to 1 layer and 3 experts (the host's fp32 step takes ~25 s a
-   billion parameters, so these cuts keep the one-card run in its limit):
+   gemma-2b and rwkv6-1.6b cut to 2 layers, whisper-small and internvl2-1b
+   at full depth, and deepseek-v3 and grok-1 as the train phase cuts them:
    the loss, every parameter's gradient, the parameter update and the MoE
    models' routing decisions that differ, after a check that the host and
    the card hold 16 bytes a parameter;
@@ -146,7 +144,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 11. serve_tp: sharded serving (prefill and greedy decode on every rank of
    a mesh, ``ServeEngine(..., mesh=)``): on one card two ranks over gloo
    with CUDA tensors, fp32, against the single-device model on the same
-   card from the same seed, 2 rows of 128 tokens + 8 new: qwen2.5-14b and
+   card from the same seed, 2 rows of 128 tokens + 4 new (+ 2 under
+   ``fsdp``, whose every pass gathers the fp32 table twice): qwen2.5-14b and
    gemma-2b cut to 2 layers and deepseek-v3 as the reference phase cuts it
    at (1, 1, 2), gemma2-9b cut to 2 layers with ``fsdp`` at (1, 2, 1);
    each rank's logits, the greedy tokens gathered over the DP group, the
@@ -1090,17 +1089,6 @@ def moe_train_config(cfg):
     return cfg.replace(num_layers=1, moe=dataclasses.replace(cfg.moe, num_experts=4))
 
 
-def moe_train_reference_config(cfg):
-    """The MoE train cells cut further for their fp32 card-vs-CPU step, whose
-    CPU side takes ~25 s a billion parameters on the chip machine's host:
-    deepseek-v3 to its one MoE layer (``first_dense`` 0; MLA and 16 experts,
-    top-8 kept), grok-1 to 3 of its 8 experts (top-2 kept, so the router
-    still chooses)."""
-    if cfg.attn_kind == "mla":
-        return cfg.replace(num_layers=1, moe=dataclasses.replace(cfg.moe, first_dense=0))
-    return cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=3))
-
-
 def moe_cut(cfg) -> str:
     from repro_torch import configs
 
@@ -1896,13 +1884,19 @@ def profile_phases(api, model, batch, decode_ms: float, steps: int = 8) -> None:
         if not kern:
             log(f"  profile {what}: no device events (not measured)")
             continue
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+        # a collective kernel spins on the card until the other ranks reach it
+        # (and runs beside the compute stream), so it is not busy time
+        coll = sum(e.time_range.elapsed_us() for e in kern if "nccl" in e.name.lower()) / 1e3 / n
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n - coll
         by_name = {}
         for e in kern:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         extra = (f", idle share {1 - busy / decode_ms:.3f} of the unprofiled {decode_ms:.3f} ms"
                  if what == "decode step" else "")
+        if coll:
+            extra += (f" (collective kernels, {coll:.3f} ms from launch to end, left out of "
+                      "the busy time: they wait for the other ranks)")
         log(f"  profile {what}: {len(kern) / n:.0f} kernels, device busy {busy:.3f} ms{extra}")
         for name, ms in top:
             log(f"    {ms:8.3f} ms  {name[:100]}")
@@ -3045,6 +3039,10 @@ def fsdp_rank(rank: int, world: int, backend: str, workdir: str) -> int:
 
 SERVE_TP_RANK_TIMEOUT_S = 900
 SERVE_TP_PROMPT, SERVE_TP_NEW = 128, 4  # the fp32 checks' prompt and new tokens
+# new tokens of the fsdp checks: a prefill and one decode step, each pass of
+# which gathers gemma2-9b's 3.67 GB fp32 table twice (embedding and tied
+# unembedding; ~9 s a pass over gloo on one card)
+SERVE_TP_NEW_FSDP = 2
 SERVE_TP_TOL = 1e-3  # fp32 logits: sums over d taken in another order, as the reference phase
 
 
@@ -3088,10 +3086,9 @@ def greedy_run(api, model, inputs: dict, new: int, mesh=None, routed=None) -> tu
     call's last-position fp32 logits of the rank's rows and, with
     ``routed``, each MoE routing call's top-k experts: (logits (rows, new,
     V), the whole batch's tokens)."""
-    from repro_torch.models import moe
     from repro_torch.serve.engine import ServeEngine
 
-    steps, route = [], moe.route
+    steps, calls = [], []
 
     def logged(fn):
         def call(*args, **kw):
@@ -3100,21 +3097,14 @@ def greedy_run(api, model, inputs: dict, new: int, mesh=None, routed=None) -> tu
             return logits, cache
         return call
 
-    def recorded(mod, xt, cfg_, capacity=None, rows_dp=None):
-        r = route(mod, xt, cfg_, capacity, rows_dp)
-        routed.append(r.expert_idx.cpu())
-        return r
-
     B, S = inputs["tokens"].shape
     eng = ServeEngine(dataclasses.replace(api, prefill=logged(api.prefill),
                                           decode=logged(api.decode)),
                       model, batch=B, s_max=S + new, mesh=mesh)
-    if routed is not None:
-        moe.route = recorded
-    try:
+    with routing_recorded(calls):
         toks = eng.generate(inputs, max_new_tokens=new)
-    finally:
-        moe.route = route
+    if routed is not None:
+        routed.extend(idx for idx, _ in calls)
     return torch.stack(steps, 1), toks
 
 
@@ -3150,7 +3140,8 @@ def cache_bytes(api, mesh, rows: int, s_max: int) -> tuple:
 def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: bool) -> dict:
     """``cfg`` (fp32) served on ``mesh`` (``fsdp``: ZeRO-3 blocks) against the
     single-device model on the same card from the same seed, on world rows
-    of SERVE_TP_PROMPT tokens and SERVE_TP_NEW new ones: the rank's rows of
+    of SERVE_TP_PROMPT tokens and SERVE_TP_NEW new ones (SERVE_TP_NEW_FSDP
+    with ``fsdp``): the rank's rows of
     every call's logits within SERVE_TP_TOL, the greedy tokens equal (the
     engine's, gathered over the DP group), every MoE routing decision equal,
     and the rank's cache bytes against ``cache_specs``'.  With
@@ -3160,6 +3151,7 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
     from repro_torch.models import get_api
 
     dev = mesh.device
+    new = SERVE_TP_NEW_FSDP if fsdp else SERVE_TP_NEW
     rng = np.random.default_rng(2)
     tokens = rng.integers(0, cfg.vocab_size, size=(world, SERVE_TP_PROMPT)).astype(np.int64)
     r0, n = rows_of(world, mesh)
@@ -3173,8 +3165,7 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
         whole = get_api(cfg, dev)
         model = whole.init(seed=1)
         routed_ref = []
-        logits, toks = greedy_run(whole, model, {"tokens": tokens}, SERVE_TP_NEW,
-                                  routed=routed_ref)
+        logits, toks = greedy_run(whole, model, {"tokens": tokens}, new, routed=routed_ref)
         ref = (logits[r0:r0 + n].cpu(), toks, routed_ref)
         del model, logits
         torch.cuda.empty_cache()
@@ -3186,7 +3177,7 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
     held = sum(p.numel() for p in model.parameters())
     tp_zero_counts()
     routed = []
-    logits, toks = greedy_run(api, model, {"tokens": tokens}, SERVE_TP_NEW, mesh, routed)
+    logits, toks = greedy_run(api, model, {"tokens": tokens}, new, mesh, routed)
     launches = tp_launch_counts()
     t2 = time.perf_counter()
     err = (logits.cpu() - ref[0]).abs().max().item()
@@ -3196,12 +3187,12 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
                for t in ref[2]]
     differ = sum(int((a != b).sum()) for a, b in zip(routed, per_row))
     same_calls = [tuple(a.shape) for a in routed] == [tuple(b.shape) for b in per_row]
-    held_b, implied_b, rule_b = cache_bytes(api, mesh, world, SERVE_TP_PROMPT + SERVE_TP_NEW)
+    held_b, implied_b, rule_b = cache_bytes(api, mesh, world, SERVE_TP_PROMPT + new)
     ok = (err <= SERVE_TP_TOL and np.array_equal(toks, ref[1]) and same_calls and differ == 0
           and held_b == rule_b)
     log(f"rank {rank} of mesh {tuple(mesh.shape)} ({dev}): {cfg.name}, {cfg.num_layers} layers"
         + (f", {cfg.moe.num_experts} experts" if cfg.moe else "") + (" with fsdp" if fsdp else "")
-        + f", fp32, {world} x {SERVE_TP_PROMPT} + {SERVE_TP_NEW}; holds {held / 1e9:.3f} B "
+        + f", fp32, {world} x {SERVE_TP_PROMPT} + {new}; holds {held / 1e9:.3f} B "
         f"parameters; the reference {t1 - t0:.1f} s, the rank's runs {t2 - t1:.1f} s; against "
         f"the single-device model on the card: logits of its rows max_abs_err {err:.3g} (tol "
         f"{SERVE_TP_TOL}; max|logit| {top:.3g}), greedy tokens "
@@ -3539,7 +3530,6 @@ def main(argv=None) -> int:
     jamba = jamba.replace(num_layers=SERVE_LAYERS[HYBRID_ARCH], moe=dataclasses.replace(
         jamba.moe, num_experts=SERVE_EXPERTS[HYBRID_ARCH]))
     whisper, internvl2 = configs.get_config(WHISPER_ARCH), configs.get_config(VLM_ARCH)
-    whisper_ref = whisper.replace(num_layers=2, encoder_layers=2)  # the references' depth
     gemma2, qwen = configs.get_config(FSDP_ARCH), configs.get_config(TP_ARCH)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     phase("kernels")
@@ -3560,20 +3550,19 @@ def main(argv=None) -> int:
              "cut to 2 layers (first_dense 1) and 16 experts (top-8 kept),", False),
             (hybrid_reference_config(jamba),
              "cut to one unit (8 layers) and 3 experts (top-2 kept),", False),
-            (whisper_ref, "cut to 2 encoder + 2 decoder layers (1500 frames),", False),
-            (internvl2, "cut to 2 layers (256 patches),", False)):
+            (whisper, "at full depth (12 encoder + 12 decoder layers, 1500 frames),", True),
+            (internvl2, "at full depth (24 layers, 256 patches),", True)):
         check_reference(cfg, cut, full_depth)
         torch.cuda.empty_cache()
         release_host_memory()
     deepseek_train, grok_train = (moe_train_config(configs.get_config(a)) for a in MOE_ARCHS)
-    deepseek_ref, grok_ref = (moe_train_reference_config(c) for c in (deepseek_train, grok_train))
     for cfg, cut in ((gemma.replace(num_layers=2), "2-layer"),
                      (rwkv.replace(num_layers=2), "2-layer"),
                      (gemma2.replace(num_layers=FSDP_REF_LAYERS), "2-layer (one local and one "
                                                                   "global layer)"),
-                     (whisper_ref, "cut to 2 encoder + 2 decoder layers"),
-                     (internvl2.replace(num_layers=2), "cut to 2 layers"),
-                     (deepseek_ref, moe_cut(deepseek_ref)), (grok_ref, moe_cut(grok_ref))):
+                     (whisper, "at full depth (12 encoder + 12 decoder layers)"),
+                     (internvl2, "at full depth (24 layers)"),
+                     (deepseek_train, moe_cut(deepseek_train)), (grok_train, moe_cut(grok_train))):
         check_train_reference(cfg, cut)
         torch.cuda.empty_cache()
         release_host_memory()

@@ -27,14 +27,17 @@ experts' FFN width, every expert on its column slice.  Either way the
 combine is a partial sum that is all-reduced.  The shared experts are
 column/row-parallel MLPs.
 
-In serving over the DP axes (``rows_dp``: the group of ranks that hold the
-other rows of the batch) the capacity and the slots are the whole batch's,
+In serving where the DP axes cut the batch (``rows_dp``: the group of
+ranks that hold its other rows, the cache's ``"dp"``,
+``transformer.init_cache``) the capacity and the slots are the whole batch's,
 as JAX's sharded prefill and decode compute them: each rank counts its
 picks of each expert, the counts are all-gathered over the group, and a
 pick keeps its slot if the picks of the ranks before it (in the group's
 order, which is the batch's row order) and its own earlier ones leave room
-under C = ceil(T_all k / E x capacity_factor).  The train step keeps each
-rank's own routing, as JAX's hierarchical step does.
+under C = ceil(T_all k / E x capacity_factor).  Where the DP ranks do not
+divide the batch, each holds every row and routes it alone, as JAX does on
+a replicated batch.  The train step keeps each rank's own routing, as JAX's
+hierarchical step does.
 """
 from __future__ import annotations
 
@@ -62,8 +65,9 @@ class Routing(NamedTuple):
 def route(mod: "MoE", xt: torch.Tensor, cfg, capacity: Optional[int] = None,
           rows_dp=None) -> Routing:
     """Router, top-k, aux loss and capacity slotting of tokens ``xt`` (T, d);
-    with ``rows_dp`` (a ``dist.fsdp.DPAxis``), of the rank's tokens among
-    the whole batch of the group's ranks (module docstring)."""
+    with ``rows_dp`` (a ``dist.fsdp.DPAxis`` whose ranks hold the batch's
+    other rows), of the rank's tokens among the whole batch of the group's
+    ranks (module docstring)."""
     e = cfg.moe
     T = xt.shape[0]
     E, k = e.num_experts, e.top_k
@@ -86,7 +90,7 @@ def route(mod: "MoE", xt: torch.Tensor, cfg, capacity: Optional[int] = None,
     pos = torch.empty_like(flat_e)
     pos[order] = torch.arange(flat_e.numel(), device=xt.device) - first[flat_e[order]]
     T_all, before = T, 0
-    if rows_dp is not None and rows_dp.size > 1:
+    if rows_dp is not None:
         every = counts.new_empty((rows_dp.size * E,))
         rows_dp.count(every)
         all_gather(every, counts, group=rows_dp.group)

@@ -21,7 +21,7 @@ before it runs (the dense and MoE families; whisper and the VLM raise).
 Such a model trains (``loss``) and serves: ``init_cache(batch, s_max)``
 gives the rank's cache (:func:`init_cache`), and ``prefill`` and
 ``decode`` run on the rank's rows of the batch, the MoE layers routing the
-whole batch of the DP group (``models.moe``).  Every family serves over
+whole batch over the DP group where it cuts the batch (``models.moe``).  Every family serves over
 the DP axes; the families without tensor parallelism raise at ``model`` >
 1 (ROADMAP A.10).
 """
@@ -229,12 +229,10 @@ def get_api(cfg: ModelConfig, device="cuda", mesh=None, fsdp: bool = False) -> M
     transformer.check_supported(cfg)
     device = torch.device(device)
     cls = model_class(cfg)
-    axis = dp = rows_dp = None
+    axis = dp = None
     if mesh is not None:
         check_model_axis(cfg, dict(zip(mesh.axis_names, mesh.shape)).get("model", 1))
         axis = ModelAxis.of(mesh)
-        if cfg.moe is not None:  # the MoE layers' routing over the batch's ranks
-            rows_dp = DPAxis.of(mesh)
     if fsdp:
         if mesh is None:
             raise ValueError("fsdp cuts the parameters over a mesh's DP axes: pass mesh=")
@@ -265,13 +263,10 @@ def get_api(cfg: ModelConfig, device="cuda", mesh=None, fsdp: bool = False) -> M
                          last_only=last_only)
     else:
         def prefill(model, batch, cache, last_only=False):
-            return model(batch["tokens"], cache=cache, mode="prefill", last_only=last_only,
-                         rows_dp=rows_dp)
+            return model(batch["tokens"], cache=cache, mode="prefill", last_only=last_only)
 
     def decode_step(model, tokens, cache):
-        if cfg.family in ("audio", "vlm"):
-            return model(tokens, cache=cache, mode="decode")
-        return model(tokens, cache=cache, mode="decode", rows_dp=rows_dp)
+        return model(tokens, cache=cache, mode="decode")
 
     def make_cache(batch, s_max):
         return init_cache(cfg, batch, s_max, device, mesh)

@@ -17,7 +17,7 @@ family's language model is a dense :class:`DecoderLM` fed ``inputs_embeds``
 its own (``models/whisper.py``), which :class:`DecoderLM` refuses.
 
 Caches are a dict ``{"pos": int, "layers": [entry, ...]}`` with one entry
-per layer, as JAX's ``_cache_shapes``: a GQA layer's (k, v) pair of
+per layer (and ``"dp"``, below), as JAX's ``_cache_shapes``: a GQA layer's (k, v) pair of
 (B, S_max, Hkv, Dh), an MLA layer's (c_kv (B, S_max, R), k_rope (B, S_max,
 Dr)), an rwkv layer's (x_prev (B,1,d), wkv (B,H,K,K) fp32, x_prev (B,1,d)),
 a mamba layer's (conv_buf (B, d_conv-1, d_in), ssm_state (B, d_in, N) fp32).
@@ -33,8 +33,10 @@ slice of JAX's leaf, and the layers (``layers.py``, ``attention.py``,
 ``moe.py``) run the axis's collectives around the replicated residual
 stream.  Such a model trains and serves: with a mesh, :func:`init_cache`
 gives the rank's cache (its rows of the batch over the DP axes, and the
-kv heads its query heads read), and the logits come whole to every rank
-(``Embed.unembed``).  Under ZeRO-3 (``dist.fsdp``) each parameter is the
+kv heads its query heads read; where the DP axes cut the batch of an MoE
+model, ``"dp"``, the ``dist.fsdp.DPAxis`` whose ranks hold the other rows,
+over which the MoE layers route the whole batch), and the logits come
+whole to every rank (``Embed.unembed``).  Under ZeRO-3 (``dist.fsdp``) each parameter is the
 rank's block, and :class:`DecoderLM` gathers the embedding, each layer and
 the final norm just before their use (``fsdp.gathered``), and ``lm_loss``
 the tied table again for the fused loss; in serving no gathered weight
@@ -148,11 +150,16 @@ def init_cache(cfg, batch: int, s_max: int, device, mesh=None) -> Dict[str, Any]
     heads that is the rank's slice of JAX's cache; where it cuts inside a
     head (``head_dim``) or the MLA latents' sequence dim, the rank keeps
     what it reads whole (the kv head; ``c_kv`` and ``k_rope``), as the
-    model axis gathers a weight cut inside a head."""
+    model axis gathers a weight cut inside a head.  For an MoE model whose
+    batch the DP axes cut, ``"dp"`` holds the DP group (the MoE layers
+    route the whole batch over it); where they do not divide the batch
+    every rank holds every row and routes it alone."""
     check_supported(cfg)
-    hkv = None
+    hkv, dp = None, None
     if mesh is not None:
-        batch = rows_of(batch, mesh)[1]
+        whole, batch = batch, rows_of(batch, mesh)[1]
+        if cfg.moe is not None and batch < whole:
+            dp = fsdp.DPAxis.of(mesh)
         model = mesh_axis_sizes(mesh).get("model", 1)
         if model > 1:
             kv0, kv1 = kv_heads(cfg, model, mesh.coords()["model"])
@@ -162,7 +169,7 @@ def init_cache(cfg, batch: int, s_max: int, device, mesh=None) -> Dict[str, Any]
               for shape, dtype in _cache_shapes(spec, cfg, batch, s_max, hkv))
         for spec in layer_plan(cfg).layers()
     ]
-    return {"pos": 0, "layers": layers}
+    return {"pos": 0, "layers": layers, **({"dp": dp} if dp is not None else {})}
 
 
 class Block(nn.Module):
@@ -230,16 +237,15 @@ class DecoderLM(nn.Module):
                 m.reset_parameters(gen)
 
     def forward(self, tokens, cache=None, mode: str = "train", last_only: bool = False,
-                return_hidden: bool = False, return_aux: bool = False, inputs_embeds=None,
-                rows_dp=None):
+                return_hidden: bool = False, return_aux: bool = False, inputs_embeds=None):
         """Returns (logits fp32 (B, S, V), new_cache), or with
         ``return_hidden`` (the hidden state after the final norm (B, S, d),
         new_cache); with ``return_aux`` the summed MoE auxiliary loss (fp32
         scalar) comes second: (out, aux, new_cache).  ``inputs_embeds``
         (B, S, d) in the compute dtype takes the place of the embedded
-        ``tokens`` (the VLM's projected patches and embedded text).
-        ``rows_dp`` (a ``dist.fsdp.DPAxis``, in serving over the DP axes):
-        the MoE layers route the whole batch of its ranks (``models.moe``).
+        ``tokens`` (the VLM's projected patches and embedded text).  A
+        cache's ``"dp"`` (:func:`init_cache`) has the MoE layers route the
+        whole batch of its ranks (``models.moe``).
 
         * mode="train":   cache ignored
         * mode="prefill": cache required; writes positions [0:S], pos := S
@@ -252,6 +258,7 @@ class DecoderLM(nn.Module):
         elif cache is None:
             raise ValueError(f"mode={mode!r} requires a cache")
         pos = cache["pos"] if mode == "decode" else None
+        rows_dp = cache.get("dp") if cache is not None else None
         if inputs_embeds is not None:
             x = inputs_embeds
         else:
@@ -269,7 +276,7 @@ class DecoderLM(nn.Module):
         new_cache = None
         if cache is not None:
             new_pos = cache["pos"] + (1 if mode == "decode" else x.shape[1])
-            new_cache = {"pos": new_pos, "layers": cache["layers"]}
+            new_cache = dict(cache, pos=new_pos)
         if not return_hidden:
             if last_only:
                 x = x[:, -1:, :]

@@ -12,9 +12,12 @@
   tied table cut along d), deepseek-v3 at (1, 2, 2) (MLA's absorbed decode,
   expert parallelism), grok-1 at (2, 1, 2) (softcap, experts across pods)
   and again with capacity factor 0.5, which drops picks (each DP rank
-  routes its rows within the whole batch's capacity), gemma2-9b with
-  ``fsdp`` at (1, 4, 1) and (1, 2, 2), and rwkv6, jamba, whisper and
-  internvl2 at (1, 4, 1) (rows only: every family serves over the DP axes).
+  routes its rows within the whole batch's capacity) and at a batch of 1
+  with capacity factor 0.5 (the DP ranks do not divide the batch: each
+  holds the whole batch and routes it alone, as JAX does on a replicated
+  batch), gemma2-9b with ``fsdp`` at (1, 4, 1) and (1, 2, 2), and rwkv6,
+  jamba, whisper and internvl2 at (1, 4, 1) (rows only: every family
+  serves over the DP axes).
 * Each rank's logits within 2e-5 of JAX's rows (JAX's own sharded and
   whole runs differ by up to 7.1e-6); greedy tokens equal exactly; each MoE
   layer's top-k experts of every token equal, and the picks each expert
@@ -64,6 +67,7 @@ CASES = {
     "deepseek-122": ("deepseek-v3-671b", M122, False, {}),
     "grok-212": ("grok-1-314b", M212, False, {}),
     "grok-212-drops": ("grok-1-314b", M212, False, DROPS),
+    "grok-212-b1-drops": ("grok-1-314b", M212, False, DROPS),
     "gemma2-fsdp-141": ("gemma2-9b", M141, True, {}),
     "gemma2-fsdp-122": ("gemma2-9b", M122, True, {}),
     "rwkv-141": ("rwkv6-1.6b", M141, False, {}),
@@ -71,6 +75,9 @@ CASES = {
     "whisper-141": ("whisper-small", M141, False, {}),
     "internvl2-141": ("internvl2-1b", M141, False, {}),
 }
+# the cases whose batch is not BATCH: the DP ranks do not divide it
+BATCHES = {"grok-212-b1-drops": 1}
+DROPPING = ("grok-212-drops", "grok-212-b1-drops")  # the cases whose routing drops picks
 LOGIT_ATOL = 2e-5
 
 
@@ -81,27 +88,34 @@ def _cfg(arch, over):
     return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v) for k, v in over.items()})
 
 
-def _write_case_inputs(d, arch):
+def _write_case_inputs(d, arch, batches):
     """The single-device port's ``init(0)`` weights as JAX's flat leaves,
-    and the prompts (a fixed generator), in ``{d}/{arch}.*.npz``."""
+    and the prompts of each batch size (a fixed generator), in
+    ``{d}/{arch}.*.npz``: (weights, {batch: prompts})."""
     cfg = smoke_config(arch)
     model = get_api(cfg, device="cpu").init(0)
     init = os.path.join(d, f"{arch}.params.npz")
     np.savez(init, **{f"params/{k}": a for k, a in params_to_jax(model.state_dict(), cfg).items()})
-    rng = np.random.default_rng(7)
-    inputs = os.path.join(d, f"{arch}.inputs.npz")
-    np.savez(inputs, tokens=rng.integers(0, cfg.vocab_size, size=(BATCH, PROMPT)).astype(np.int64),
-             **modality_inputs(cfg, rng, BATCH))
+    inputs = {}
+    for b in batches:
+        rng = np.random.default_rng(7)
+        inputs[b] = os.path.join(d, f"{arch}.b{b}.inputs.npz")
+        np.savez(inputs[b], tokens=rng.integers(0, cfg.vocab_size, size=(b, PROMPT)).astype(
+            np.int64), **modality_inputs(cfg, rng, b))
     return init, inputs
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("serve_mesh"))
-    files = {a: _write_case_inputs(d, a) for a in sorted({c[0] for c in CASES.values()})}
+    batches = {}
+    for n, c in CASES.items():
+        batches.setdefault(c[0], set()).add(BATCHES.get(n, BATCH))
+    files = {a: _write_case_inputs(d, a, sorted(b)) for a, b in batches.items()}
     sv = lambda fsdp: dict(fsdp=fsdp, max_new=NEW, s_max=S_MAX)  # noqa: E731
     cases = [dict(name=n, arch=a, mesh=m, cfg=over, serve=sv(f), init=files[a][0],
-                  inputs=files[a][1]) for n, (a, m, f, over) in CASES.items()]
+                  inputs=files[a][1][BATCHES.get(n, BATCH)])
+             for n, (a, m, f, over) in CASES.items()]
     procs = [jax_process({"devices": 4, "out": d, "cases": cases[i::2]},
                          os.path.join(d, f"jax{i}.json")) for i in range(2)]
     try:
@@ -121,11 +135,14 @@ def runs(tmp_path_factory):
     return out
 
 
-def _rows(coords, shape):
+def _rows(coords, shape, batch=BATCH):
     """(first row, rows) of the rank at ``coords`` on a mesh of ``shape``
-    (pod, data, model): ``batch_specs``' cut of the batch."""
+    (pod, data, model): ``batch_specs``' cut of a batch of ``batch`` rows
+    (every row where the DP ranks do not divide it)."""
     pod, data = shape[0], shape[1]
-    n = BATCH // (pod * data)
+    if batch % (pod * data):
+        return 0, batch
+    n = batch // (pod * data)
     return dp_index(int(coords[0]), int(coords[1]), data) * n, n
 
 
@@ -133,7 +150,7 @@ def _rows(coords, shape):
 def test_logits_and_tokens_match_jax(runs, name):
     want, ranks = runs[name]
     for res in ranks:
-        r0, n = _rows(res["coords"], CASES[name][1][0])
+        r0, n = _rows(res["coords"], CASES[name][1][0], BATCHES.get(name, BATCH))
         for i in range(NEW):
             got, ref = res[f"logits/{i}"], want[f"logits/{i}"][r0:r0 + n]
             err = np.abs(got - ref).max()
@@ -145,22 +162,25 @@ def test_logits_and_tokens_match_jax(runs, name):
 def test_routing_matches_jax(runs, name):
     """Each MoE layer's top-k experts of every token, and the picks each
     expert kept over the whole batch (the ranks at model coordinate 0, whose
-    rows are the batch)."""
+    rows are the batch; where the DP ranks do not divide the batch, each of
+    them alone)."""
     want, ranks = runs[name]
-    shape = CASES[name][1][0]
+    shape, batch = CASES[name][1][0], BATCHES.get(name, BATCH)
     calls = len([k for k in want if k.startswith("routing/")])
     assert calls == NEW * sum(b for b in _moe_layers(CASES[name][0]))
-    mine = sorted((r for r in ranks if r["coords"][2] == 0), key=lambda r: _rows(r["coords"],
-                                                                                shape)[0])
+    mine = sorted((r for r in ranks if r["coords"][2] == 0),
+                  key=lambda r: _rows(r["coords"], shape, batch)[0])
+    split = _rows(mine[0]["coords"], shape, batch)[1] < batch
     kept_any = False
-    for i in range(calls):
-        idx = np.concatenate([r[f"routing/{i}"] for r in mine])
-        np.testing.assert_array_equal(idx, want[f"routing/{i}"], err_msg=f"{name} call {i}")
-        kept = sum(r[f"kept/{i}"] for r in mine)
-        np.testing.assert_array_equal(kept, want[f"kept/{i}"], err_msg=f"{name} call {i}")
-        kept_any |= kept.sum() < idx.size
-    # the capacity case drops picks; the others drop none
-    assert kept_any == (name == "grok-212-drops")
+    for group in [mine] if split else [[r] for r in mine]:
+        for i in range(calls):
+            idx = np.concatenate([r[f"routing/{i}"] for r in group])
+            np.testing.assert_array_equal(idx, want[f"routing/{i}"], err_msg=f"{name} call {i}")
+            kept = sum(r[f"kept/{i}"] for r in group)
+            np.testing.assert_array_equal(kept, want[f"kept/{i}"], err_msg=f"{name} call {i}")
+            kept_any |= kept.sum() < idx.size
+    # the capacity cases drop picks; the others drop none
+    assert kept_any == (name in DROPPING)
 
 
 def _moe_layers(arch):
@@ -172,15 +192,15 @@ def _moe_layers(arch):
 @pytest.mark.parametrize("name", list(CASES))
 def test_cache_matches_jax(runs, name):
     arch, (shape, axes), _, over = CASES[name]
-    cfg = _cfg(arch, over)
+    cfg, batch = _cfg(arch, over), BATCHES.get(name, BATCH)
     want, ranks = runs[name]
     sizes = dict(zip(axes, shape))
-    shapes = cache_shapes(cfg, BATCH, S_MAX)
+    shapes = cache_shapes(cfg, batch, S_MAX)
     specs = cache_specs(shapes, mesh_layout(shape, axes), cfg)
     sliced = 0
     for res in ranks:
         coords = dict(zip(axes, (int(c) for c in res["coords"])))
-        r0, n = _rows(res["coords"], shape)
+        r0, n = _rows(res["coords"], shape, batch)
         kv0, kv1 = kv_heads(cfg, sizes["model"], coords["model"])
         for key, places in cache_leaves(cfg).items():
             if not isinstance(places, tuple):
@@ -212,7 +232,7 @@ def test_comm_profile_and_decode_traffic(runs):
     for name, (arch, (shape, _), _, over) in CASES.items():
         cfg = _cfg(arch, over)
         api = get_api(cfg, device="cpu")
-        prof = ServeEngine(api, None, batch=BATCH, s_max=S_MAX).comm_profile()
+        prof = ServeEngine(api, None, batch=BATCHES.get(name, BATCH), s_max=S_MAX).comm_profile()
         want = np.asarray([prof[k] for k in sorted(prof)])
         table = cfg.vocab_size * cfg.d_model * 4
         for res in runs[name][1]:
