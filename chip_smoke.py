@@ -593,33 +593,43 @@ def check_wkv6(gen, cfg) -> list:
 
     out = []
     for kernel, what in (("wkv6", "prefill"), ("wkv6_step", "decode")):
-        r, k, v, lw, u, s0 = main[kernel]["args"]
-        out_dtype = main[kernel]["out_dtype"]
-        B, Hh, T, Kk = r.shape
-        ms = time_ms(lambda: wkv6(r, k, v, lw, u, s0, out_dtype=out_dtype))
-        plain_ms = time_ms(lambda: ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=out_dtype),
-                           reps=5 if T >= CHUNK else 30)
-        # bytes: r, k, v, log_w, u and s0 read once; y (fp32) and the final state written once
-        nbytes = ((r.numel() + k.numel() + v.numel()) * r.element_size() + lw.numel() * 4
-                  + u.numel() * 4 + 2 * s0.numel() * 4
-                  + v.numel() * (out_dtype or r.dtype).itemsize)
-        flops = 4.0 * B * Hh * T * Kk * Kk  # k v^T, u-bonus, r.(S + ...), decay: ~4 per (k, v)
-        bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # the recurrence is fp32
-        extra = {}
-        if kernel == "wkv6_step":  # what a copy of the state takes in the same window
-            copy = torch.empty_like(s0)
-            extra["copy_ms"] = time_ms(lambda: copy.copy_(s0))
-        log(f"  {kernel} at the {what} shape (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16 r/k/v, "
-            f"fp32 y): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library: none (no single PyTorch call computes WKV6), "
-            f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.4f} GFLOP fp32, "
-            f"{nbytes / 1e6:.1f} MB)"
-            + (f"; a copy of the state (copy_) {extra['copy_ms']:.4f} ms" if extra else ""))
+        timed = time_wkv6(main[kernel]["args"], main[kernel]["out_dtype"], main[kernel]["err"],
+                          kernel, f"the {what} shape")
         out.append(dict(name=kernel, route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
-                        replaces="src/repro/kernels/rwkv6_wkv.py:37",
-                        max_abs_err=main[kernel]["err"], ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **extra))
+                        replaces="src/repro/kernels/rwkv6_wkv.py:37", **timed))
     return out
+
+
+def time_wkv6(args, out_dtype, err: float, kernel: str, what: str) -> dict:
+    """One WKV6 kernel (the chunked one or the decode step) and its plain
+    version on one checked case, beside the bound; the decode step also
+    beside a copy of its state."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import CHUNK, wkv6
+
+    r, k, v, lw, u, s0 = args
+    B, Hh, T, Kk = r.shape
+    ms = time_ms(lambda: wkv6(r, k, v, lw, u, s0, out_dtype=out_dtype))
+    plain_ms = time_ms(lambda: ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=out_dtype),
+                       reps=5 if T >= CHUNK else 30)
+    # bytes: r, k, v, log_w, u and s0 read once; y (fp32) and the final state written once
+    nbytes = ((r.numel() + k.numel() + v.numel()) * r.element_size() + lw.numel() * 4
+              + u.numel() * 4 + 2 * s0.numel() * 4
+              + v.numel() * (out_dtype or r.dtype).itemsize)
+    flops = 4.0 * B * Hh * T * Kk * Kk  # k v^T, u-bonus, r.(S + ...), decay: ~4 per (k, v)
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # the recurrence is fp32
+    extra = {}
+    if kernel == "wkv6_step":  # what a copy of the state takes in the same window
+        copy = torch.empty_like(s0)
+        extra["copy_ms"] = time_ms(lambda: copy.copy_(s0))
+    log(f"  {kernel} at {what} (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16 r/k/v, "
+        f"fp32 y): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library: none (no single PyTorch call computes WKV6), "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.4f} GFLOP fp32, "
+        f"{nbytes / 1e6:.1f} MB)"
+        + (f"; a copy of the state (copy_) {extra['copy_ms']:.4f} ms" if extra else ""))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, **extra)
 
 
 def time_flash_bwd(args, what: str, err: float, library: bool = True,
@@ -1042,12 +1052,24 @@ def check_wkv6_bwd(gen, cfg) -> dict:
         raise AssertionError("wkv6_bwd: two calls on the same inputs differ")
     log("  wkv6_bwd at the training shape: two calls give bit-identical dr, dk, dv, dlog_w, du "
         "and ds0")
-    B, Hh, T, Kk = r.shape
-    ms = time_ms(lambda: wkv6_bwd(*args))
-    plain_ms = time_ms(lambda: ref.wkv6_backward_reference(*args), reps=5)
     split = launch_split(lambda: wkv6_bwd(*args), "wkv6_bwd")
     log("  wkv6_bwd at the training shape, device ms per call by launch (torch.profiler over 5 "
         "back-to-back calls): " + ", ".join(f"{name} {t:.4f}" for name, t in split.items()))
+    return dict(name="wkv6_bwd", route="cuda", source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                replaces="src/repro/kernels/rwkv6_wkv.py:37",
+                **time_wkv6_bwd(args, main["err"], "the training shape"), ms_by_launch=split)
+
+
+def time_wkv6_bwd(args, err: float, what: str) -> dict:
+    """The WKV6 backward kernel and its plain version on one checked case
+    as the model calls it (zero s0, no ds_final), beside the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+
+    r, k, v, lw, u, s0, dy, _ = args
+    B, Hh, T, Kk = r.shape
+    ms = time_ms(lambda: wkv6_bwd(*args))
+    plain_ms = time_ms(lambda: ref.wkv6_backward_reference(*args), reps=5)
     # bytes: r, k, v, log_w, u, s0 and dy read once (no ds_final); dr, dk, dv,
     # dlog_w, du and ds0 written once
     nbytes = (2 * (r.numel() + k.numel() + v.numel()) * r.element_size() + 2 * lw.numel() * 4
@@ -1056,14 +1078,12 @@ def check_wkv6_bwd(gen, cfg) -> dict:
     # per token and state entry: S rebuilt (3), S dy (2), G v (2), G^T k (2), G updated (3)
     flops = 12.0 * B * Hh * T * Kk * Kk
     bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # the recurrence is fp32
-    log(f"  wkv6_bwd at the training shape (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16 r/k/v, fp32 dy, "
+    log(f"  wkv6_bwd at {what} (B={B}, H={Hh}, T={T}, K=V={Kk}, bf16 r/k/v, fp32 dy, "
         f"zero s0, no ds_final): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none "
         f"(no single PyTorch call computes WKV6's gradient), bound {bound_ms:.4f} ms by "
         f"{bound_by} ({flops / 1e9:.2f} GFLOP fp32, {nbytes / 1e6:.1f} MB)")
-    return dict(name="wkv6_bwd", route="cuda", source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
-                replaces="src/repro/kernels/rwkv6_wkv.py:37",
-                max_abs_err=main["err"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, ms_by_launch=split)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -2449,46 +2469,63 @@ def tp_ranks(cards: int, smi: str) -> dict:
 def tp_launch_counts() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 
+    if wkv6.launches != wkv6.chunk_launches + wkv6.step_launches:
+        raise AssertionError(f"wkv6.launches {wkv6.launches} is not the sum of its kernels'")
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention_bwd.launches,
-            "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches}
+            "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches,
+            "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches,
+            "wkv6_bwd": wkv6_bwd.launches}
 
 
 def tp_zero_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 
     flash_attention.launches = flash_attention_bwd.launches = 0
     rmsnorm.launches = rmsnorm_bwd.launches = 0
+    wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = wkv6_bwd.launches = 0
 
 
 def tp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
     """qwen2.5-14b at full width cut to TP_REF_LAYERS layers in fp32, one
-    row of TRAIN_REF_SEQ tokens: one hierarchical step with ZeRO-1 on the
-    model axis against the single-device ``train_step`` on the same card
-    from the same seed (``init_state`` gives each rank its slices of the
-    weights ``api.init`` draws).  Each rank holds its slices: the loss, the
-    grad norm, the parameters where |g| > 1e-3 max|g| of the leaf, and the
-    gradient read from its moment slice within 1e-3 max|g|.  With
-    ``sequential`` (ranks sharing a card) the ranks build the reference one
-    after the other.  Returns the kernels' launches of the step."""
+    row of TRAIN_REF_SEQ tokens, one hierarchical step with ZeRO-1
+    (:func:`model_axis_step_check`).  Returns the kernels' launches of the
+    step."""
     from repro_torch import configs
-    from repro_torch.models import get_api
-    from repro_torch.train.data import DataConfig, SyntheticData
-    from repro_torch.train.optimizer import OptConfig, adamw_init
-    from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step, \
-        train_step
+    from repro_torch.train.trainstep import TrainHparams
 
     cfg = configs.get_config(TP_ARCH).replace(num_layers=TP_REF_LAYERS, param_dtype="float32",
                                               compute_dtype="float32")
-    batch = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=1, seq=TRAIN_REF_SEQ),
+    return model_axis_step_check(mesh, rank, world, sequential, cfg,
+                                 TrainHparams(hierarchical=True, zero1=True), 1)
+
+
+def model_axis_step_check(mesh, rank: int, world: int, sequential: bool, cfg, hp,
+                          rows: int) -> dict:
+    """``cfg`` (fp32), ``rows`` rows of TRAIN_REF_SEQ tokens (and the
+    family's frames or patches): one step ``hp`` on the mesh against the
+    single-device ``train_step`` on the same card from the same seed
+    (``init_state`` gives each rank its slices of the weights ``api.init``
+    draws) on the same global batch.  Each rank holds its slices: the loss,
+    the grad norm, the parameters where |g| > 1e-3 max|g| of the leaf, and
+    the gradient read from its moment shard within 1e-3 max|g|.  With
+    ``sequential`` (ranks sharing a card) the ranks build the reference one
+    after the other.  Returns the kernels' launches of the step."""
+    from repro_torch.models import get_api
+    from repro_torch.train.data import DataConfig, SyntheticData
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainstep import batch_to_torch, make_train_step, train_step
+
+    batch = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=rows, seq=TRAIN_REF_SEQ),
                           model_cfg=cfg).batch_at(0)
     opt = OptConfig(**TRAIN_OPT)
     b1, dev = opt.beta1, mesh.device
     t0 = time.perf_counter()
-    step = make_train_step(get_api(cfg, dev, mesh=mesh), cfg, opt, mesh,
-                           TrainHparams(hierarchical=True, zero1=True), batch)
+    step = make_train_step(get_api(cfg, dev, mesh=mesh), cfg, opt, mesh, hp, batch)
     # the reference first, keeping this rank's slices of its parameters and
     # moments (the whole model, its gradients and moments are 16 bytes a
     # parameter: ranks sharing a card take turns)
@@ -2505,8 +2542,11 @@ def tp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
         g_of = (1 - b1) * min(1.0, opt.clip_norm / max(ref["grad_norm"], 1e-9))
         for (key, p_ref), (_, m_ref) in zip(jax_keyed(dict(model.named_parameters()), cfg),
                                             jax_keyed(opt_state["m"], cfg)):
+            # the parameters' model slice (whole over the data axes without
+            # fsdp) and its gradient, and the rank's shard of that gradient
             keep[key] = (step.model_slice(key, p_ref).clone(),
-                         step.model_slice(key, m_ref) / g_of, (m_ref.abs().max() / g_of).item())
+                         step.model_slice(key, m_ref) / g_of, step.shard(key, m_ref) / g_of,
+                         (m_ref.abs().max() / g_of).item())
         del model, opt_state, p_ref, m_ref
         torch.cuda.empty_cache()
     if sequential:
@@ -2525,22 +2565,22 @@ def tp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
     for key, names in step.leaves.items():
         mine = (torch.stack([named[n] for n in names]) if isinstance(names, tuple)
                 else named[names])
-        p_ref, g_ref, top = keep.pop(key)
+        p_ref, g_ref, g_shard, top = keep.pop(key)
         big = g_ref.abs() > 1e-3 * top
         if big.any():
             p_err = max(p_err, (mine - p_ref)[big].abs().max().item())
-        g = state["opt"]["m"][key] / g_tp  # data 1: the moments are the model slice
-        g_err = max(g_err, ((g - g_ref).abs().max() / (1e-3 * top)).item())
-        del mine, p_ref, g_ref
+        g = state["opt"]["m"][key] / g_tp  # the rank's shard of the moments
+        g_err = max(g_err, ((g - g_shard).abs().max() / (1e-3 * top)).item())
+        del mine, p_ref, g_ref, g_shard
     loss_err = abs(metrics["loss"] - ref["loss"]) / abs(ref["loss"])
     norm_err = abs(metrics["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
     ok = (loss_err <= 1e-5 and norm_err <= 1e-4 and p_err <= 1e-2 * lr
           and g_err <= 1)
     log(f"rank {rank} of mesh {tuple(mesh.shape)} ({mesh.device}): {cfg.name} at full width cut "
-        f"to {cfg.num_layers} layers, fp32, 1 x {TRAIN_REF_SEQ} tokens; holds {held / 1e9:.3f} B "
-        f"of {sum(int(np.prod(s)) for s in step.shapes.values()) / 1e9:.3f} B parameters; the "
-        f"reference {t1 - t0:.1f} s, init_state and the step {t2 - t1:.1f} s (first call); "
-        f"hierarchical step with ZeRO-1 "
+        f"to {cfg.num_layers} layers, fp32, {rows} x {TRAIN_REF_SEQ} tokens; holds "
+        f"{held / 1e9:.3f} B of {sum(int(np.prod(s)) for s in step.shapes.values()) / 1e9:.3f} B "
+        f"parameters; the reference {t1 - t0:.1f} s, init_state and the step {t2 - t1:.1f} s "
+        f"(first call); {'hierarchical' if hp.hierarchical else 'flat'} step with ZeRO-1 "
         f"vs the single-device train_step on the card: loss {metrics['loss']:.6f} / "
         f"{ref['loss']:.6f} (rel err {loss_err:.3g}, tol 1e-5), grad norm "
         f"{metrics['grad_norm']:.6g} / {ref['grad_norm']:.6g} (rel err {norm_err:.3g}, tol 1e-4), "
@@ -2556,22 +2596,27 @@ def tp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
     return launches
 
 
-def tp_train(mesh, rank: int, world: int) -> dict:
-    """Full qwen2.5-14b in bf16 on the model axis (one rank a card), batch
-    TRAIN_BATCH x TRAIN_SEQ of the affine data, TRAIN_STEPS hierarchical
-    steps with ZeRO-1: step ms (median of steps 1..), tok/s, peak memory a
-    rank, the kernels' launches a step against the path's, ``comm`` per
-    axis.  Full depth; a cut would be printed.  Returns the launches."""
+def tp_train(mesh, rank: int, world: int, cfg=None) -> dict:
+    """Full ``cfg`` (qwen2.5-14b by default) in bf16 on the mesh (one rank
+    a card), batch TRAIN_BATCH x TRAIN_SEQ (whisper: TRAIN_TEXT) of the
+    affine data, TRAIN_STEPS hierarchical steps with ZeRO-1: step ms
+    (median of steps 1..), tok/s, peak memory a rank, the kernels' launches
+    a step against the path's, ``comm`` per axis, the model axis's
+    collectives of a step by kind and shape, and (other than qwen2.5-14b,
+    whose step is split by :func:`tp_step_parts`) the device's busy and
+    idle time in one profiled step.  Full depth; a cut would be printed.
+    Returns the launches."""
     from repro_torch import configs
     from repro_torch.models import get_api
     from repro_torch.train.data import DataConfig, SyntheticData
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step
 
-    cfg = configs.get_config(TP_ARCH)
+    cfg = cfg or configs.get_config(TP_ARCH)
+    seq = TRAIN_TEXT.get(cfg.name, TRAIN_SEQ)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq=seq,
                                     mode="affine"), model_cfg=cfg)
     step = make_train_step(get_api(cfg, mesh.device, mesh=mesh), cfg, OptConfig(**TRAIN_OPT),
                            mesh, TrainHparams(hierarchical=True, zero1=True), data.batch_at(0))
@@ -2582,7 +2627,8 @@ def tp_train(mesh, rank: int, world: int) -> dict:
     if rank == 0:
         log(f"{cfg.name}: {cfg.num_layers} layers (full depth), bf16, {held / 1e9:.3f} B of "
             f"{sum(int(np.prod(s)) for s in step.shapes.values()) / 1e9:.3f} B parameters a rank, "
-            f"initialised in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+            f"initialised in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x {seq} on mesh "
+            f"{tuple(mesh.shape)}")
     batches = [batch_to_torch(data.batch_at(i), mesh.device) for i in range(TRAIN_STEPS)]
     tp_zero_counts()
     losses, ms = [], []
@@ -2602,7 +2648,8 @@ def tp_train(mesh, rank: int, world: int) -> dict:
     # the last step's collectives, before tp_step_parts' pass adds to them
     comm, calls = json.loads(json.dumps(step.comm)), step.axis.log
     step.axis.log = None
-    parts = tp_step_parts(step, state, batches[0], med)
+    parts = (tp_step_parts(step, state, batches[0], med) if cfg.name == TP_ARCH
+             else step_busy(step, state, batches[0], med))
     if rank == 0:
         log(parts)
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
@@ -2618,7 +2665,7 @@ def tp_train(mesh, rank: int, world: int) -> dict:
                         sorted(by_kind.items(), key=lambda kv: -kv[1][1])))
         log(f"losses {[round(x, 4) for x in losses]}")
         log(f"step {med:.1f} ms (median of steps 1..{TRAIN_STEPS - 1}; step 0 {ms[0]:.1f} ms), "
-            f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tok/s, peak device memory {peak:.2f} GiB "
+            f"{TRAIN_BATCH * seq / med * 1e3:.0f} tok/s, peak device memory {peak:.2f} GiB "
             f"on rank 0; launches per step {per_step}; collectives per step (calls, bytes handed "
             f"in) {comm}")
     peaks = [torch.zeros((), device=mesh.device) for _ in range(world)]
@@ -2630,6 +2677,28 @@ def tp_train(mesh, rank: int, world: int) -> dict:
     if per_step != want:
         raise AssertionError(f"kernel launches per step {per_step} != {want} implied by the path")
     return launches
+
+
+def step_busy(step, state, batch, step_ms: float) -> str:
+    """The device's busy time in one profiled step (torch.profiler; the
+    collective kernels, which wait for the other ranks, left out) against
+    the unprofiled median step: its idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return "profile of a step: no device events (busy and idle not measured)"
+    coll = sum(e.time_range.elapsed_us() for e in kern if "nccl" in e.name.lower()) / 1e3
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 - coll
+    return (f"profile of one step: {len(kern)} kernels, device busy {busy:.1f} ms, idle share "
+            f"{1 - busy / step_ms:.3f} of the unprofiled {step_ms:.1f} ms (collective kernels "
+            f"{coll:.1f} ms from launch to end, left out of the busy time)")
 
 
 def tp_step_parts(step, state, batch, step_ms: float) -> str:
@@ -3108,33 +3177,80 @@ def greedy_run(api, model, inputs: dict, new: int, mesh=None, routed=None) -> tu
     return torch.stack(steps, 1), toks
 
 
+def cache_leaf_kind(cfg, key: str, shape) -> str:
+    """What a rank of the model axis holds of JAX's cache leaf ``key``
+    (stacked ``shape``): ``kv`` (the kv heads its query heads read), ``wkv``
+    (its heads' WKV states), ``mamba`` (its channels' states), or whole:
+    ``x_prev`` (the token shift reads all of d), ``enc`` (every frame feeds
+    its heads), ``mla`` (the latents)."""
+    from repro_torch.models.transformer import layer_plan
+
+    if key == "enc":
+        return "enc"
+    parts = key.split("/")
+    if parts[0] == "kv":  # whisper's decoder self-attention
+        return "kv"
+    plan = layer_plan(cfg)
+    spec = plan.prologue[0] if parts[0] == "pro" else plan.unit[int(parts[1][1:])]
+    if spec.kind == "rwkv":
+        return "wkv" if parts[-1] == "1" else "x_prev"
+    if spec.kind == "mamba":
+        return "mamba"
+    return "kv" if len(shape) == 5 else "mla"
+
+
 def cache_bytes(api, mesh, rows: int, s_max: int) -> tuple:
     """(a rank's cache bytes, the bytes ``cache_specs`` gives it, the bytes
-    the port's rule gives it: its rows, and of a GQA layer's k and v the kv
-    heads ``kv0 .. kv1`` its query heads read, whole; MLA's latents whole)."""
+    the port's rule gives it, and by :func:`cache_leaf_kind` (the rule's
+    bytes, ``cache_specs``')): its rows, and of a GQA layer's k and v the kv
+    heads ``kv0 .. kv1`` its query heads read, whole; of an rwkv layer's
+    WKV state its heads', of a Mamba layer's states its channels'; MLA's
+    latents, the token-shift states and whisper's ``enc`` whole."""
     from repro_torch.dist.sharding import cache_specs, mesh_axis_sizes, spec_slice
     from repro_torch.models.attention import kv_heads
-    from repro_torch.models.convert import cache_shapes
+    from repro_torch.models.convert import cache_leaves, cache_shapes
+    from repro_torch.models.rwkv import local_heads, rwkv_dims
+    from repro_torch.models.ssm import local_channels, mamba_dims
     from repro_torch.serve.engine import _tensors
 
     cfg, sizes, coords = api.cfg, mesh_axis_sizes(mesh), mesh.coords()
-    held = sum(t.nbytes for t in _tensors(api.init_cache(rows, s_max)))
+    cache = api.init_cache(rows, s_max)
+    held = sum(t.nbytes for t in _tensors(cache))
     shapes = cache_shapes(cfg, rows, s_max)
-    kv0, kv1 = kv_heads(cfg, sizes["model"], coords["model"])
+    m = sizes["model"]
+    kv0, kv1 = kv_heads(cfg, m, coords["model"])
 
-    def nbytes(shape, spec):  # of the rank's block of a leaf cut as spec
-        return cfg.cdtype.itemsize * int(np.prod(
+    def nbytes(shape, spec, size):  # of the rank's block of a leaf cut as spec
+        return size * int(np.prod(
             [len(range(n)[sl]) for n, sl in zip(shape, spec_slice(spec, shape, sizes, coords))]))
 
     implied = rule = 0
+    by_kind = {}
+    places = cache_leaves(cfg)
     for key, spec in cache_specs(shapes, mesh, cfg).items():
         if not shapes[key]:
             continue
-        implied += nbytes(shapes[key], spec)
-        rows_share = nbytes(shapes[key], tuple(None if a == "model" else a for a in spec))
-        gqa = len(shapes[key]) == 5 and shapes[key][3] == cfg.num_kv_heads
-        rule += rows_share * (kv1 - kv0) // cfg.num_kv_heads if gqa else rows_share
-    return held, implied, rule
+        i, j = (None, None) if key == "enc" else places[key][0]
+        size = (cache["enc"] if key == "enc" else cache["layers"][i][j]).element_size()
+        kind = cache_leaf_kind(cfg, key, shapes[key])
+        block = nbytes(shapes[key], spec, size)
+        share = nbytes(shapes[key], tuple(None if a == "model" else a for a in spec), size)
+        if kind == "kv":
+            share = share * (kv1 - kv0) // cfg.num_kv_heads
+        elif kind == "wkv":
+            share = share * local_heads(cfg, m) // rwkv_dims(cfg)[1]
+        elif kind == "mamba":
+            share = share * local_channels(cfg, m) // mamba_dims(cfg)[1]
+        implied, rule = implied + block, rule + share
+        k = by_kind.setdefault(kind, [0, 0])
+        k[0], k[1] = k[0] + share, k[1] + block
+    return held, implied, rule, by_kind
+
+
+def cache_multiples(by_kind: dict) -> str:
+    """A rank's cache bytes against ``cache_specs``' by leaf kind."""
+    return ", ".join(f"{kind} {held:,} B / {spec:,} B ({held / spec:.2f}x)"
+                     for kind, (held, spec) in sorted(by_kind.items()))
 
 
 def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: bool) -> dict:
@@ -3148,12 +3264,13 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
     ``sequential`` (ranks sharing a card) the ranks build the reference one
     after the other.  Returns the kernels' launches of the rank's run."""
     from repro_torch.dist.sharding import rows_of
-    from repro_torch.models import get_api
+    from repro_torch.models import get_api, modality_inputs
 
     dev = mesh.device
     new = SERVE_TP_NEW_FSDP if fsdp else SERVE_TP_NEW
     rng = np.random.default_rng(2)
     tokens = rng.integers(0, cfg.vocab_size, size=(world, SERVE_TP_PROMPT)).astype(np.int64)
+    inputs = {"tokens": tokens, **modality_inputs(cfg, rng, world)}
     r0, n = rows_of(world, mesh)
     t0 = time.perf_counter()
     ref = None
@@ -3165,7 +3282,7 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
         whole = get_api(cfg, dev)
         model = whole.init(seed=1)
         routed_ref = []
-        logits, toks = greedy_run(whole, model, {"tokens": tokens}, new, routed=routed_ref)
+        logits, toks = greedy_run(whole, model, inputs, new, routed=routed_ref)
         ref = (logits[r0:r0 + n].cpu(), toks, routed_ref)
         del model, logits
         torch.cuda.empty_cache()
@@ -3177,7 +3294,7 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
     held = sum(p.numel() for p in model.parameters())
     tp_zero_counts()
     routed = []
-    logits, toks = greedy_run(api, model, {"tokens": tokens}, new, mesh, routed)
+    logits, toks = greedy_run(api, model, inputs, new, mesh, routed)
     launches = tp_launch_counts()
     t2 = time.perf_counter()
     err = (logits.cpu() - ref[0]).abs().max().item()
@@ -3187,7 +3304,7 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
                for t in ref[2]]
     differ = sum(int((a != b).sum()) for a, b in zip(routed, per_row))
     same_calls = [tuple(a.shape) for a in routed] == [tuple(b.shape) for b in per_row]
-    held_b, implied_b, rule_b = cache_bytes(api, mesh, world, SERVE_TP_PROMPT + new)
+    held_b, implied_b, rule_b, by_kind = cache_bytes(api, mesh, world, SERVE_TP_PROMPT + new)
     ok = (err <= SERVE_TP_TOL and np.array_equal(toks, ref[1]) and same_calls and differ == 0
           and held_b == rule_b)
     log(f"rank {rank} of mesh {tuple(mesh.shape)} ({dev}): {cfg.name}, {cfg.num_layers} layers"
@@ -3200,7 +3317,8 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
         + (f", routing decisions that differ {differ} of {sum(a.numel() for a in routed)}"
            if cfg.moe else "")
         + f"; cache {held_b:,} B a rank, cache_specs gives {implied_b:,} B "
-        f"({held_b / implied_b:.2f}x; by the rule {rule_b:,} B); comm of generate "
+        f"({held_b / implied_b:.2f}x; by the rule {rule_b:,} B; by leaf: "
+        f"{cache_multiples(by_kind)}); comm of generate "
         f"{api.axis.comm if api.axis is not None else {}}: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"rank {rank}: sharded serving of {cfg.name} disagrees with the "
@@ -3210,21 +3328,23 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
     return launches
 
 
-def serve_tp_full(mesh, rank: int, world: int, cfg) -> dict:
-    """``cfg`` in bf16 at TP ``world`` (one rank a card), batch SERVE_BATCH
-    x PROMPT_LEN + MAX_NEW through ``ServeEngine.generate``: prefill ms,
-    decode ms/token, tok/s and peak memory on every rank, the kernels'
-    launches against the path's, the model axis's collectives of a prefill
-    and of a decode step by kind and shape (``ModelAxis.log``), and what the
-    step's collectives cost alone (:func:`collective_costs`).  The peak is
-    read twice: while the rank's slices are drawn (each module is drawn
-    whole on the card, then cut) and while serving.  For qwen2.5-14b, rank
-    0 then serves the whole model on its card from the same seed and the
-    greedy tokens of both are compared (recorded, not held).  Returns the
-    launches."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
-    from repro_torch.models import get_api
+def serve_tp_full(mesh, rank: int, world: int, cfg, one_card: bool = False) -> dict:
+    """``cfg`` in bf16 on ``mesh`` (one rank a card), batch SERVE_BATCH x
+    the path's prompt (PROMPT_LEN; whisper's 1500 frames and SERVE_PROMPT,
+    internvl2's patches first) + MAX_NEW through ``ServeEngine.generate``:
+    prefill ms, decode ms/token, tok/s and peak memory on every rank, the
+    kernels' launches against the path's, the model axis's collectives of
+    a prefill and of a decode step by kind and shape (``ModelAxis.log``),
+    what the step's collectives cost alone (:func:`collective_costs`), a
+    profile of the device's busy and idle time, and the rank's cache
+    against ``cache_specs``'.  The peak is read twice: while the rank's
+    slices are drawn (each module is drawn whole on the card, then cut)
+    and while serving.  With ``one_card``, rank 0 then serves the whole
+    model on its card from the same seed and the greedy tokens of both are
+    compared (recorded, not held).  Returns the launches."""
+    from repro_torch.dist.sharding import rows_of
+    from repro_torch.models import get_api, modality_inputs
+    from repro_torch.models.registry import model_class
     from repro_torch.serve.engine import ServeEngine
 
     dev = mesh.device
@@ -3236,32 +3356,41 @@ def serve_tp_full(mesh, rank: int, world: int, cfg) -> dict:
     torch.cuda.synchronize()
     held = sum(p.numel() for p in model.parameters())
     init_peak = torch.cuda.max_memory_allocated() / 2**30
+    prompt = SERVE_PROMPT.get(cfg.name, PROMPT_LEN)
     rng = np.random.default_rng(0)
-    tokens = rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int64)
+    tokens = rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, prompt)).astype(np.int64)
+    inputs = {"tokens": tokens, **modality_inputs(cfg, rng, SERVE_BATCH)}
+    s_max = prompt + MAX_NEW
     if rank == 0:
-        log(f"{cfg.name}: {cfg.num_layers} layers, {str(cfg.pdtype)[6:]}, {held / 1e9:.3f} B "
-            f"parameters a rank, initialised in {time.perf_counter() - t0:.1f} s (peak "
-            f"{init_peak:.2f} GiB while drawing); batch {SERVE_BATCH} x {PROMPT_LEN} + {MAX_NEW}")
+        whole = sum(p.numel() for p in model_class(cfg)(cfg, torch.device("meta")).parameters())
+        log(f"{cfg.name}: {cfg.num_layers} layers"
+            + (f", {cfg.moe.num_experts} experts" if cfg.moe else "")
+            + f", {str(cfg.pdtype)[6:]}, {held / 1e9:.3f} B parameters a rank of the whole "
+            f"model's {whole / 1e9:.3f} B (param_counts() {cfg.param_counts()[0] / 1e9:.3f} B, "
+            f"without norms and biases), initialised in {time.perf_counter() - t0:.1f} s (peak "
+            f"{init_peak:.2f} GiB while drawing); batch {SERVE_BATCH} x {prompt} + {MAX_NEW}"
+            + (f" after {cfg.encoder_seq} frames" if cfg.family == "audio" else "")
+            + (f" after {cfg.vision_tokens} patches" if cfg.family == "vlm" else ""))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=PROMPT_LEN + MAX_NEW, mesh=mesh)
-    eng.generate({"tokens": tokens[:, :64]}, max_new_tokens=2)  # warm-up
+    eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=s_max, mesh=mesh)
+    eng.generate(dict(inputs, tokens=tokens[:, :64]), max_new_tokens=2)  # warm-up
     torch.distributed.barrier()
-    flash_attention.launches = rmsnorm.launches = 0
+    tp_zero_counts()
     t0 = time.perf_counter()
-    out = eng.generate({"tokens": tokens}, max_new_tokens=MAX_NEW)
+    out = eng.generate(inputs, max_new_tokens=MAX_NEW)
     total_s = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches, "rmsnorm": rmsnorm.launches}
+    launches = {k: n for k, n in tp_launch_counts().items() if not k.endswith("_bwd")}
     peak = torch.cuda.max_memory_allocated() / 2**30
     t = eng.timing
     prefill_ms, decode_ms = t["prefill_s"] * 1e3, t["decode_s"] * 1e3 / t["decode_steps"]
     # the model axis's collectives of one prefill and of one decode step
+    local = {k: torch.from_numpy(v).to(dev) for k, v in eng.local_inputs(inputs).items()}
     calls = {}
     with torch.inference_mode():
-        cache = api.init_cache(SERVE_BATCH, PROMPT_LEN + 1)
+        cache = api.init_cache(SERVE_BATCH, s_max)
         api.axis.log = []
-        logits, cache = api.prefill(model, {"tokens": torch.from_numpy(tokens).to(dev)}, cache,
-                                    last_only=True)
+        logits, cache = api.prefill(model, local, cache, last_only=True)
         calls["prefill"], api.axis.log = api.axis.log, []
         logits, cache = api.decode(model, logits[:, -1].argmax(-1)[:, None], cache)
         calls["decode step"], api.axis.log = api.axis.log, None
@@ -3269,11 +3398,14 @@ def serve_tp_full(mesh, rank: int, world: int, cfg) -> dict:
     peaks = [torch.zeros((), device=dev) for _ in range(world)]
     torch.distributed.all_gather(peaks, torch.tensor(peak, device=dev))
     want = {k: v for k, v in expected_launches(cfg).items() if k in launches}
+    held_b, implied_b, _, by_kind = cache_bytes(api, mesh, SERVE_BATCH, s_max)
     if rank == 0:
         log(f"generated {out.shape}: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} "
             f"ms/token, {SERVE_BATCH * MAX_NEW / total_s:.1f} tok/s over {total_s:.3f} s; "
             f"launches {launches} (the path's {want}); peak device memory per rank "
-            f"{[round(p.item(), 2) for p in peaks]} GiB")
+            f"{[round(p.item(), 2) for p in peaks]} GiB; cache {held_b:,} B a rank, "
+            f"cache_specs gives {implied_b:,} B ({held_b / implied_b:.2f}x; by leaf: "
+            f"{cache_multiples(by_kind)})")
         for part, logged in calls.items():
             by = {}
             for what, shape, nbytes in logged:
@@ -3287,32 +3419,35 @@ def serve_tp_full(mesh, rank: int, world: int, cfg) -> dict:
     costs = collective_costs(api.axis, cfg)
     if rank == 0:
         log(costs)
-    # every rank takes part (the collectives); rank 0's log is the one printed
-    profile_phases(api, model, {"tokens": torch.from_numpy(tokens).to(dev)}, decode_ms)
+    # every rank takes part (the collectives); rank 0's log is the one printed;
+    # the cache is the whole batch's on a mesh (its rows are the rank's)
+    profile_phases(dataclasses.replace(api, init_cache=lambda b, s: api.init_cache(SERVE_BATCH, s)),
+                   model, local, decode_ms)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} implied by the path")
     if out.shape != (SERVE_BATCH, MAX_NEW) or out.min() < 0 or out.max() >= cfg.vocab_size \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"generated ids out of range or logits not finite: {out.shape}")
     del eng
-    if cfg.name == TP_ARCH:
-        tp_logits, tp_toks = greedy_run(api, model, {"tokens": tokens}, MAX_NEW, mesh)
+    if one_card:
+        tp_logits, tp_toks = greedy_run(api, model, inputs, MAX_NEW, mesh)
         del model
         torch.cuda.empty_cache()
         torch.distributed.barrier()
         if rank == 0:  # the whole model on this card, from the same seed
             whole = get_api(cfg, dev)
             one = whole.init(seed=0)
-            one_logits, one_toks = greedy_run(whole, one, {"tokens": tokens}, MAX_NEW)
+            one_logits, one_toks = greedy_run(whole, one, inputs, MAX_NEW)
+            r0, n = rows_of(SERVE_BATCH, mesh)
             agree = tp_toks == one_toks
             steps = agree.all(0)
             first = int(np.argmin(steps)) if not steps.all() else None
             upto = MAX_NEW if first is None else first + 1
-            gap = (tp_logits[:, :upto] - one_logits[:, :upto]).abs().max().item()
-            log(f"greedy tokens at TP {world} against the whole model on one card (same "
-                f"seed): {int(agree.sum())} of {agree.size} agree; the first step at which a "
-                f"row parts: {first}; the largest logit gap up to it {gap:.4g} (max|logit| "
-                f"{one_logits.abs().max().item():.4g}); recorded, not held")
+            gap = (tp_logits[:, :upto] - one_logits[r0:r0 + n, :upto]).abs().max().item()
+            log(f"greedy tokens on mesh {tuple(mesh.shape)} against the whole model on one card "
+                f"(same seed): {int(agree.sum())} of {agree.size} agree; the first step at which "
+                f"a row parts: {first}; the largest logit gap of rank 0's rows up to it "
+                f"{gap:.4g} (max|logit| {one_logits.abs().max().item():.4g}); recorded, not held")
             del one, whole
             torch.cuda.empty_cache()
         torch.distributed.barrier()
@@ -3394,7 +3529,7 @@ def serve_tp_rank(rank: int, world: int, backend: str, workdir: str) -> int:
             tp = meshes[(1, 1, world)]
             qwen = configs.get_config(TP_ARCH)
             launched[f"serve_tp {qwen.name} bf16, mesh {tp.shape}"] = \
-                serve_tp_full(tp, rank, world, qwen)
+                serve_tp_full(tp, rank, world, qwen, one_card=True)
             deepseek = configs.get_config("deepseek-v3-671b").replace(
                 num_layers=SERVE_LAYERS["deepseek-v3-671b"])
             launched[f"serve_tp {deepseek.name} ({deepseek.num_layers} layers) bf16, mesh "
@@ -3405,6 +3540,269 @@ def serve_tp_rank(rank: int, world: int, backend: str, workdir: str) -> int:
         return 0
     finally:
         shutdown()
+
+
+TPF_RANK_TIMEOUT_S = 1500
+TPF_REF_LAYERS = 2  # the fp32 checks' cut of rwkv6-1.6b and internvl2-1b, whisper-small's 2 + 2
+TPF_REF_EXPERTS = 2  # jamba's fp32 check: one unit with 2 of its 16 experts (10.9 B parameters)
+TPF_VLM_MESH = (1, 2, 2)  # internvl2-1b's bf16 run: its 14 query heads do not divide 4
+
+
+def tp_families_ranks(cards: int, smi: str) -> dict:
+    """The ``tp_families:`` phase: the model axis of rwkv6, jamba's Mamba
+    mixers, whisper and the VLM, ranks each this script with
+    ``--tp-families-rank`` (:func:`tp_families_rank`).  On one card two
+    ranks over gloo with CUDA tensors, mesh (1, 1, 2): a check, not the
+    launcher's path.  On a host of 4 or more cards four ranks over NCCL,
+    one a card: the checks at (1, 1, 4) and (1, 2, 2), then the bf16 runs.
+    Returns rank 0's kernel launches per path."""
+    world, backend = (4, "nccl") if cards >= 4 else (2, "gloo")
+    launched = spawn_ranks("--tp-families-rank", world, backend, TPF_RANK_TIMEOUT_S,
+                           "tp_families")
+    log(f"  {smi}")
+    return launched
+
+
+def tp_families_cases(world: int) -> list:
+    """(config, mesh shape) of the fp32 checks: rwkv6-1.6b and internvl2-1b
+    cut to TPF_REF_LAYERS layers, whisper-small to TPF_REF_LAYERS encoder
+    and decoder layers (1500 frames); on 4 cards also jamba's unit with
+    TPF_REF_EXPERTS experts (two such fp32 models do not fit one card), at
+    (1, 1, 4) and (1, 2, 2)."""
+    from repro_torch import configs
+
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    rwkv = configs.get_config("rwkv6-1.6b").replace(num_layers=TPF_REF_LAYERS, **fp32)
+    whisper = configs.get_config(WHISPER_ARCH).replace(
+        num_layers=TPF_REF_LAYERS, encoder_layers=TPF_REF_LAYERS, **fp32)
+    vlm = configs.get_config(VLM_ARCH).replace(num_layers=TPF_REF_LAYERS, **fp32)
+    if world == 2:
+        return [(c, (1, 1, 2)) for c in (rwkv, whisper, vlm)]
+    jamba = configs.get_config(HYBRID_ARCH)
+    jamba = jamba.replace(num_layers=len(jamba.block_pattern), moe=dataclasses.replace(
+        jamba.moe, num_experts=TPF_REF_EXPERTS), **fp32)
+    return [(c, m) for m in ((1, 1, world), (1, 2, world // 2))
+            for c in (rwkv, whisper, vlm, jamba)]
+
+
+def tp_families_rank(rank: int, world: int, backend: str, workdir: str) -> int:
+    """One rank of :func:`tp_families_ranks`: each fp32 check serves
+    (:func:`serve_tp_check`) and, but for jamba, takes one flat step with
+    ZeRO-1 on 2 rows (:func:`model_axis_step_check`); then on 4 cards, in
+    bf16 at full width: jamba's whole unit (8 layers, all 16 experts)
+    served at TP 4, rwkv6-1.6b and whisper-small served and trained at TP
+    4, internvl2-1b served and trained at (1, 2, 2).  Rank 0 writes the
+    launches of each path."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh, shutdown
+    from repro_torch.train.trainstep import TrainHparams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one_card = backend == "gloo"
+    cases = tp_families_cases(world)
+    init = dict(device="cuda:0" if one_card else f"cuda:{rank}",
+                init_method=f"file://{workdir}/store", world_size=world, rank=rank,
+                **({"backend": "gloo"} if one_card else {}))
+    meshes = {}
+    for _, shape in cases:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("pod", "data", "model"), **init)
+    try:
+        what = ("2 ranks on one card over gloo (a check, not the launcher's path)" if one_card
+                else f"{world} ranks over NCCL, one a card")
+        if rank == 0:
+            log(f"meshes (pod, data, model) = {sorted(meshes)}, {what}")
+        launched = {}
+        for cfg, shape in cases:
+            cut = f"{cfg.num_layers}-layer" + (f", {cfg.moe.num_experts}-expert" if cfg.moe else "")
+            launched[f"tp_families {cfg.name} fp32 {cut} serve check, mesh {shape}"] = \
+                serve_tp_check(meshes[shape], rank, world, cfg, False, sequential=one_card)
+            if cfg.family != "hybrid":  # jamba does not train (ROADMAP B.10)
+                launched[f"tp_families {cfg.name} fp32 {cut} train check, mesh {shape}"] = \
+                    model_axis_step_check(meshes[shape], rank, world, one_card, cfg,
+                                          TrainHparams(zero1=True), 2)
+        if not one_card:
+            tp, vm = meshes[(1, 1, world)], meshes[TPF_VLM_MESH]
+            jamba = configs.get_config(HYBRID_ARCH)
+            jamba = jamba.replace(num_layers=len(jamba.block_pattern))
+            launched[f"tp_families {jamba.name} ({jamba.num_layers} layers, "
+                     f"{jamba.moe.num_experts} experts) bf16 serve, mesh {tp.shape}"] = \
+                serve_tp_full(tp, rank, world, jamba)
+            for cfg, mesh in ((configs.get_config("rwkv6-1.6b"), tp),
+                              (configs.get_config(WHISPER_ARCH), tp),
+                              (configs.get_config(VLM_ARCH), vm)):
+                launched[f"tp_families {cfg.name} bf16 serve, mesh {mesh.shape}"] = \
+                    serve_tp_full(mesh, rank, world, cfg, one_card=True)
+                launched[f"tp_families {cfg.name} bf16 train, mesh {mesh.shape}"] = \
+                    tp_train(mesh, rank, world, cfg)
+        if rank == 0:
+            with open(os.path.join(workdir, "launches.json"), "w") as f:
+                json.dump(launched, f)
+        return 0
+    finally:
+        shutdown()
+
+
+def check_rank_shapes(gen) -> dict:
+    """The kernels at the shapes a rank of the model axis gives them on the
+    tp_families paths, each against its plain version at the existing
+    tolerances (bf16 flash attention also against its output's or its
+    gradients' scale) and timed beside its bound and the library call
+    (SDPA with ``enable_gqa``; ``rms_norm``): flash attention at
+    whisper-small's TP-4 encoder, cross- and self-attention (3 of 12 heads)
+    in serving and training, jamba's TP-4 prefill (16 / 2 heads) and
+    internvl2-1b's 2 rows at (1, 2, 2) (7 / 1 heads); WKV6's chunked,
+    decode-step and backward kernels at rwkv6-1.6b's TP-4 shape (8 of 32
+    heads); RMSNorm and its backward at internvl2-1b's 2 rows of 256
+    patches + 1024 tokens and at jamba's d 8192 (the residual stream is
+    whole on every rank).  Returns {kernel: {path: times}}."""
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import _forward, flash_attention, flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
+
+    whisper, vlm = configs.get_config(WHISPER_ARCH), configs.get_config(VLM_ARCH)
+    rwkv, jamba = configs.get_config("rwkv6-1.6b"), configs.get_config(HYBRID_ARCH)
+    enc, nv, K = whisper.encoder_seq, vlm.vision_tokens, rwkv.rwkv.head_dim
+    hw, hj, hkj = whisper.num_heads // 4, jamba.num_heads // 4, jamba.num_kv_heads // 4
+    hv, hkv, hr = vlm.num_heads // 2, vlm.num_kv_heads // 2, rwkv.d_model // K // 4
+    prompt, text, full, bf16 = SERVE_PROMPT[WHISPER_ARCH], WHISPER_CONTEXT, dict(causal=False), \
+        torch.bfloat16
+    out = {}
+
+    def held(what, kernel, got, want, tol) -> list:
+        """The errors of ``got`` against ``want`` (lists of tensors): within
+        ``tol`` as ``torch.allclose`` and within FLASH_BF16_SCALED of max|want|."""
+        errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+        tops = [w.float().abs().max().item() for w in want]
+        ok = all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol) and
+                 e <= FLASH_BF16_SCALED * t for g, w, e, t in zip(got, want, errs, tops))
+        log(f"  {kernel} at {what}: max_abs_err " + " ".join(f"{e:.3g}" for e in errs)
+            + f" (tol {tol}), of max|out| " + " ".join(f"{e / t:.3g}" for e, t in zip(errs, tops))
+            + f" (tol {FLASH_BF16_SCALED:.4g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kernel} disagrees with its plain version at {what}: {errs}")
+        return errs
+
+    for what, B, Hq, Hkv, Sq, Sk, D, kw in (  # flash attention's forward, serving
+            ("whisper-small's TP-4 encoder", SERVE_BATCH, hw, hw, enc, enc, 64, full),
+            ("whisper-small's TP-4 prefill cross-attention", SERVE_BATCH, hw, hw, prompt, enc,
+             64, full),
+            ("whisper-small's TP-4 decode-step cross-attention", SERVE_BATCH, hw, hw, 1, enc, 64,
+             full),
+            ("whisper-small's TP-4 decoder self-attention", SERVE_BATCH, hw, hw, prompt, prompt,
+             64, {}),
+            ("jamba's TP-4 prefill", SERVE_BATCH, hj, hkj, PROMPT_LEN, PROMPT_LEN,
+             jamba.head_dim, {}),
+            ("internvl2-1b's (1, 2, 2) prefill", SERVE_BATCH // 2, hv, hkv, nv + PROMPT_LEN,
+             nv + PROMPT_LEN, 64, {})):
+        q = randn(gen, (B, Sq, Hq, D), bf16).transpose(1, 2)
+        k = randn(gen, (B, Sk, Hkv, D), bf16).transpose(1, 2)
+        v = randn(gen, (B, Sk, Hkv, D), bf16).transpose(1, 2)
+        got, want = flash_attention(q, k, v, **kw), ref.mha_reference(q, k, v, **kw)
+        sync()
+        err, = held(what, "flash_attention", [got], [want], TOL[bf16])
+        out.setdefault("flash_attention", {})[what] = time_flash(
+            dict(q=q, k=k, v=v, err=err), what, **kw)
+        del q, k, v, got, want
+    for what, B, Hq, Hkv, Sq, Sk, D, kw in (  # its backward, training
+            ("whisper-small's TP-4 training encoder", TRAIN_BATCH, hw, hw, enc, enc, 64, full),
+            ("whisper-small's TP-4 training cross-attention", TRAIN_BATCH, hw, hw, text, enc, 64,
+             full),
+            ("whisper-small's TP-4 training decoder self-attention", TRAIN_BATCH, hw, hw, text,
+             text, 64, {}),
+            ("internvl2-1b's (1, 2, 2) training", TRAIN_BATCH // 2, hv, hkv, nv + TRAIN_SEQ,
+             nv + TRAIN_SEQ, 64, {})):
+        q = randn(gen, (B, Sq, Hq, D), bf16).transpose(1, 2)
+        k = randn(gen, (B, Sk, Hkv, D), bf16).transpose(1, 2)
+        v = randn(gen, (B, Sk, Hkv, D), bf16).transpose(1, 2)
+        dout = randn(gen, (B, Sq, Hq, D), bf16).transpose(1, 2)
+        o, lse = _forward(q, k, v, with_lse=True,
+                          **(dict(causal=True, window=None, softcap=None, scale=D ** -0.5) | kw))
+        grads = flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        want = ref.mha_backward_reference(q, k, v, o, lse, dout, **kw)
+        sync()
+        errs = held(what, "flash_attention_bwd", grads, want, BWD_TOL[bf16])
+        out.setdefault("flash_attention_bwd", {})[what] = time_flash_bwd(
+            (q, k, v, o, lse, dout), what, max(errs), **kw)
+        del q, k, v, dout, o, lse, grads, want
+
+    def wkv_inputs(B, T):  # rwkv6-1.6b's rank: r, k, v as the model lays them out
+        r, k, v = (randn(gen, (B, T, hr, K), bf16).transpose(1, 2) for _ in range(3))
+        lw = -torch.exp(randn(gen, (B, T, hr, K), torch.float32)).transpose(1, 2)
+        return r, k, v, lw, randn(gen, (hr, K), torch.float32)
+
+    for kernel, T in (("wkv6", PROMPT_LEN), ("wkv6_step", 1)):
+        r, k, v, lw, u = wkv_inputs(SERVE_BATCH, T)
+        s0 = randn(gen, (SERVE_BATCH, hr, K, K), torch.float32)
+        y, sf = wkv6(r, k, v, lw, u, s0, out_dtype=torch.float32)
+        want_y, want_s = ref.wkv6_reference(r, k, v, lw, u, s0, out_dtype=torch.float32)
+        sync()
+        err = (y - want_y).abs().max().item()
+        s_err = (sf - want_s).abs().max().item()
+        tol = WKV_TOL[torch.bfloat16]
+        ok = (torch.allclose(y, want_y, atol=tol, rtol=tol)
+              and torch.allclose(sf, want_s, atol=WKV_TOL[torch.float32],
+                                 rtol=WKV_TOL[torch.float32]))
+        log(f"  {kernel} at rwkv6-1.6b's TP-4 rank (B={SERVE_BATCH}, H={hr}, T={T}, K=V={K}): "
+            f"max_abs_err y={err:.3g} (tol {tol}), state={s_err:.3g} (tol "
+            f"{WKV_TOL[torch.float32]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kernel} disagrees with its plain version: {err}, {s_err}")
+        out[kernel] = {"rwkv6-1.6b's TP-4 rank": time_wkv6(
+            (r, k, v, lw, u, s0), torch.float32, err, kernel, "rwkv6-1.6b's TP-4 rank")}
+    r, k, v, lw, u = wkv_inputs(TRAIN_BATCH, TRAIN_SEQ)
+    args = (r, k, v, lw, u, torch.zeros((TRAIN_BATCH, hr, K, K), device=DEVICE),
+            randn(gen, (TRAIN_BATCH, TRAIN_SEQ, hr, K), torch.float32).transpose(1, 2), None)
+    errs, abs_err, ok = wkv6_grads_err(wkv6_bwd(*args), ref.wkv6_backward_reference(*args), r)
+    log(f"  wkv6_bwd at rwkv6-1.6b's TP-4 training rank (B={TRAIN_BATCH}, H={hr}, "
+        f"T={TRAIN_SEQ}, K=V={K}): " + " ".join(
+            f"{n}={e:.3g}" for n, e in zip(("dr", "dk", "dv", "dlog_w", "du", "ds0"), errs))
+        + f" (relative to max|g|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"wkv6_bwd disagrees with its plain version: {errs}")
+    out["wkv6_bwd"] = {"rwkv6-1.6b's TP-4 training rank": time_wkv6_bwd(
+        args, abs_err, "rwkv6-1.6b's TP-4 training rank")}
+
+    for kernel, what, rows, d in (
+            ("rmsnorm", "internvl2-1b's (1, 2, 2) prefill rows", SERVE_BATCH // 2 * (nv + PROMPT_LEN),
+             vlm.d_model),
+            ("rmsnorm", "jamba's TP-4 prefill rows", SERVE_BATCH * PROMPT_LEN, jamba.d_model),
+            ("rmsnorm_bwd", "internvl2-1b's (1, 2, 2) training rows",
+             TRAIN_BATCH // 2 * (nv + TRAIN_SEQ), vlm.d_model)):
+        x, g, sc = randn(gen, (rows, d), bf16), randn(gen, (rows, d), bf16), randn(gen, (d,), bf16)
+        tol = TOL[bf16] if kernel == "rmsnorm" else BWD_TOL[bf16]
+        if kernel == "rmsnorm":
+            got, want = [rmsnorm(x, sc)], [ref.rmsnorm_reference(x, sc)]
+            nbytes, flops = 2 * x.numel() * 2 + d * 2, 4.0 * x.numel()
+            fn, plain = (lambda: rmsnorm(x, sc)), (lambda: ref.rmsnorm_reference(x, sc))
+            library = (lambda: F.rms_norm(x, (d,), weight=sc, eps=1e-6))
+        else:
+            got, want = rmsnorm_bwd(x, sc, g), ref.rmsnorm_backward_reference(x, sc, g)
+            nbytes, flops = 3 * x.numel() * 2 + 2 * d * 2, 11.0 * x.numel()
+            xl, sl = x.detach().requires_grad_(), sc.detach().requires_grad_()
+            y = F.rms_norm(xl, (d,), weight=sl, eps=1e-6)
+            fn, plain = (lambda: rmsnorm_bwd(x, sc, g)), \
+                (lambda: ref.rmsnorm_backward_reference(x, sc, g))
+            library = (lambda: torch.autograd.grad(y, (xl, sl), g, retain_graph=True))
+        sync()
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+        # dscale sums `rows` products: its tolerance scales with its largest entry
+        ok = all(torch.allclose(a.float(), b.float(), atol=tol * top, rtol=tol)
+                 for a, b, top in zip(got, want, [1.0, want[-1].float().abs().max().item()]))
+        log(f"  {kernel} at {what} ({rows}, {d}) bf16: max_abs_err "
+            + " ".join(f"{e:.3g}" for e in errs) + f" (tol {tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kernel} disagrees with its plain version at {what}: {errs}")
+        bound_ms, bound_by = bound(nbytes, flops, bf16)
+        t = dict(max_abs_err=max(errs), ms=time_ms(fn), plain_ms=time_ms(plain),
+                 library_ms=time_ms(library), bound_ms=bound_ms, bound_by=bound_by)
+        log(f"  {kernel} at {what}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+        out.setdefault(kernel, {})[what] = t
+    return out
 
 
 def ptxas_report(build_log: str) -> list:
@@ -3459,16 +3857,17 @@ def phase(name) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("dist", "ranks", "tp", "fsdp", "serve_tp"),
+    ap.add_argument("--only", choices=("dist", "ranks", "tp", "fsdp", "serve_tp", "tp_families"),
                     help="the device and build phases, then only the dist phase, its "
-                         "multi-rank check, the tp phase, the fsdp phase or the serve_tp "
-                         "phase")
+                         "multi-rank check, the tp phase, the fsdp phase, the serve_tp "
+                         "phase or the tp_families phase (with its kernels' rank shapes)")
     ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)  # a rank of dist_ranks
     ap.add_argument("--dist-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # a rank of tp_ranks
     ap.add_argument("--fsdp-rank", type=int, help=argparse.SUPPRESS)  # a rank of fsdp_ranks
     ap.add_argument("--serve-tp-rank", type=int, help=argparse.SUPPRESS)  # of serve_tp_ranks
+    ap.add_argument("--tp-families-rank", type=int, help=argparse.SUPPRESS)  # of tp_families_ranks
     ap.add_argument("--rank-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank-backend", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3486,6 +3885,9 @@ def main(argv=None) -> int:
     if args.serve_tp_rank is not None:
         return serve_tp_rank(args.serve_tp_rank, args.rank_world, args.rank_backend,
                              args.dist_dir)
+    if args.tp_families_rank is not None:
+        return tp_families_rank(args.tp_families_rank, args.rank_world, args.rank_backend,
+                                args.dist_dir)
     from repro_torch import configs
     from repro_torch.kernels import build
 
@@ -3508,8 +3910,14 @@ def main(argv=None) -> int:
 
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     if args.only:
-        phase(args.only if args.only in ("tp", "fsdp", "serve_tp") else "dist")
-        if args.only == "dist":
+        phase(args.only if args.only in ("tp", "fsdp", "serve_tp", "tp_families") else "dist")
+        if args.only == "tp_families":
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            log(json.dumps({"rank_shapes": check_rank_shapes(gen)}))
+            del gen
+            torch.cuda.empty_cache()
+            tp_families_ranks(torch.cuda.device_count(), smi)
+        elif args.only == "dist":
             dist_phase(gemma, smi, None)
         elif args.only == "tp":
             tp_ranks(torch.cuda.device_count(), smi)
@@ -3539,8 +3947,10 @@ def main(argv=None) -> int:
     kernels = [check_flash(gen), check_rmsnorm(gen, gemma.d_model), *check_wkv6(gen, rwkv),
                check_flash_bwd(gen), check_rmsnorm_bwd(gen, gemma.d_model),
                check_wkv6_bwd(gen, rwkv)]
+    rank_shapes = check_rank_shapes(gen)
     for k in kernels:
         k["launch_floor_ms"] = floor_ms
+        k["at_model_axis_ranks"] = rank_shapes.get(k["name"], {})
     torch.cuda.empty_cache()
     phase("reference")
     for cfg, cut, full_depth in (
@@ -3596,6 +4006,9 @@ def main(argv=None) -> int:
     phase("serve_tp")
     torch.cuda.empty_cache()
     launched.update(serve_tp_ranks(torch.cuda.device_count(), smi))
+    phase("tp_families")
+    torch.cuda.empty_cache()
+    launched.update(tp_families_ranks(torch.cuda.device_count(), smi))
     # each kernel's launches in the run of the path that drives it; the
     # forward kernels run in serving and training alike
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],

@@ -11,7 +11,9 @@ on those slices in one of two ways:
   The replicated residual stream enters through :func:`copy_to` (identity
   forward, all-reduce of the gradient backward) and the partial sums of a
   row-parallel product leave through :func:`reduce_from` (all-reduce
-  forward, identity backward);
+  forward, identity backward), or, where the rank goes on with its own
+  columns of them, :func:`scatter_from` (reduce-scatter forward, all-gather
+  of the gradient backward);
 * *gathered*: where the slice is not such a set (kv heads cut inside
   ``head_dim``, norm scales and ``embed/tok`` cut along ``d_model``, the
   router's expert columns, MLA's down projections), the leaf is gathered
@@ -120,6 +122,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _ScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return axis.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_gather(g, ctx.dim), None, None
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, axis, whole):
@@ -143,6 +156,13 @@ def reduce_from(x: torch.Tensor, axis: Optional[ModelAxis]) -> torch.Tensor:
     """All-reduce over ``model`` forward, identity backward: the partial
     sums of a local region back onto the residual stream."""
     return x if axis is None else _ReduceFrom.apply(x, axis)
+
+
+def scatter_from(x: torch.Tensor, dim: int, axis: Optional[ModelAxis]) -> torch.Tensor:
+    """Reduce-scatter along ``dim`` forward, all-gather of the gradient
+    backward: this rank's slice of the partial sums of a local region, for
+    a use on that slice alone."""
+    return x if axis is None else _ScatterFrom.apply(x, dim % x.dim(), axis)
 
 
 def gather(x: torch.Tensor, dim: int, axis: Optional[ModelAxis]) -> torch.Tensor:

@@ -21,6 +21,11 @@ rest on the data axes), and rank 0 prints:
       -m repro_torch.launch.serve --arch qwen2.5-14b --smoke --device cpu --model 2
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m repro_torch.launch.serve --arch gemma2-9b --smoke --device cpu --fsdp
+``--model`` takes every family: rwkv6's time mix is head-parallel,
+jamba's Mamba mixers channel-parallel, whisper's attentions and
+cross-attentions and the VLM's projector and LM as the attention models':
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch rwkv6-1.6b --model 4 --batch 4 --prompt-len 1024
 """
 from __future__ import annotations
 

@@ -58,10 +58,13 @@ draws the frames and patches.  jamba-1.5-large-398b does not train yet and
 raises ``NotImplementedError`` (ROADMAP B.10).  At full width one card
 holds whisper-small and internvl2-1b whole; the MoE models only cut
 (``chip_smoke.py`` cuts them), qwen2.5-14b over ``--model 4`` and
-gemma2-9b with ``--fsdp`` over 4 cards.  At ``--model`` > 1 the families
-without tensor parallelism raise (rwkv6, jamba, whisper, internvl2:
-ROADMAP A.10); ``--fsdp`` takes the dense and MoE families (whisper and the
-VLM raise, A.9), and with ``--hierarchical`` one pod (ROADMAP C.9).
+gemma2-9b with ``--fsdp`` over 4 cards.  ``--model`` takes every family
+that trains (rwkv6 head-parallel, whisper and internvl2 as the attention
+families):
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch rwkv6-1.6b --model 4 --hierarchical --zero1 --steps 6 --batch 4 --seq 1024
+``--fsdp`` takes the dense and MoE families (rwkv6, whisper and the VLM
+raise, A.9), and with ``--hierarchical`` one pod (ROADMAP C.9).
 """
 from __future__ import annotations
 

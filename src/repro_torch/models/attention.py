@@ -23,7 +23,8 @@ kernel.  Whisper's cross-attention (:func:`cross_attention`) attends from
 the decoder to the encoder's output, Sq != Sk, always through the kernel
 with ``causal=False``: in prefill and at every decode step, where the
 cross K/V are recomputed from the encoder output as JAX's
-``whisper.decode`` does.
+``whisper.decode`` does; on a model axis it is head-parallel too, over
+the whole encoder output that every rank holds.
 
 MLA (DeepSeek-V3) trains and prefills in the expanded form, with query and
 key heads of nope + rope = 192 and value heads of 128: the flash kernel
@@ -231,15 +232,28 @@ class GQAAttention(nn.Module):
 
 def cross_attention(mod: "CrossAttention", x: torch.Tensor, enc: torch.Tensor, cfg) -> torch.Tensor:
     """x (B, S, d) attends to all of enc (B, Se, d): no mask, no cache, no
-    position; returns (B, S, d)."""
+    position; returns (B, S, d).  On a model axis that divides the heads
+    it is head-parallel, as :func:`gqa_attention`: the rank's heads of
+    ``wq``/``wk``/``wv`` from the replicated ``x`` and ``enc``, the
+    row-parallel ``wo`` and its all-reduce; else the whole attention on
+    every rank from gathered weights."""
     B, S, _ = x.shape
     Se = enc.shape[1]
     hq, hd = cfg.num_heads, cfg.head_dim
-    q = (x @ mod.wq.to(x.dtype)).reshape(B, S, hq, hd)
-    k = (enc @ mod.wk.to(x.dtype)).reshape(B, Se, hq, hd)
-    v = (enc @ mod.wv.to(x.dtype)).reshape(B, Se, hq, hd)
+    axis = tp.axis_of(mod)
+    w = {n: getattr(mod, n) for n in ("wq", "wk", "wv", "wo")}
+    heads = axis is not None and hq % axis.size == 0 and tp.sliced(mod.wq, -1)
+    if heads:
+        hq //= axis.size
+        x, enc = tp.copy_to(x, axis), tp.copy_to(enc, axis)
+    elif axis is not None:
+        w = {n: tp.whole(p, axis) for n, p in w.items()}
+    q = (x @ w["wq"].to(x.dtype)).reshape(B, S, hq, hd)
+    k = (enc @ w["wk"].to(x.dtype)).reshape(B, Se, hq, hd)
+    v = (enc @ w["wv"].to(x.dtype)).reshape(B, Se, hq, hd)
     out = ops.attention(q, k, v, causal=False)
-    return out.reshape(B, S, hq * hd) @ mod.wo.to(x.dtype)
+    out = out.reshape(B, S, hq * hd) @ w["wo"].to(x.dtype)
+    return tp.reduce_from(out, axis) if heads else out
 
 
 class CrossAttention(nn.Module):

@@ -17,13 +17,14 @@ that ``init(seed)`` gives at ``model`` 1, drawn one module at a time on
 the device, so no rank ever holds the whole model.  With ``fsdp=True``
 (ZeRO-3, ``dist.fsdp``) the rank keeps only its block of each of those
 slices over the mesh's DP axes, and the decoder gathers each layer just
-before it runs (the dense and MoE families; whisper and the VLM raise).
+before it runs (the dense and MoE families; rwkv6, jamba, whisper and
+the VLM raise).
 Such a model trains (``loss``) and serves: ``init_cache(batch, s_max)``
 gives the rank's cache (:func:`init_cache`), and ``prefill`` and
 ``decode`` run on the rank's rows of the batch, the MoE layers routing the
-whole batch over the DP group where it cuts the batch (``models.moe``).  Every family serves over
-the DP axes; the families without tensor parallelism raise at ``model`` >
-1 (ROADMAP A.10).
+whole batch over the DP group where it cuts the batch (``models.moe``).
+Every family serves and trains over the model and the DP axes (jamba's
+hybrid serves only: its training waits for ROADMAP B.10).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from .. import configs as _configs
 from ..dist.fsdp import DPAxis, block, cut_of
 from ..dist.sharding import rows_of
 from ..dist.tensor_parallel import ModelAxis
+from .attention import kv_heads
 from .config import MLAConfig, MambaConfig, ModelConfig, RWKVConfig
 from . import transformer, vlm, whisper
 
@@ -131,20 +133,6 @@ def loss_fn(cfg: ModelConfig) -> Callable:
     return transformer.lm_loss
 
 
-# the families whose modules run tensor and expert parallelism
-TP_FAMILIES = ("dense", "moe")
-
-
-def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """Raise ``NotImplementedError`` for a ``model`` axis above 1 where
-    ``cfg``'s family has no tensor parallelism in the port."""
-    if model > 1 and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family at a model axis of {model}: tensor "
-            "parallelism for rwkv6, Mamba, whisper and the VLM is not ported to repro_torch "
-            "yet (ROADMAP A.10)")
-
-
 def local_model(cfg: ModelConfig, device, axis: Optional[ModelAxis],
                 dp: Optional[DPAxis] = None) -> nn.Module:
     """The modules of one rank of ``axis``, parameters uninitialised at their
@@ -193,12 +181,17 @@ def init_local(model: nn.Module, seed: int, device) -> nn.Module:
     local = dict(model.named_parameters())
     dp = getattr(model, "fsdp", None)
     for prefix, mod in whole.named_modules():
-        if mod is whole or not hasattr(mod, "reset_parameters"):
+        # a container draws nothing of its own (the VLM's LM: its
+        # reset_parameters draws its modules'); the root only its own
+        # parameters (whisper's tables), which come first in its init
+        reset = getattr(mod, "reset_own_parameters" if mod is whole else "reset_parameters",
+                        None)
+        if not mod._parameters or reset is None:
             continue
         mod.to_empty(device=device, recurse=False)
-        mod.reset_parameters(gen)
+        reset(gen)
         for name, p in mod.named_parameters(recurse=False):
-            q = local[f"{prefix}.{name}"]
+            q = local[f"{prefix}.{name}" if prefix else name]
             part = p if q.tp_dim is None else model.tp.own(p, q.tp_dim)
             q.copy_(block(part, cut_of(q), dp))
         mod.to_empty(device="meta", recurse=False)
@@ -213,10 +206,15 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device, mesh=None) -> D
     """The zero-filled serving cache of ``cfg``'s family for a batch of
     ``batch`` rows and ``s_max`` slots (the VLM's vision prefix takes
     ``vision_tokens`` more); with a built ``mesh``, this rank's part of it
-    (``transformer.init_cache``; whisper's rows only)."""
+    (``transformer.init_cache``; whisper's: its rows, the kv heads its
+    query heads read and the whole ``enc``)."""
     if cfg.family == "audio":
-        rows = batch if mesh is None else rows_of(batch, mesh)[1]
-        return whisper.init_whisper_cache(cfg, rows, s_max, device)
+        if mesh is None:
+            return whisper.init_whisper_cache(cfg, batch, s_max, device)
+        model = dict(zip(mesh.axis_names, mesh.shape)).get("model", 1)
+        kv0, kv1 = kv_heads(cfg, model, mesh.coords().get("model", 0))
+        return whisper.init_whisper_cache(cfg, rows_of(batch, mesh)[1], s_max, device,
+                                          kv1 - kv0)
     if cfg.family == "vlm":  # the vision prefix takes the first vision_tokens slots
         return transformer.init_cache(cfg, batch, s_max + cfg.vision_tokens, device, mesh)
     return transformer.init_cache(cfg, batch, s_max, device, mesh)
@@ -231,7 +229,6 @@ def get_api(cfg: ModelConfig, device="cuda", mesh=None, fsdp: bool = False) -> M
     cls = model_class(cfg)
     axis = dp = None
     if mesh is not None:
-        check_model_axis(cfg, dict(zip(mesh.axis_names, mesh.shape)).get("model", 1))
         axis = ModelAxis.of(mesh)
     if fsdp:
         if mesh is None:

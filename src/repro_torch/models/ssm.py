@@ -19,6 +19,26 @@ State: ``(conv_buf (B, d_conv-1, d_in) in the compute dtype, ssm_state
 (B, d_in, N) fp32)``, updated in place when given.  Parameter names, shapes
 and (in, out) orientation follow the JAX pytree; ``A_log`` and ``D`` are
 fp32 whatever ``param_dtype`` is, as in JAX.
+
+On a rank of a ``model`` axis (``dist.tensor_parallel``) that divides
+``d_in``, the mixer is channel-parallel: the rank runs the conv, the scan
+and the gate on its d_in / model channels (``conv_w``, ``conv_b``,
+``dt_bias`` and ``D`` are its slices; its state holds those channels) and
+``out_proj`` is row-parallel.  JAX's cuts of the other leaves do not line
+up with the channels, so:
+
+* ``in_proj`` is cut contiguously over ``[x | z]``, so no rank holds x and
+  z of the same channels: the product ``x @ in_proj`` (B, S, 2 d_in) is
+  gathered, not the weight, and the rank takes its channels of both halves;
+* ``x_proj`` is cut over its dt_rank + 2N outputs and ``dt_proj`` over its
+  dt_rank inputs, while the rank contracts over its own channels and needs
+  its own output channels: both weights are gathered (they are small
+  beside the activations) and the rank's partial ``dbc`` is all-reduced in
+  fp32 (B, S, dt_rank + 2N);
+* ``A_log`` is cut over its N states: gathered, the rank's channels kept.
+
+Where the axis does not divide ``d_in``, every rank computes the whole
+mixer from gathered weights.
 """
 from __future__ import annotations
 
@@ -29,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist import tensor_parallel as tp
 from .layers import _param, dense_init
 
 CHUNK = 64  # tokens a chunk of the selective scan: JAX's apply_lm(scan_chunk_size=64)
@@ -90,8 +111,18 @@ def mamba_dims(cfg):
     return mc, d_in, dt_rank
 
 
-def mamba_state_shape(cfg, batch: int):
-    mc, d_in, _ = mamba_dims(cfg)
+def local_channels(cfg, model: int) -> int:
+    """The d_in channels that a rank of a ``model`` axis computes: d_in /
+    model where the axis divides them (channel-parallel), else all d_in."""
+    d_in = mamba_dims(cfg)[1]
+    return d_in // model if d_in % model == 0 else d_in
+
+
+def mamba_state_shape(cfg, batch: int, model: int = 1):
+    """The conv buffer and the scan state (of a rank's channels on a
+    ``model`` axis, :func:`local_channels`)."""
+    mc, _, _ = mamba_dims(cfg)
+    d_in = local_channels(cfg, model)
     return (
         (batch, mc.d_conv - 1, d_in),  # conv_buf
         (batch, d_in, mc.d_state),  # ssm_state
@@ -140,7 +171,24 @@ class Mamba(nn.Module):
         mc, d_in, dt_rank = mamba_dims(self.cfg)
         B, S, _ = x.shape
         dt_ = x.dtype
-        xpart, z = (x @ self.in_proj.to(dt_)).chunk(2, dim=-1)  # (B, S, d_in) each
+        axis = tp.axis_of(self)
+        w = {n: getattr(self, n) for n in ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+                                           "dt_bias", "A_log", "D", "out_proj")}
+        chans = axis is not None and local_channels(self.cfg, axis.size) < d_in
+        if chans:  # this rank's channels (module docstring)
+            x = tp.copy_to(x, axis)
+            w["x_proj"] = axis.own(tp.partial(w["x_proj"], axis), 0)
+            w["dt_proj"] = axis.own(tp.partial(w["dt_proj"], axis), -1)
+            w["A_log"] = axis.own(tp.partial(w["A_log"], axis), 0)
+            d_in = local_channels(self.cfg, axis.size)
+        elif axis is not None:  # the whole mixer on every rank
+            w = {n: tp.whole(p, axis) for n, p in w.items()}
+        xz = x @ w["in_proj"].to(dt_)
+        if chans:  # [x | z] whole, then the rank's channels of each half
+            xz = tp.gather(xz, -1, axis)
+            xpart, z = (axis.own(t, -1) for t in xz.chunk(2, dim=-1))
+        else:
+            xpart, z = xz.chunk(2, dim=-1)  # (B, S, d_in) each
 
         # causal depthwise conv along S, summed tap by tap in the compute dtype
         if state is not None:
@@ -150,21 +198,24 @@ class Mamba(nn.Module):
             ssm_state = torch.zeros((B, d_in, mc.d_state), dtype=torch.float32,
                                     device=x.device)
             xcat = F.pad(xpart, (0, 0, mc.d_conv - 1, 0))
-        w = self.conv_w.to(dt_)
-        xc = xcat[:, 0:S] * w[0]
+        cw = w["conv_w"].to(dt_)
+        xc = xcat[:, 0:S] * cw[0]
         for i in range(1, mc.d_conv):
-            xc = xc + xcat[:, i:i + S] * w[i]
-        xc = F.silu(xc + self.conv_b.to(dt_))
+            xc = xc + xcat[:, i:i + S] * cw[i]
+        xc = F.silu(xc + w["conv_b"].to(dt_))
 
-        dbc = xc @ self.x_proj.to(dt_)
-        dt = dbc[..., :dt_rank] @ self.dt_proj.to(dt_)
-        dt = F.softplus(dt.float() + self.dt_bias.float())  # (B, S, d_in) fp32
+        dbc = xc @ w["x_proj"].to(dt_)
+        if chans:  # the partial sums over the rank's channels, added in fp32
+            dbc = tp.copy_to(tp.reduce_from(dbc.float(), axis), axis).to(dt_)
+        dt = dbc[..., :dt_rank] @ w["dt_proj"].to(dt_)
+        dt = F.softplus(dt.float() + w["dt_bias"].float())  # (B, S, d_in) fp32
         Bm = dbc[..., dt_rank:dt_rank + mc.d_state].float()
         Cm = dbc[..., dt_rank + mc.d_state:].float()
         xcf = xc.float()
-        y, final = selective_scan(dt, dt * xcf, Bm, Cm, -torch.exp(self.A_log), ssm_state)
+        y, final = selective_scan(dt, dt * xcf, Bm, Cm, -torch.exp(w["A_log"]), ssm_state)
         if state is not None:
             conv_buf.copy_(xcat[:, -(mc.d_conv - 1):] if mc.d_conv > 1 else xcat[:, :0])
             ssm_state.copy_(final)
-        y = (y + self.D * xcf).to(dt_) * F.silu(z)
-        return y @ self.out_proj.to(dt_)
+        y = (y + w["D"] * xcf).to(dt_) * F.silu(z)
+        out = y @ w["out_proj"].to(dt_)
+        return tp.reduce_from(out, axis) if chans else out

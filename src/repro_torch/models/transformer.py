@@ -124,15 +124,18 @@ def check_supported(cfg) -> None:
         )
 
 
-def _cache_shapes(spec: LayerSpec, cfg, batch: int, s_max: int, hkv: Optional[int] = None):
+def _cache_shapes(spec: LayerSpec, cfg, batch: int, s_max: int, hkv: Optional[int] = None,
+                  model: int = 1):
     """(shape, dtype) of each tensor of one layer's cache entry; a GQA
-    layer's holds ``hkv`` kv heads (default: all)."""
+    layer's holds ``hkv`` kv heads (default: all), an rwkv or Mamba layer's
+    the state of the heads or channels that a rank of a ``model`` axis
+    computes."""
     dt = cfg.cdtype
     if spec.kind == "rwkv":
-        s1, s2, s3 = rwkv_state_shapes(cfg, batch)
+        s1, s2, s3 = rwkv_state_shapes(cfg, batch, model)
         return ((s1, dt), (s2, torch.float32), (s3, dt))
     if spec.kind == "mamba":
-        s1, s2 = mamba_state_shape(cfg, batch)
+        s1, s2 = mamba_state_shape(cfg, batch, model)
         return ((s1, dt), (s2, torch.float32))
     if cfg.attn_kind == "mla":
         m = cfg.mla
@@ -146,16 +149,20 @@ def init_cache(cfg, batch: int, s_max: int, device, mesh=None) -> Dict[str, Any]
     With a built ``mesh``, this rank's: its rows of the ``batch`` over the
     DP axes (``dist.sharding.rows_of``, as ``batch_specs`` cuts the batch)
     and, at ``model`` > 1, the kv heads ``kv0 .. kv1`` that its query heads
-    read (``attention.kv_heads``).  Where ``cache_specs`` cuts whole kv
-    heads that is the rank's slice of JAX's cache; where it cuts inside a
-    head (``head_dim``) or the MLA latents' sequence dim, the rank keeps
-    what it reads whole (the kv head; ``c_kv`` and ``k_rope``), as the
-    model axis gathers a weight cut inside a head.  For an MoE model whose
+    read (``attention.kv_heads``), the WKV states of its heads and the
+    Mamba states of its channels.  Where ``cache_specs`` cuts whole kv
+    heads (or the Mamba channels) that is the rank's slice of JAX's cache;
+    where it cuts inside a head (``head_dim``), the MLA latents' sequence
+    dim, the WKV state's key dim or the token-shift states' ``d``, the rank
+    keeps what it reads whole (the kv head; ``c_kv`` and ``k_rope``; its
+    heads' WKV states, the same bytes as JAX's slice; ``x_prev``, which the
+    token shift reads whole), as the model axis gathers a weight cut inside
+    a head.  For an MoE model whose
     batch the DP axes cut, ``"dp"`` holds the DP group (the MoE layers
     route the whole batch over it); where they do not divide the batch
     every rank holds every row and routes it alone."""
     check_supported(cfg)
-    hkv, dp = None, None
+    hkv, dp, model = None, None, 1
     if mesh is not None:
         whole, batch = batch, rows_of(batch, mesh)[1]
         if cfg.moe is not None and batch < whole:
@@ -166,7 +173,7 @@ def init_cache(cfg, batch: int, s_max: int, device, mesh=None) -> Dict[str, Any]
             hkv = kv1 - kv0
     layers = [
         tuple(torch.zeros(shape, dtype=dtype, device=device)
-              for shape, dtype in _cache_shapes(spec, cfg, batch, s_max, hkv))
+              for shape, dtype in _cache_shapes(spec, cfg, batch, s_max, hkv, model))
         for spec in layer_plan(cfg).layers()
     ]
     return {"pos": 0, "layers": layers, **({"dp": dp} if dp is not None else {})}

@@ -8,12 +8,17 @@ tanh-GELU, d -> d, no biases) and the language model (``lm``, a dense
 runs the LM over [projected patches][embedded tokens], so the vision
 prefix takes the cache's first ``vision_tokens`` slots; decode is the LM's
 decode.
+
+On a rank of a ``model`` axis the projector is a Megatron pair (``w1``
+column-parallel, ``w2`` row-parallel, the elementwise GELU on the rank's
+columns between them) and the LM shards as any ``DecoderLM``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..dist import tensor_parallel as tp
 from .layers import _param, cross_entropy_fused, dense_init, gelu_tanh_stepwise
 from .transformer import DecoderLM
 
@@ -55,9 +60,19 @@ def _project(proj: Projector, patches: torch.Tensor, cfg) -> torch.Tensor:
     """(B, N, vision_dim) -> (B, N, d) in the compute dtype.  The GELU
     rounds op by op as JAX's does: the projected patches are the prefix
     that every later position reads, and in bf16 ``F.gelu``'s one rounding
-    moved a greedy token of the smoke model."""
-    h = patches.to(cfg.cdtype) @ proj.w1.to(cfg.cdtype)
-    return gelu_tanh_stepwise(h) @ proj.w2.to(cfg.cdtype)
+    moved a greedy token of the smoke model.  On a model axis the rank
+    computes its columns of ``w1`` and rows of ``w2``, then the all-reduce
+    (or, where the axis does not divide ``d``, the whole projector)."""
+    axis = tp.axis_of(proj)
+    w1, w2 = proj.w1, proj.w2
+    local = axis is not None and tp.sliced(w1, -1) and tp.sliced(w2, 0)
+    x = patches.to(cfg.cdtype)
+    if local:
+        x = tp.copy_to(x, axis)
+    elif axis is not None:
+        w1, w2 = tp.whole(w1, axis), tp.whole(w2, axis)
+    y = gelu_tanh_stepwise(x @ w1.to(cfg.cdtype)) @ w2.to(cfg.cdtype)
+    return tp.reduce_from(y, axis) if local else y
 
 
 def apply_vlm(model: VLM, tokens, patches, cache=None, mode: str = "train",

@@ -22,6 +22,19 @@ S_enc, d)}``: the decoder's self-attention KV per layer, and the encoder
 output that prefill writes and every decode step reads (JAX's registry
 adds ``enc`` to ``init_whisper_cache``'s tree).  Prefill and decode write
 it in place.
+
+On a rank of a ``model`` axis (``models.registry.local_model``) the
+attentions, the cross-attentions and the MLPs are head- and
+column/row-parallel (``attention.py``, ``layers.py``), the LayerNorms
+gather their scales, and ``tok`` and ``pos``, cut along ``d_model``, are
+looked up in pieces that are gathered (B x S x d moved, not the tables).
+The tied unembedding is :class:`~repro_torch.models.layers.Embed`'s: the
+logits of the rank's columns summed in fp32, and in the loss the
+vocabulary-parallel path where the axis divides the vocabulary, else the
+table gathered whole (51865 divides neither 2 nor 4).  The rank's cache
+holds the kv heads its query heads read and the whole ``enc``: every
+frame feeds its heads' cross K/V (``cache_specs`` cuts ``enc`` over its
+frames).
 """
 from __future__ import annotations
 
@@ -31,8 +44,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist import tensor_parallel as tp
 from .attention import CrossAttention, GQAAttention
-from .layers import MLP, Norm, _param, cross_entropy_fused, embed_init
+from .layers import MLP, Embed, Norm, _param, cross_entropy_fused, embed_init
 
 
 def _sinusoid(seq: int, dim: int, device=None) -> torch.Tensor:
@@ -96,19 +110,21 @@ class Whisper(nn.Module):
     def reset_parameters(self, gen: torch.Generator) -> None:
         """The JAX initialiser's distributions: weights normal/sqrt(in),
         ``tok`` and ``pos`` 0.02-normal, LayerNorm scale 1 and bias 0."""
-        embed_init(self.tok.data, gen)
-        embed_init(self.pos.data, gen)
+        self.reset_own_parameters(gen)
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
 
-    def unembed_matrix(self) -> torch.Tensor:
-        """The tied table transposed, (d, V) (a view; the fused loss's)."""
-        return self.tok.T
+    def reset_own_parameters(self, gen: torch.Generator) -> None:
+        """``tok`` and ``pos``, drawn before every module's parameters."""
+        embed_init(self.tok.data, gen)
+        embed_init(self.pos.data, gen)
 
-    def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """fp32 logits (..., V) of the tied table, no softcap."""
-        return (x @ self.unembed_matrix().to(x.dtype)).float()
+    # the tied table's unembedding, (d, V) for the fused loss, and the fp32
+    # logits (no softcap), as the decoder-only LM's on any model axis
+    unembed_matrix = Embed.unembed_matrix
+    unembed = Embed.unembed
+    unembed_weight = Embed.unembed_weight
 
     def forward(self, tokens, frames=None, cache=None, mode: str = "train",
                 last_only: bool = False, return_hidden: bool = False):
@@ -158,9 +174,14 @@ def decode(model: Whisper, tokens: torch.Tensor, enc: torch.Tensor,
     cfg = model.cfg
     S = tokens.shape[1]
     pos = cache["pos"] if mode == "decode" else None
-    x = F.embedding(tokens, model.tok).to(cfg.cdtype)
+    x = F.embedding(tokens, model.tok)
     pe = model.pos[pos:pos + 1] if pos is not None else model.pos[:S]
-    x = x + pe.to(cfg.cdtype)[None]
+    axis = tp.axis_of(model)
+    if tp.sliced(model.tok, -1):  # the looked-up rows' pieces, gathered
+        x = tp.gather_whole(x, -1, axis)
+    if tp.sliced(model.pos, -1):
+        pe = tp.gather_whole(pe, -1, axis)
+    x = x.to(cfg.cdtype) + pe.to(cfg.cdtype)[None]
     for i, layer in enumerate(model.dec_layers):
         x = layer(x, enc, cache["layers"][i] if cache is not None else None, pos)
     x = model.dec_ln(x)
@@ -174,11 +195,12 @@ def decode(model: Whisper, tokens: torch.Tensor, enc: torch.Tensor,
     return x, new_cache
 
 
-def init_whisper_cache(cfg, batch: int, s_max: int, device) -> Dict[str, Any]:
+def init_whisper_cache(cfg, batch: int, s_max: int, device,
+                       hkv: Optional[int] = None) -> Dict[str, Any]:
     """Zero-filled cache (see the module docstring): per decoder layer a
-    (k, v) pair of (B, s_max, Hkv, Dh), and ``enc`` (B, encoder_seq, d), all
-    in the compute dtype."""
-    kv = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+    (k, v) pair of (B, s_max, Hkv, Dh) (``hkv`` kv heads, default all), and
+    ``enc`` (B, encoder_seq, d) whole, all in the compute dtype."""
+    kv = (batch, s_max, cfg.num_kv_heads if hkv is None else hkv, cfg.head_dim)
     return {
         "pos": 0,
         "layers": [tuple(torch.zeros(kv, dtype=cfg.cdtype, device=device) for _ in range(2))

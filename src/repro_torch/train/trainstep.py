@@ -70,8 +70,9 @@ pod 1; across pods it raises (JAX's fails there: ROADMAP C.9).  On 4
 cards:
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --arch gemma2-9b --fsdp --batch 8 --seq 1024
-The families without tensor parallelism raise at ``model`` > 1 (ROADMAP
-A.10), and whisper and the VLM under ``fsdp`` (A.9).
+Every family that trains takes a ``model`` axis (rwkv6 head-parallel,
+whisper and the VLM as the attention families); ``fsdp`` takes the dense
+and MoE families only (ROADMAP A.9).
 """
 from __future__ import annotations
 
@@ -90,7 +91,7 @@ from ..dist.tensor_parallel import all_gather as _all_gather
 from ..dist.tensor_parallel import reduce_scatter as _reduce_scatter
 from ..launch.mesh import dp_axes, mesh_axis_sizes
 from ..models.convert import fsdp_cuts, params_from_jax, stacked_shapes
-from ..models.registry import check_model_axis, loss_fn
+from ..models.registry import loss_fn
 from .optimizer import (OptConfig, adamw_init, adamw_leaf, adamw_update, bias_corrections,
                         clip_scale, schedule)
 
@@ -230,7 +231,6 @@ class MeshStep:
                 "ROADMAP C.9)")
         _check_trains(cfg)
         self.model = sizes.get("model", 1)
-        check_model_axis(cfg, self.model)
         self.axis, self.fsdp = api.axis, api.dp
         if (self.axis.size if self.axis is not None else 1) != self.model:
             raise ValueError(f"the mesh's model axis is {self.model}: build the api with "
@@ -401,12 +401,13 @@ class MeshStep:
 
     def _scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Reduce-scatter over ``data`` along ``dim`` (moved to the front:
-        the collective splits dim 0)."""
+        the collective splits dim 0), contiguous: NCCL's cross-pod
+        all-reduce that follows takes no strided tensor."""
         t = t.movedim(dim, 0).contiguous()
         out = t.new_empty((t.shape[0] // self.data,) + t.shape[1:])
         self._count("data", t)
         _reduce_scatter(out, t, group=self.groups["data"])
-        return out.movedim(0, dim)
+        return out.movedim(0, dim).contiguous()
 
     def _gather(self, t: torch.Tensor, dim: int, axis: str = "data",
                 count: bool = True) -> torch.Tensor:

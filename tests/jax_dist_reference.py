@@ -24,7 +24,7 @@ A case with ``"serve"`` is JAX's sharded serving instead:
 ``batch_specs`` and ``cache_specs``, as ``launch/dryrun.py`` builds them,
 and decodes greedily from the prompts ``inputs`` (``tokens`` and the
 arch's ``frames`` or ``patches``), the decode tokens handed in as host
-numpy.  It writes ``logits/{i}`` (call ``i``'s last-position logits: the
+numpy and the cache put back in ``cache_specs``' layout before each step.  It writes ``logits/{i}`` (call ``i``'s last-position logits: the
 prefill, then each decode step), ``tokens``, the whole cache after the
 prefill and after the last step (``cache/prefill/{key}``,
 ``cache/last/{key}``), and, for an MoE model, each MoE layer's top-k
@@ -175,6 +175,9 @@ def serve_case(case: dict, out: str) -> None:
         toks = [np.argmax(steps[-1], axis=-1).astype(np.int32)]
         for _ in range(sv["max_new"] - 1):
             jax.effects_barrier()  # a call's routing before the next call's
+            # the prefill's output layout is not cache_specs' everywhere (whisper's
+            # enc at model > 1), and the jitted decode refuses it: put it back
+            cache = jax.device_put(cache, c_shard)
             logits, cache = decode(params, toks[-1][:, None], cache)  # host numpy tokens
             steps.append(np.asarray(logits[:, -1], np.float32))
             toks.append(np.argmax(steps[-1], axis=-1).astype(np.int32))

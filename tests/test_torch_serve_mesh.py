@@ -29,8 +29,9 @@
 * ``comm_profile()`` at every mesh equals the single-device engine's; a
   decode step's ``comm["model"]`` bytes stay below one unembedding
   table's: the logits move, not the table.
-* rwkv6, jamba, whisper and internvl2 raise at ``model`` > 1 naming
-  ROADMAP A.10; whisper and internvl2 raise under ``fsdp``.
+* whisper, internvl2, rwkv6 and jamba raise under ``fsdp`` (their model
+  axis is held against JAX's in
+  ``tests/test_torch_serve_mesh_tp_families.py``).
 * The serve CLI under ``torch.distributed.run`` with ``--model 2`` and with
   ``--fsdp`` prints the single-device CLI's tokens.
 """
@@ -82,10 +83,12 @@ LOGIT_ATOL = 2e-5
 
 
 def _cfg(arch, over):
+    """The smoke config of ``arch`` with ``over``: a dict for a nested config."""
     import dataclasses
 
     cfg = smoke_config(arch)
-    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v) for k, v in over.items()})
+    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+                          else v for k, v in over.items()})
 
 
 def _write_case_inputs(d, arch, batches):
@@ -244,14 +247,8 @@ def test_comm_profile_and_decode_traffic(runs):
                 assert calls == 0, name
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b", "whisper-small",
-                                  "internvl2-1b"])
-def test_model_axis_still_raises(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10\b"):
-        get_api(smoke_config(arch), device="cpu", mesh=mesh_layout(*M122))
-
-
-@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b", "rwkv6-1.6b",
+                                  "jamba-1.5-large-398b"])
 def test_fsdp_still_raises_for_whisper_and_the_vlm(arch):
     with pytest.raises(NotImplementedError, match="fsdp"):
         get_api(smoke_config(arch), device="cpu", mesh=mesh_layout(*M141), fsdp=True)

@@ -26,9 +26,10 @@ and expert parallelism — against JAX's, on the CPU.
 * Each rank holds only its ``param_pspec`` slice of every leaf: the shapes
   and the number of parameter elements of a rank at (1, 1, 4).
 * The step's ``comm`` counts the model axis's traffic.
-* The families without tensor parallelism (rwkv6, jamba, whisper,
-  internvl2) raise at ``model`` > 1 naming ROADMAP A.10; ``fsdp`` with the
-  hierarchical step across pods raises naming C.9.
+* ``fsdp`` with the hierarchical step across pods raises naming C.9.
+
+rwkv6, whisper and internvl2 at ``model`` > 1 are in
+``tests/test_torch_tp_families.py``, through this file's helpers.
 """
 import os
 
@@ -67,10 +68,16 @@ def _hp(hier, compress, ga):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("tp"))
-    inputs = {a: write_inputs(d, a) for a in sorted({c[0] for c in CASES.values()})}
+    return run_steps(str(tmp_path_factory.mktemp("tp")), CASES)
+
+
+def run_steps(d, cases_by_name):
+    """One step of each case (name -> (arch, mesh, hierarchical, compress,
+    grad_accum)) on 4 gloo ranks and in JAX, their results in ``d``."""
+    inputs = {a: write_inputs(d, a) for a in sorted({c[0] for c in cases_by_name.values()})}
     cases = [dict(name=n, arch=a, mesh=m, hp=_hp(h, c, ga), opt=OPT, init=inputs[a],
-                  batches=inputs[a], steps=1) for n, (a, m, h, c, ga) in CASES.items()]
+                  batches=inputs[a], steps=1)
+             for n, (a, m, h, c, ga) in cases_by_name.items()]
     # two JAX processes beside the ranks: each compiles half of the steps
     procs = [jax_process({"devices": 4, "out": d, "cases": cases[i::2]},
                          os.path.join(d, f"jax{i}.json")) for i in range(2)]
@@ -104,7 +111,13 @@ def _index(key, shape, coords, arch, hier):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_step_matches_jax(runs, name):
-    arch, (shape, axes), hier, compress, ga = CASES[name]
+    check_step(runs, name, CASES[name])
+
+
+def check_step(runs, name, case):
+    """The step of ``case`` (a ``CASES`` entry) on every rank against JAX's
+    (module docstring)."""
+    arch, (shape, axes), hier, compress, ga = case
     ranks = [np.load(os.path.join(runs, f"{name}.rank{r}.npz")) for r in range(4)]
     ref = np.load(os.path.join(runs, f"{name}.jax.npz"))
     assert sorted(ref["device_ids"]) == list(range(4))
@@ -165,7 +178,12 @@ def test_step_matches_jax(runs, name):
 
 @pytest.mark.parametrize("name", ["qwen-flat-114-ga2", "deepseek-flat-114"])
 def test_rank_holds_its_pspec_slices(runs, name):
-    arch, (shape, _), *_ = CASES[name]
+    check_slices(runs, name, CASES[name])
+
+
+def check_slices(runs, name, case):
+    """Each rank of ``case`` holds exactly its ``param_pspec`` slices."""
+    arch, (shape, _), *_ = case
     is_moe = smoke_config(arch).moe is not None
     ref = np.load(os.path.join(runs, f"{name}.jax.npz"))
     for r in range(4):
@@ -189,19 +207,6 @@ def test_comm_counts_the_model_axis(runs):
         assert calls > 0 and nbytes > 0, name
         # the hierarchical step sums over pod, of size 1 or 2
         assert ("comm/pod" in res.files) == hier, name
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b", "whisper-small",
-                                  "internvl2-1b"])
-def test_families_without_tp_raise(arch):
-    cfg = smoke_config(arch)
-    mesh = mesh_layout((1, 2, 2), AXES)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
-        get_api(cfg, device="cpu", mesh=mesh)
-    if arch != "jamba-1.5-large-398b":  # jamba's training raises first (B.10)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10"):
-            make_train_step(get_api(cfg, device="cpu"), cfg, OptConfig(), mesh,
-                            TrainHparams(hierarchical=True, zero1=True), {"tokens": (8, 16)})
 
 
 def test_fsdp_still_raises():

@@ -39,7 +39,8 @@ last-position logits), ``tokens`` (``ServeEngine.generate``'s, the whole
 batch's), its cache after the prefill and after the last step
 (``cache/{prefill,last}/{layer}/{j}``), its MoE layers' routing
 (``routing/{i}``: the top-k experts of its tokens, ``kept/{i}``: the picks
-each expert kept), ``comm/prefill`` and ``comm/decode`` (the model axis's
+each expert kept), whisper's ``cache/{prefill,last}/enc``, ``comm/prefill``
+and ``comm/decode`` (the model axis's
 calls and bytes of the prefill and of one decode step), ``profile``
 (``comm_profile``'s values) and ``coords``.
 """
@@ -245,6 +246,8 @@ def _serve_task(task: dict, rank: int, out: str) -> None:
         for i, entry in enumerate(cache["layers"]):
             for j, t in enumerate(entry):
                 arrays[f"cache/{tag}/{i}/{j}"] = t.float().numpy().copy()
+        if "enc" in cache:  # whisper's encoder output
+            arrays[f"cache/{tag}/enc"] = cache["enc"].float().numpy().copy()
 
     def comm():
         c = api.axis.comm.get("model", {}) if api.axis is not None else {}
@@ -278,11 +281,24 @@ def _serve_task(task: dict, rank: int, out: str) -> None:
     np.savez(os.path.join(out, f"{task['name']}.rank{rank}.npz"), **arrays)
 
 
+def _contiguous_only(collective):
+    """``collective`` refusing a strided tensor, as NCCL does (gloo takes
+    one): the CPU ranks then catch what would fail on the cards."""
+    def call(tensor, *args, **kwargs):
+        if not tensor.is_contiguous():
+            raise ValueError(f"{collective.__name__}: tensors must be contiguous (NCCL)")
+        return collective(tensor, *args, **kwargs)
+    return call
+
+
 def main(path: str, rank: int) -> None:
     import torch
+    import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_world, shutdown
 
+    dist.all_reduce, dist.broadcast = (_contiguous_only(f) for f in (dist.all_reduce,
+                                                                      dist.broadcast))
     torch.set_num_threads(1)
     with open(path) as f:
         job = json.load(f)
