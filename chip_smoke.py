@@ -38,17 +38,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bytes the kernel must move;
 4. reference: a full-width, 2-layer fp32 gemma-2b and rwkv6-1.6b,
    deepseek-v3-671b at full width cut to 2 layers (one dense, one MoE) and
-   16 experts (top-8 kept), and jamba-1.5-large-398b at full width cut to
-   one unit (8 layers) and 3 experts (top-2 kept), and whisper-small (with
-   1500 frames) and internvl2-1b (with 256 patches) at full width and full
-   depth, each drawn on the card
+   16 experts (top-8 kept), jamba-1.5-large-398b at full width cut to 2
+   layers (its attention layer and a Mamba layer with MoE) and 3 experts
+   (top-2 kept), whisper-small (with 1500 frames) cut to 2 encoder and 2
+   decoder layers and internvl2-1b (with 256 patches) cut to 2 layers,
+   each drawn on the card
    and copied to the CPU, on the card (kernels) against the same weights
    on the CPU (plain versions): logits, the decode step's logits and greedy
    tokens, and for the MoE models the routing decisions and the picks
    dropped at capacity that differ; then
    one AdamW step on the card against the same step on the CPU, in fp32, of
-   gemma-2b and rwkv6-1.6b cut to 2 layers, whisper-small and internvl2-1b
-   at full depth, and deepseek-v3 and grok-1 as the train phase cuts them:
+   gemma-2b, rwkv6-1.6b, whisper-small (2 + 2) and internvl2-1b cut to 2
+   layers, deepseek-v3 cut to its MoE layer (16 experts) and grok-1 as the
+   train phase cuts it, one row of 128 tokens:
    the loss, every parameter's gradient, the parameter update and the MoE
    models' routing decisions that differ, after a check that the host and
    the card hold 16 bytes a parameter;
@@ -71,8 +73,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    analytic bytes (whisper's encoder output and internvl2's vision-prefix
    slots as fixed bytes), whisper's and internvl2's parameter counts
    against the config, and for the MoE models a second run that must give
-   the same tokens; for jamba the plain selective scan of one layer against
-   its bound and the Mamba mixers' share of the prefill;
+   the same tokens; for jamba the selective-scan kernel's launches (7 a
+   pass) and the Mamba mixers' share of the prefill;
 6. train: full-width, full-depth gemma-2b, rwkv6-1.6b, whisper-small
    (1500 frames, its 448-token text context) and internvl2-1b (256 patches
    before the tokens), and deepseek-v3-671b cut to 2 layers (first_dense 1)
@@ -114,7 +116,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 9. tp: the model axis, tensor and expert parallelism
    (``dist.tensor_parallel``): qwen2.5-14b at full width cut to 2 layers in
-   fp32, one row of 256 tokens, one hierarchical step with ZeRO-1 on mesh
+   fp32, one row of 128 tokens, one hierarchical step with ZeRO-1 on mesh
    (pod 1, data 1, model 2), two ranks on one card over gloo with CUDA
    tensors (a check: NCCL refuses two ranks on one card, and the launcher
    takes one card a rank), each rank's loss, grad norm, parameter slices
@@ -128,7 +130,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 10. fsdp: ZeRO-3 over the data axes (``dist.fsdp``): gemma2-9b at full
    width cut to 2 layers (a local and a global layer) in fp32, one row of
-   256 tokens a rank, one flat step with ``fsdp`` on mesh (pod 1, data 2,
+   128 tokens a rank, one flat step with ``fsdp`` on mesh (pod 1, data 2,
    model 1), two ranks on one card over gloo with CUDA tensors (a check),
    each rank's loss, grad norm, parameter blocks and moment blocks against
    the single-device ``train_step`` on the card from the same seed and
@@ -169,12 +171,32 @@ without the window, its backward at an FSDP rank's 2 rows, RMSNorm at d
 3584 both ways), the reference phase (2 layers, fp32, and one AdamW step)
 and the serve phase (42 layers, parameters against ``param_counts()``).
 
+12. fsdp_families: ZeRO-3 for rwkv6, jamba, whisper and the VLM: on one
+   card two gloo ranks at (1, 2, 1), fp32, against the single-device model
+   on the card: rwkv6-1.6b and internvl2-1b cut to 2 layers and
+   whisper-small to 2 + 2, each served (prefill and 4 greedy decode steps)
+   and one flat FSDP step; jamba cut to one Mamba layer with its dense MLP,
+   one flat FSDP step (two ranks on one card keep twice what autograd holds
+   of the gathered weights, and gloo gathers through the host).  On a host
+   of 4 or more
+   cards the same over NCCL at (1, 4, 1) and (1, 2, 2), jamba's unit at 2
+   experts served and its 2-layer cut trained, then bf16 at full width at
+   (1, 4, 1): jamba's 16-expert unit served with ``fsdp`` (4 x 1024 + 8),
+   its 2-expert unit 6 flat FSDP steps of 4 x 1024, rwkv6-1.6b,
+   whisper-small and internvl2-1b 2 steps each.  The kernels phase holds
+   the selective scan and its backward (port-side: the JAX package has no
+   Pallas kernel for the scan) against their plain versions at jamba's
+   prefill and training shape, a TP-4 rank's channels, a decode step, S
+   100 and 127 and decays near 0 and 1.
+
 ``--only dist`` runs the device and build phases and then the dist phase
 alone; ``--only ranks`` its multi-rank check alone; ``--only tp`` the tp
 phase alone (on a 4-card call, the NCCL check and the bf16 run); ``--only
 fsdp`` the fsdp phase alone (on a 4-card call, the NCCL checks and the
 bf16 run); ``--only serve_tp`` the serve_tp phase alone (on a 4-card call,
-the NCCL checks and the bf16 runs at TP 4).
+the NCCL checks and the bf16 runs at TP 4); ``--only fsdp_families`` the
+selective-scan kernels and the fsdp_families phase (on a 4-card call, the
+NCCL checks and the bf16 runs).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
@@ -1086,6 +1108,136 @@ def time_wkv6_bwd(args, err: float, what: str) -> dict:
                 library_ms=None)
 
 
+SCAN_TOL = 1e-5  # the scan's fp32 output, relative to max|y|: sums in another order
+SCAN_BWD_TOL = 1e-4  # each fp32 gradient relative to its max: the CPU tests' bound
+
+
+def scan_inputs(gen, B: int, S: int, D: int, N: int, decay: str = "model",
+                h0: bool = False) -> tuple:
+    """(dt, dtx, B, C, A, h0) as the Mamba mixer hands them to the scan:
+    dt = softplus of a unit normal, dtx = dt x a unit normal, B and C unit
+    normals, A = -(1 .. N) on every channel (JAX's S4D-real init), h0 zero
+    (a prefill) or a unit normal.  ``decay`` "near 0" makes dt 5 to 10
+    (exp(dt A) < 7e-3), "near 1" 1e-5 to 1e-4 (exp(dt A) > 0.998)."""
+    f32 = torch.float32
+    if decay == "near 0":
+        dt = 5.0 + 5.0 * torch.rand((B, S, D), generator=gen, device=DEVICE)
+    elif decay == "near 1":
+        dt = 1e-5 + 9e-5 * torch.rand((B, S, D), generator=gen, device=DEVICE)
+    else:
+        dt = F.softplus(randn(gen, (B, S, D), f32))
+    dtx = dt * randn(gen, (B, S, D), f32)
+    Bm, Cm = randn(gen, (B, S, N), f32), randn(gen, (B, S, N), f32)
+    A = -torch.arange(1, N + 1, dtype=f32, device=DEVICE).expand(D, N).contiguous()
+    h = randn(gen, (B, D, N), f32) if h0 else torch.zeros((B, D, N), device=DEVICE)
+    return dt, dtx, Bm, Cm, A, h
+
+
+def scan_bytes(B: int, S: int, D: int, N: int, backward: bool) -> tuple:
+    """(bytes, fp32 operations) of the scan, each input read once and each
+    output written once.  Forward: dt and dtx read and y written (B, S, D),
+    B and C read, A read, h0 read and h_S written; an exp and three
+    operations per token and state.  Backward: dt, dtx and dy read, ddt and
+    ddtx written, B and C read, dB and dC written, A read and dA written,
+    the forward's saved states (B, S / 64, D, N) read and dh0 written (no
+    gradient of h_S, as the model's call); the chunk run again (4) and the
+    reverse step (12) per token and state."""
+    bsd, bsn, dn, bdn = B * S * D, B * S * N, D * N, B * D * N
+    if not backward:
+        return 4 * (3 * bsd + 2 * bsn + dn + 2 * bdn), 4.0 * bsd * N
+    return 4 * (5 * bsd + 4 * bsn + 2 * dn + B * -(-S // 64) * D * N + bdn), 16.0 * bsd * N
+
+
+def check_selective_scan(gen, cfg) -> list:
+    """The selective-scan kernel and its backward against their plain
+    versions (``ref.selective_scan_reference``, JAX's chunked doubling scan,
+    and ``ref.selective_scan_backward_reference``) on the card: at jamba's
+    prefill and training shape (B 4, S 1024, d_in 16384, N 16), a TP-4
+    rank's (d_in 4096), a decode step (S 1, from a random state), S 100 and
+    127 (JAX's chunk rule gives chunks of 4 and 1 to the plain version) and
+    with decays near 0 and near 1.  y within SCAN_TOL of max|y|, each
+    gradient within SCAN_BWD_TOL of its max; two backward calls bit-identical;
+    each timed at the two training shapes (median of 30, CUDA events)
+    beside its bound and the plain version.  Returns the two kernels'
+    entries (jamba's prefill shape)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import _launch, selective_scan, selective_scan_bwd
+
+    mc = cfg.mamba
+    D, N = mc.expand * cfg.d_model, mc.d_state
+    cases = [  # (what, B, S, d_in, decay, random h0)
+        ("jamba's prefill and training", TRAIN_BATCH, TRAIN_SEQ, D, "model", False),
+        ("a TP-4 rank's", TRAIN_BATCH, TRAIN_SEQ, D // 4, "model", False),
+        ("a decode step", SERVE_BATCH, 1, D, "model", True),
+        ("S 100", 2, 100, D // 4, "model", True),
+        ("S 127", 2, 127, D // 4, "model", True),
+        ("decays near 0", TRAIN_BATCH, TRAIN_SEQ, D // 4, "near 0", True),
+        ("decays near 1", TRAIN_BATCH, TRAIN_SEQ, D // 4, "near 1", True),
+    ]
+    timed = {}
+    for what, B, S, d_in, decay, h0 in cases:
+        args = scan_inputs(gen, B, S, d_in, N, decay, h0)
+        y, h = selective_scan(*args)
+        y_p, h_p = ref.selective_scan_reference(*args)
+        dy = randn(gen, (B, S, d_in), torch.float32)
+        dh = None if not h0 else randn(gen, (B, d_in, N), torch.float32)
+        got = selective_scan_bwd(*args, dy, dh)
+        want = ref.selective_scan_backward_reference(*args, dy, dh)
+        sync()
+        top = y_p.abs().max().item()
+        y_err = max((y - y_p).abs().max().item(), (h - h_p).abs().max().item()) / top
+        g_errs = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                  for a, b in zip(got, want)]
+        ok = y_err <= SCAN_TOL and max(g_errs) <= SCAN_BWD_TOL
+        log(f"  selective_scan {what} (B={B}, S={S}, d_in={d_in}, N={N}, decays {decay}, "
+            f"h0 {'random' if h0 else 'zero'}): y and h_S at {y_err:.3g} of max|y| (tol "
+            f"{SCAN_TOL}); backward " + " ".join(
+                f"{n}={e:.3g}" for n, e in zip(("ddt", "ddtx", "dB", "dC", "dA", "dh0"), g_errs))
+            + f" of each max|g| (tol {SCAN_BWD_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"selective_scan {what}: the kernels disagree with their plain "
+                                 f"versions: y {y_err}, gradients {g_errs}")
+        if S == TRAIN_SEQ and decay == "model":
+            timed[what] = (args, dy, (y - y_p).abs().max().item(),
+                           max((a - b).abs().max().item() for a, b in zip(got, want)))
+        del y, h, y_p, h_p, got, want
+        torch.cuda.empty_cache()
+    args, dy, _, _ = timed["jamba's prefill and training"]
+    first, second = selective_scan_bwd(*args, dy), selective_scan_bwd(*args, dy)
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("selective_scan_bwd: two calls on the same inputs differ")
+    log("  selective_scan_bwd at jamba's training shape: two calls give bit-identical ddt, ddtx, "
+        "dB, dC, dA and dh0")
+    del first, second
+    out = {}
+    for what, (args, dy, y_err, g_err) in timed.items():
+        B, S, d_in = args[0].shape
+        hs = _launch(*args, keep=True)[2]  # the states the training forward keeps
+        for name, fn, plain, err, backward, reps in (
+                ("selective_scan", lambda: selective_scan(*args),
+                 lambda: ref.selective_scan_reference(*args), y_err, False, 5),
+                ("selective_scan_bwd", lambda: selective_scan_bwd(*args, dy, hs=hs),
+                 lambda: ref.selective_scan_backward_reference(*args, dy), g_err, True, 3)):
+            nbytes, flops = scan_bytes(B, S, d_in, N, backward)
+            bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+            t = dict(max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain, reps=reps),
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            log(f"  {name} at {what} shape (B={B}, S={S}, d_in={d_in}, N={N}): kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library: none (no single "
+                f"PyTorch call computes the selective scan), bound {bound_ms:.4f} ms by "
+                f"{bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP fp32)")
+            out.setdefault(name, {})[what] = t
+        del hs
+        torch.cuda.empty_cache()
+    main = "jamba's prefill and training"
+    return [dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                 replaces="none: the JAX package computes the scan in XLA "
+                          "(src/repro/models/ssm.py:148), no Pallas kernel",
+                 **out[name][main], at_tp4_rank=out[name]["a TP-4 rank's"])
+            for name in ("selective_scan", "selective_scan_bwd")]
+
+
 # ---------------------------------------------------------------------------
 # the model on the card against the same model on the CPU
 # ---------------------------------------------------------------------------
@@ -1107,6 +1259,13 @@ def moe_train_config(cfg):
     if cfg.attn_kind == "mla":
         return moe_reference_config(cfg)
     return cfg.replace(num_layers=1, moe=dataclasses.replace(cfg.moe, num_experts=4))
+
+
+def one_moe_layer(cfg):
+    """deepseek-v3's train cut at one layer, its MoE layer (``first_dense``
+    0), for the fp32 train reference, whose CPU step set the one-card run's
+    time (81.7–125.8 s at 2 layers)."""
+    return cfg.replace(num_layers=1, moe=dataclasses.replace(cfg.moe, first_dense=0))
 
 
 def moe_cut(cfg) -> str:
@@ -1154,12 +1313,19 @@ def log_routing(routed: dict) -> None:
         f"{drops[0]}, CPU {drops[1]}, {drop_differ} of them differ")
 
 
+def jamba_two_layers(cfg):
+    """jamba at full width cut to 2 layers: its attention layer and one Mamba
+    layer with MoE (the block pattern's first and a Mamba layer; the pattern
+    asks for 8, so it is cut to ("attn", "mamba"))."""
+    return cfg.replace(num_layers=2, block_pattern=("attn", "mamba"))
+
+
 def hybrid_reference_config(cfg):
-    """jamba at full width for the card-vs-CPU check, which runs one unit (8
-    layers, the least its pattern allows): 3 experts, top-2 kept, so that the
-    router chooses and capacity can drop picks; 13.3 B fp32 parameters,
-    53.2 GB a side."""
-    return cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=3))
+    """jamba at full width for the card-vs-CPU check: :func:`jamba_two_layers`
+    with 3 experts, top-2 kept, so that the router chooses and capacity can
+    drop picks; 3.9 B fp32 parameters, 15.5 GB a side (one whole unit was
+    13.3 B, 53.2 GB, and its CPU side took 101-157 s of the one-card run)."""
+    return jamba_two_layers(cfg).replace(moe=dataclasses.replace(cfg.moe, num_experts=3))
 
 
 def release_host_memory() -> None:
@@ -1260,8 +1426,15 @@ def check_reference(cfg, cut: str = "2-layer", full_depth: bool = False) -> None
 
 
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
-TRAIN_REF_SEQ = 256  # tokens of the fp32 train reference's one row
+# tokens of the fp32 train reference's one row (256 until the one-card run
+# outgrew its time: the CPU side's steps take most of the reference phase)
+TRAIN_REF_SEQ = 128
+# whisper's and internvl2's depth in the reference phase (full depth until
+# the one-card run outgrew its time; the serve and train phases keep it)
+REF_LAYERS = 2
 TRAIN_FAMILIES = (  # (family, substrings of kernel names), first match wins
+    ("selective scan backward", ("selective_scan_bwd",)),
+    ("selective scan forward", ("selective_scan_fwd",)),
     ("wkv6 backward", ("wkv6_bwd",)),
     ("wkv6 forward", ("wkv6_",)),
     ("flash attention backward", ("flash_bwd", "group_sum")),
@@ -1378,11 +1551,12 @@ def check_train_reference(cfg, cut: str) -> None:
 # serving, full width
 # ---------------------------------------------------------------------------
 
-def expected_launches(cfg, path: str = "serve") -> dict:
-    """Kernel launches the path implies: for "serve", one generate call (one
-    prefill, then one decode step per further token); for "train", one
-    train step (one forward and one backward pass)."""
+def expected_launches(cfg, path: str = "serve", new: int = MAX_NEW) -> dict:
+    """Kernel launches the path implies: for "serve", one generate call of
+    ``new`` tokens (one prefill, then one decode step per further token);
+    for "train", one train step (one forward and one backward pass)."""
     L = cfg.num_layers
+    mamba = L - attention_layers(cfg) if cfg.family == "hybrid" else 0  # one scan a Mamba layer
     if path == "train":  # each forward kernel's backward runs once per forward launch
         if cfg.family == "ssm":  # rwkv: one WKV6 per layer each way; LayerNorm is plain torch
             flash, norm, wkv = 0, 0, L
@@ -1390,26 +1564,31 @@ def expected_launches(cfg, path: str = "serve") -> dict:
             flash, norm, wkv = cfg.encoder_layers + 2 * L, 0, 0  # cross-attention; LayerNorm
         elif cfg.attn_kind == "mla":  # attention plain torch; q_norm and kv_norm beside ln1, ln2
             flash, norm, wkv = 0, 4 * L + 1, 0
+        elif cfg.family == "hybrid":  # flash in the attention layers, the scan in the others
+            flash, norm, wkv = attention_layers(cfg), 2 * L + 1, 0
         else:  # dense, MoE with GQA, the VLM's LM
             flash, norm, wkv = L, 2 * L + 1, 0
         return {"flash_attention": flash, "flash_attention_bwd": flash, "rmsnorm": norm,
-                "rmsnorm_bwd": norm, "wkv6": wkv, "wkv6_step": 0, "wkv6_bwd": wkv}
-    passes = 1 + (MAX_NEW - 1)
+                "rmsnorm_bwd": norm, "wkv6": wkv, "wkv6_step": 0, "wkv6_bwd": wkv,
+                "selective_scan": mamba, "selective_scan_bwd": mamba}
+    passes = 1 + (new - 1)
     if cfg.family == "audio":  # flash: the encoder, then each decoder layer's self- and
         # cross-attention in prefill, and its cross-attention at every decode step
         return {"flash_attention": cfg.encoder_layers + 2 * L + L * (passes - 1),
-                "rmsnorm": 0, "wkv6": 0, "wkv6_step": 0}  # LayerNorm is plain torch
+                "rmsnorm": 0, "wkv6": 0, "wkv6_step": 0,  # LayerNorm is plain torch
+                "selective_scan": 0}
     if cfg.family == "ssm":  # rwkv: one WKV6 per layer per pass; LayerNorm is plain torch
         return {"flash_attention": 0, "rmsnorm": 0, "wkv6": L,  # chunked: prefill
-                "wkv6_step": L * (passes - 1)}  # one token a step: decode
+                "wkv6_step": L * (passes - 1), "selective_scan": 0}  # one token a step: decode
     if cfg.attn_kind == "mla":  # attention plain torch; q_norm and kv_norm beside ln1, ln2
         return {"flash_attention": 0, "rmsnorm": (4 * L + 1) * passes, "wkv6": 0,
-                "wkv6_step": 0}
-    if cfg.family == "hybrid":  # flash in the attention layers' prefill; mamba is plain torch
+                "wkv6_step": 0, "selective_scan": 0}
+    if cfg.family == "hybrid":  # flash in the attention layers' prefill; the scan kernel in
+        # every Mamba layer, prefill and decode steps alike
         return {"flash_attention": attention_layers(cfg), "rmsnorm": (2 * L + 1) * passes,
-                "wkv6": 0, "wkv6_step": 0}
+                "wkv6": 0, "wkv6_step": 0, "selective_scan": mamba * passes}
     return {"flash_attention": L,  # prefill only (the VLM's too): decode is plain torch
-            "rmsnorm": (2 * L + 1) * passes, "wkv6": 0, "wkv6_step": 0}
+            "rmsnorm": (2 * L + 1) * passes, "wkv6": 0, "wkv6_step": 0, "selective_scan": 0}
 
 
 def analytic_params(cfg) -> int:
@@ -1439,6 +1618,7 @@ def serve(cfg) -> dict:
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.models import get_api, modality_inputs
     from repro_torch.serve.engine import ServeEngine
@@ -1485,13 +1665,14 @@ def serve(cfg) -> dict:
     eng.generate({"tokens": tokens[:, :64], **extra},  # warm-up (Triton JIT, cuBLAS)
                  max_new_tokens=2)
 
-    flash_attention.launches = rmsnorm.launches = 0
+    flash_attention.launches = rmsnorm.launches = selective_scan.launches = 0
     wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = 0
     t0 = time.perf_counter()
     out = eng.generate({"tokens": tokens, **extra}, max_new_tokens=MAX_NEW)
     total_s = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches, "rmsnorm": rmsnorm.launches,
-                "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches}
+                "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches,
+                "selective_scan": selective_scan.launches}
     if wkv6.launches != wkv6.chunk_launches + wkv6.step_launches:
         raise AssertionError(f"wkv6.launches {wkv6.launches} is not the sum of its kernels'")
 
@@ -1567,8 +1748,6 @@ def serve(cfg) -> dict:
         wkv_y_rounding_shift(api, model, batch["tokens"])
     if cfg.attn_kind == "mla":
         mla_attention_ms(cfg)
-    if cfg.family == "hybrid":
-        mamba_scan_ms(cfg)
     profile_phases(api, model, batch, decode_ms)
     return launches
 
@@ -1607,38 +1786,6 @@ def mla_attention_ms(cfg) -> None:
         f"({flops / 1e9:.2f} GFLOP)")
 
 
-def mamba_scan_ms(cfg) -> None:
-    """The selective scan of one Mamba layer at the prefill shape, fp32:
-    the port's plain ``selective_scan`` (chunks of 64, a doubling scan in
-    each) against the bound of a one-pass scan that reads dt, dt·x, B and C
-    once and writes y once.  No single PyTorch call computes it."""
-    from repro_torch.models.ssm import selective_scan
-
-    mc = cfg.mamba
-    d_in, N = mc.expand * cfg.d_model, mc.d_state
-    gen = torch.Generator(device=DEVICE).manual_seed(3)
-    shape = (SERVE_BATCH, PROMPT_LEN)
-    dt = F.softplus(randn(gen, shape + (d_in,), torch.float32) - 4.0)  # dt_bias 0, small dt
-    dtx = dt * randn(gen, shape + (d_in,), torch.float32)
-    Bm, Cm = (randn(gen, shape + (N,), torch.float32) for _ in range(2))
-    A = -torch.arange(1, N + 1, dtype=torch.float32, device=DEVICE).expand(d_in, N)
-    h0 = torch.zeros((SERVE_BATCH, d_in, N), device=DEVICE)
-    y, h = selective_scan(dt, dtx, Bm, Cm, A, h0)
-    sync()
-    if not (torch.isfinite(y).all() and torch.isfinite(h).all()):
-        raise AssertionError("the selective scan gave values that are not finite")
-    ms = time_ms(lambda: selective_scan(dt, dtx, Bm, Cm, A, h0), reps=5)
-    nbytes = (3 * dt.numel() + 2 * Bm.numel()) * 4  # dt, dt·x, B, C read; y written
-    flops = 7.0 * dt.numel() * N  # dt·A, exp, dt·x·B, the recurrence's mul-add, C·h mul-add
-    bound_ms, bound_by = bound(nbytes, flops, torch.float32)
-    layers = cfg.num_layers - attention_layers(cfg)
-    log(f"  mamba selective scan at the prefill shape, one layer (B={SERVE_BATCH}, "
-        f"S={PROMPT_LEN}, d_in={d_in}, N={N}, fp32, chunks of 64): plain torch (the port's path) "
-        f"{ms:.4f} ms, {layers} layers {layers * ms:.3f} ms; library: none (no single PyTorch "
-        f"call); bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP fp32)")
-
-
 def bf16_absorbs(p: torch.Tensor, bound: float) -> bool:
     """True if no entry of the bf16 tensor ``p`` can move by an update of at
     most ``bound``: it is below half the bf16 spacing just under every
@@ -1654,9 +1801,6 @@ def train(cfg, cut: str = "") -> dict:
     two gradient passes from one state on one batch, compared bit for bit;
     returns the kernels' launches in the counted steps and the median step
     ms."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
     from repro_torch.models import get_api
     from repro_torch.train.data import DataConfig, SyntheticData
     from repro_torch.train.optimizer import OptConfig, adamw_update
@@ -1684,9 +1828,7 @@ def train(cfg, cut: str = "") -> dict:
     opt, hp = OptConfig(**TRAIN_OPT), TrainHparams(grad_accum=1)
     batches = [batch_to_torch(data.batch_at(i), DEVICE) for i in range(TRAIN_STEPS + 2)]
 
-    flash_attention.launches = flash_attention_bwd.launches = 0
-    rmsnorm.launches = rmsnorm_bwd.launches = 0
-    wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = wkv6_bwd.launches = 0
+    tp_zero_counts()
     losses, step_ms = [], []
     for i in range(TRAIN_STEPS):
         if i == 0:
@@ -1717,13 +1859,7 @@ def train(cfg, cut: str = "") -> dict:
                 f"values {sorted(set(absorbed))[:3]}...; {len(stuck)} unchanged otherwise {stuck}")
             if stuck:
                 raise AssertionError(f"parameters unchanged after the first step: {stuck}")
-    launches = {"flash_attention": flash_attention.launches,
-                "flash_attention_bwd": flash_attention_bwd.launches,
-                "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches,
-                "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches,
-                "wkv6_bwd": wkv6_bwd.launches}
-    if wkv6.launches != wkv6.chunk_launches + wkv6.step_launches:
-        raise AssertionError(f"wkv6.launches {wkv6.launches} is not the sum of its kernels'")
+    launches = tp_launch_counts()
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
     expect = expected_launches(cfg, "train")
     med = statistics.median(step_ms[1:])
@@ -2226,9 +2362,6 @@ def dist_train(cfg, smi: str, single_ms) -> dict:
     this call), peak memory, collective calls and bytes per mesh axis per
     step (held against the bytes the leaves imply), the kernels' launches
     per step against the path's.  Returns the launches."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
     from repro_torch.launch.mesh import make_mesh, shutdown
     from repro_torch.models import get_api
     from repro_torch.train.data import DataConfig, SyntheticData
@@ -2252,9 +2385,7 @@ def dist_train(cfg, smi: str, single_ms) -> dict:
             f"{len(step.leaves)} JAX leaves, mesh {dict(zip(*reversed(DIST_MESH)))} over NCCL, "
             f"initialised in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x {TRAIN_SEQ}")
         batches = [batch_to_torch(data.batch_at(i), DEVICE) for i in range(TRAIN_STEPS)]
-        flash_attention.launches = flash_attention_bwd.launches = 0
-        rmsnorm.launches = rmsnorm_bwd.launches = 0
-        wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = wkv6_bwd.launches = 0
+        tp_zero_counts()
         losses, ms, comms = [], [], []
         for i in range(TRAIN_STEPS):
             sync()
@@ -2264,11 +2395,7 @@ def dist_train(cfg, smi: str, single_ms) -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(metrics["loss"].item())
             comms.append(step.comm)
-        launches = {"flash_attention": flash_attention.launches,
-                    "flash_attention_bwd": flash_attention_bwd.launches,
-                    "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches,
-                    "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches,
-                    "wkv6_bwd": wkv6_bwd.launches}
+        launches = tp_launch_counts()
         with torch.no_grad():
             again = api.loss(state["model"], batches[-1]).item()
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2337,7 +2464,8 @@ def dist_ranks(count: int) -> None:
             for line in f.read().splitlines():
                 log(f"    {line}")
         failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
-        for r, _ in failed[:1]:
+        # the first rank that failed by itself (the others are killed after it)
+        for r, _ in sorted(failed, key=lambda f: f[1] < 0)[:1]:
             if r:
                 with open(os.path.join(workdir, f"rank{r}.log")) as f:
                     log(f"    rank {r}: {f.read()[-3000:]}")
@@ -2469,6 +2597,7 @@ def tp_ranks(cards: int, smi: str) -> dict:
 def tp_launch_counts() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
     from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 
     if wkv6.launches != wkv6.chunk_launches + wkv6.step_launches:
@@ -2477,17 +2606,20 @@ def tp_launch_counts() -> dict:
             "flash_attention_bwd": flash_attention_bwd.launches,
             "rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches,
             "wkv6": wkv6.chunk_launches, "wkv6_step": wkv6.step_launches,
-            "wkv6_bwd": wkv6_bwd.launches}
+            "wkv6_bwd": wkv6_bwd.launches, "selective_scan": selective_scan.launches,
+            "selective_scan_bwd": selective_scan_bwd.launches}
 
 
 def tp_zero_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
     from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 
     flash_attention.launches = flash_attention_bwd.launches = 0
     rmsnorm.launches = rmsnorm_bwd.launches = 0
     wkv6.launches = wkv6.chunk_launches = wkv6.step_launches = wkv6_bwd.launches = 0
+    selective_scan.launches = selective_scan_bwd.launches = 0
 
 
 def tp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
@@ -2805,7 +2937,8 @@ def spawn_ranks(flag: str, world: int, backend: str, timeout_s: float, what: str
             for line in f.read().splitlines():
                 log(f"    {line}")
         failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
-        for r, _ in failed[:1]:
+        # the first rank that failed by itself (the others are killed after it)
+        for r, _ in sorted(failed, key=lambda f: f[1] < 0)[:1]:
             if r:
                 with open(os.path.join(workdir, f"rank{r}.log")) as f:
                     log(f"    rank {r}: {f.read()[-3000:]}")
@@ -2833,15 +2966,19 @@ def fsdp_ranks(cards: int, smi: str) -> dict:
     return launched
 
 
-def fsdp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
-    """gemma2-9b at full width cut to FSDP_REF_LAYERS layers (one local and
-    one global layer) in fp32, one row of TRAIN_REF_SEQ tokens a rank: one
+def fsdp_check(mesh, rank: int, world: int, sequential: bool, cfg=None) -> dict:
+    """``cfg`` (fp32; by default gemma2-9b at full width cut to
+    FSDP_REF_LAYERS layers, one local and one global layer), one row of
+    TRAIN_REF_SEQ tokens (and the family's frames or patches) a rank: one
     flat step with ``fsdp`` against the single-device ``train_step`` on the
     same card from the same seed on the same global batch (``init_state``
     gives each rank its blocks of the weights ``api.init`` draws).  Each
     rank holds its blocks: the loss, the grad norm, every parameter block
     where |g| > 1e-3 max|g| of the leaf (within 1e-2 lr), and the gradient
-    read from every moment block (within 1e-3 max|g|).  With ``sequential``
+    read from every moment block (within 1e-3 max|g|).  An MoE model's DP
+    ranks route their rows apart (the auxiliary loss too), so its reference
+    takes each rank's rows as one of ``grad_accum`` microbatches.  With
+    ``sequential``
     (ranks sharing a card) the ranks build the reference one after the
     other.  Returns the kernels' launches of the step."""
     from repro_torch import configs
@@ -2851,8 +2988,8 @@ def fsdp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
     from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step, \
         train_step
 
-    cfg = configs.get_config(FSDP_ARCH).replace(num_layers=FSDP_REF_LAYERS,
-                                                param_dtype="float32", compute_dtype="float32")
+    cfg = cfg or configs.get_config(FSDP_ARCH).replace(
+        num_layers=FSDP_REF_LAYERS, param_dtype="float32", compute_dtype="float32")
     batch = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=world, seq=TRAIN_REF_SEQ),
                           model_cfg=cfg).batch_at(0)
     opt = OptConfig(**TRAIN_OPT)
@@ -2868,8 +3005,10 @@ def fsdp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
             continue
         model = get_api(cfg, dev).init(seed=1)
         opt_state = adamw_init(model)
+        # an MoE model's DP ranks route (and sum the auxiliary loss over)
+        # their rows apart: the reference takes each rank's rows as a microbatch
         ref = {k: v.item() for k, v in train_step(model, opt_state, batch_to_torch(
-            batch, dev), opt).items()}
+            batch, dev), opt, TrainHparams(grad_accum=step.n_dp if cfg.moe else 1)).items()}
         g_of = (1 - b1) * min(1.0, opt.clip_norm / max(ref["grad_norm"], 1e-9))
         for (key, p_ref), (_, m_ref) in zip(jax_keyed(dict(model.named_parameters()), cfg),
                                             jax_keyed(opt_state["m"], cfg)):
@@ -2906,7 +3045,8 @@ def fsdp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
     ok = loss_err <= 1e-5 and norm_err <= 1e-4 and p_err <= 1e-2 * lr and g_err <= 1
     total = sum(int(np.prod(s)) for s in step.shapes.values())
     log(f"rank {rank} of mesh {tuple(mesh.shape)} ({mesh.device}): {cfg.name} at full width cut "
-        f"to {cfg.num_layers} layers, fp32, {world} x {TRAIN_REF_SEQ} tokens (one row a rank); "
+        f"to {cfg.num_layers} layers" + (f", {cfg.moe.num_experts} experts" if cfg.moe else "")
+        + f", fp32, {world} x {TRAIN_REF_SEQ} tokens ({world // step.n_dp} rows a DP rank); "
         f"holds {held / 1e9:.3f} B of {total / 1e9:.3f} B parameters; the reference "
         f"{t1 - t0:.1f} s, init_state and the step {t2 - t1:.1f} s (first call); flat step "
         f"with fsdp vs the single-device train_step on the card: loss {metrics['loss']:.6f} / "
@@ -2923,14 +3063,17 @@ def fsdp_check(mesh, rank: int, world: int, sequential: bool) -> dict:
     return launches
 
 
-def fsdp_bytes(step) -> tuple:
+def fsdp_bytes(step, model) -> tuple:
     """(calls, bytes) of a flat FSDP step over the DP group that the leaves
-    imply: each cut leaf gathered (all-gather output or broadcast, in the
-    param dtype) and its gradient reduced (fp32) once a use, a layer's
-    tensor at a time; the tied table twice (the embedding and the loss);
-    then the loss, the whole leaves' fp32 gradients and the cut leaves'
-    squares all-reduced."""
+    imply: each cut leaf gathered (all-gather output or broadcast, in its
+    own dtype: fp32 leaves such as Mamba's ``A_log`` stay fp32) and its
+    gradient reduced (fp32) once a use, a layer's tensor at a time; the
+    tied table twice (the embedding and the loss: the decoder's
+    ``embed/tok``, the VLM's ``lm/embed/tok``, whisper's ``tok``); then
+    the loss, the whole leaves' fp32 gradients and the cut leaves' squares
+    all-reduced."""
     cfg = step.cfg
+    named = dict(model.named_parameters())
     calls = nbytes = n_cut = 0
     for key, names in step.leaves.items():
         numel = int(np.prod(step.local[key]))
@@ -2938,22 +3081,26 @@ def fsdp_bytes(step) -> tuple:
             calls, nbytes = calls + 1, nbytes + 4 * numel
             continue
         n_cut += 1
-        uses = 2 if key == "embed/tok" and cfg.tie_embeddings else 1
+        tied = cfg.tie_embeddings and key in ("embed/tok", "lm/embed/tok", "tok")
+        uses = 2 if tied else 1
         pieces = len(names) if isinstance(names, tuple) else 1
+        itemsize = named[names[0] if isinstance(names, tuple) else names].element_size()
         calls += 2 * uses * pieces
-        nbytes += uses * numel * (cfg.pdtype.itemsize + 4)
+        nbytes += uses * numel * (itemsize + 4)
     return calls + 2, nbytes + 4 + 4 * n_cut
 
 
-def fsdp_train(mesh, rank: int, world: int) -> dict:
-    """Full gemma2-9b in bf16 (fp32 moments) with ``fsdp`` (one rank a
-    card), global batch FSDP_ROWS x world x TRAIN_SEQ of the affine data,
-    FSDP_STEPS flat steps: every loss finite and the last batch's loss
-    lower after its step; step ms (median of steps 1..), tok/s, peak memory
-    on every rank, the kernels' launches a step against the path's, the DP
-    group's collectives a step against the bytes the leaves imply, then a
-    step's forward and backward alone against the rest.  Full depth.
-    Returns the launches."""
+def fsdp_train(mesh, rank: int, world: int, cfg=None, steps: int = FSDP_STEPS,
+               rows_a_rank: int = FSDP_ROWS) -> dict:
+    """``cfg`` (by default full gemma2-9b) in bf16 (fp32 moments) with
+    ``fsdp`` (one rank a card), global batch ``rows_a_rank`` x world x
+    TRAIN_SEQ (whisper: its 448-token text and 1500 frames) of the affine
+    data, ``steps`` flat steps: every loss finite and the last batch's
+    loss lower after its step; step ms (median of steps 1..), tok/s, peak
+    memory on every rank, the kernels' launches a step against the path's,
+    the DP group's collectives a step against the bytes the leaves imply,
+    then a step's forward and backward alone against the rest.  Returns the
+    launches."""
     from repro_torch import configs
     from repro_torch.models import get_api
     from repro_torch.models.registry import loss_fn
@@ -2961,11 +3108,11 @@ def fsdp_train(mesh, rank: int, world: int) -> dict:
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainstep import TrainHparams, batch_to_torch, make_train_step
 
-    cfg = configs.get_config(FSDP_ARCH)
-    rows = FSDP_ROWS * world
+    cfg = cfg or configs.get_config(FSDP_ARCH)
+    rows, seq = rows_a_rank * world, TRAIN_TEXT.get(cfg.name, TRAIN_SEQ)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=rows, seq=TRAIN_SEQ,
+    data = SyntheticData(DataConfig(vocab_size=cfg.vocab_size, batch=rows, seq=seq,
                                     mode="affine"), model_cfg=cfg)
     step = make_train_step(get_api(cfg, mesh.device, mesh=mesh, fsdp=True), cfg,
                            OptConfig(**TRAIN_OPT), mesh, TrainHparams(fsdp=True),
@@ -2977,14 +3124,15 @@ def fsdp_train(mesh, rank: int, world: int) -> dict:
     total = sum(int(np.prod(s)) for s in step.shapes.values())
     init_peak = torch.cuda.max_memory_allocated() / 2**30
     if rank == 0:
-        log(f"{cfg.name}: {cfg.num_layers} layers (full depth), bf16 with fp32 moments, "
-            f"{held / 1e9:.3f} B of {total / 1e9:.3f} B parameters a rank, initialised in "
-            f"{time.perf_counter() - t0:.1f} s (peak {init_peak:.2f} GiB while drawing); batch "
-            f"{rows} x {TRAIN_SEQ} ({FSDP_ROWS} rows a rank)")
-    batches = [batch_to_torch(data.batch_at(i), mesh.device) for i in range(FSDP_STEPS)]
+        log(f"{cfg.name}: {cfg.num_layers} layers"
+            + (f", {cfg.moe.num_experts} experts" if cfg.moe else "")
+            + f", bf16 with fp32 moments, {held / 1e9:.3f} B of {total / 1e9:.3f} B parameters "
+            f"a rank, initialised in {time.perf_counter() - t0:.1f} s (peak {init_peak:.2f} GiB "
+            f"while drawing); batch {rows} x {seq} ({rows_a_rank} rows a rank)")
+    batches = [batch_to_torch(data.batch_at(i), mesh.device) for i in range(steps)]
     tp_zero_counts()
     losses, ms = [], []
-    for i in range(FSDP_STEPS):
+    for i in range(steps):
         torch.distributed.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3001,9 +3149,9 @@ def fsdp_train(mesh, rank: int, world: int) -> dict:
         after = after.item() / step.n_dp
     med = statistics.median(ms[1:])
     parts = fsdp_step_parts(step, state, batches[0], med)
-    per_step = {k: n / FSDP_STEPS for k, n in launches.items()}
+    per_step = {k: n / steps for k, n in launches.items()}
     want = {k: v for k, v in expected_launches(cfg, "train").items() if k in per_step}
-    calls, nbytes = fsdp_bytes(step)
+    calls, nbytes = fsdp_bytes(step, state["model"])
     dp = "+".join(step.dp)
     got = comm.get(dp, {})
     leaves_bytes = sum(int(np.prod(s)) * cfg.pdtype.itemsize for s in step.local.values())
@@ -3011,8 +3159,8 @@ def fsdp_train(mesh, rank: int, world: int) -> dict:
         log(parts)
         log(f"losses {[round(x, 4) for x in losses]}; the last batch after its step "
             f"{after:.4f}")
-        log(f"step {med:.1f} ms (median of steps 1..{FSDP_STEPS - 1}; step 0 {ms[0]:.1f} ms), "
-            f"{rows * TRAIN_SEQ / med * 1e3:.0f} tok/s, peak device memory {peak:.2f} GiB on "
+        log(f"step {med:.1f} ms (median of steps 1..{steps - 1}; step 0 {ms[0]:.1f} ms), "
+            f"{rows * seq / med * 1e3:.0f} tok/s, peak device memory {peak:.2f} GiB on "
             f"rank 0; launches per step per rank {per_step}; collectives per step (calls, bytes "
             f"handed in) {comm}; the leaves imply {calls} calls and {nbytes / 1e9:.3f} GB over "
             f"{dp} (the whole model in bf16 is {leaves_bytes / 1e9:.3f} GB: each cut leaf "
@@ -3038,8 +3186,8 @@ def fsdp_step_parts(step, state, batch, step_ms: float) -> str:
     """Where an FSDP step's time goes: one forward and backward alone
     (``_accum_grads``, the gathers and gradient reductions in it) against
     the rest of the step (the whole leaves' all-reduce, the norm, AdamW on
-    the blocks), and one all-gather of the largest layer's bf16 blocks
-    alone (median of 20, CUDA events)."""
+    the blocks), and one all-gather of the largest tensor cut inside its
+    layer alone (median of 20, CUDA events)."""
     from repro_torch.dist.fsdp import _AllGather
     from repro_torch.train.trainstep import _accum_grads
 
@@ -3050,7 +3198,9 @@ def fsdp_step_parts(step, state, batch, step_ms: float) -> str:
     torch.cuda.synchronize()
     fwd_bwd = (time.perf_counter() - t0) * 1e3
     del loss, grads
-    wi = state["model"].layers[0].ffn.wi
+    wi = max((p for p in state["model"].parameters() if getattr(p, "fsdp_dim", None) is not None),
+             key=lambda p: int(np.prod(p.fsdp_shape)))
+    name = next(n for n, p in state["model"].named_parameters() if p is wi)
     times = []
     for _ in range(23):
         torch.distributed.barrier()
@@ -3067,8 +3217,9 @@ def fsdp_step_parts(step, state, batch, step_ms: float) -> str:
     size = int(np.prod(wi.fsdp_shape)) * wi.element_size()
     return (f"a step's parts: forward and backward alone {fwd_bwd:.1f} ms (ZeRO-3's gathers and "
             f"gradient reductions in it), the rest of the step (the whole leaves' all-reduce, "
-            f"the norm, AdamW on the blocks) {step_ms - fwd_bwd:.1f} ms; one all-gather of a "
-            f"layer's ffn.wi ({tuple(wi.fsdp_shape)}, {size / 1e6:.1f} MB) {ag:.3f} ms, "
+            f"the norm, AdamW on the blocks) {step_ms - fwd_bwd:.1f} ms; one all-gather of the "
+            f"largest gathered tensor, {name} ({tuple(wi.fsdp_shape)}, {size / 1e6:.1f} MB), "
+            f"{ag:.3f} ms, "
             f"{size / ag / 1e6:.1f} GB/s of output")
 
 
@@ -3253,13 +3404,15 @@ def cache_multiples(by_kind: dict) -> str:
                      for kind, (held, spec) in sorted(by_kind.items()))
 
 
-def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: bool) -> dict:
+def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: bool,
+                   new=None) -> dict:
     """``cfg`` (fp32) served on ``mesh`` (``fsdp``: ZeRO-3 blocks) against the
     single-device model on the same card from the same seed, on world rows
     of SERVE_TP_PROMPT tokens and SERVE_TP_NEW new ones (SERVE_TP_NEW_FSDP
     with ``fsdp``): the rank's rows of
     every call's logits within SERVE_TP_TOL, the greedy tokens equal (the
-    engine's, gathered over the DP group), every MoE routing decision equal,
+    engine's, gathered over the DP group; ``new`` of them if given), every
+    MoE routing decision equal,
     and the rank's cache bytes against ``cache_specs``'.  With
     ``sequential`` (ranks sharing a card) the ranks build the reference one
     after the other.  Returns the kernels' launches of the rank's run."""
@@ -3267,7 +3420,7 @@ def serve_tp_check(mesh, rank: int, world: int, cfg, fsdp: bool, sequential: boo
     from repro_torch.models import get_api, modality_inputs
 
     dev = mesh.device
-    new = SERVE_TP_NEW_FSDP if fsdp else SERVE_TP_NEW
+    new = new or (SERVE_TP_NEW_FSDP if fsdp else SERVE_TP_NEW)
     rng = np.random.default_rng(2)
     tokens = rng.integers(0, cfg.vocab_size, size=(world, SERVE_TP_PROMPT)).astype(np.int64)
     inputs = {"tokens": tokens, **modality_inputs(cfg, rng, world)}
@@ -3644,6 +3797,218 @@ def tp_families_rank(rank: int, world: int, backend: str, workdir: str) -> int:
         shutdown()
 
 
+FSDPF_RANK_TIMEOUT_S = 1500
+FSDPF_REF_LAYERS = 2  # the fp32 checks' cut of rwkv6-1.6b and internvl2-1b, whisper-small's 2 + 2
+FSDPF_REF_EXPERTS = 2  # jamba's fp32 checks: 2 of its 16 experts (top-2 kept)
+FSDPF_CHECK_NEW = 5  # the fp32 serve checks: a prefill and 4 greedy decode steps
+FSDPF_SERVE_NEW = 8  # jamba's bf16 serve run with fsdp: a prefill of 4 x 1024, 8 new tokens
+FSDPF_TRAIN_EXPERTS = 2  # jamba's bf16 FSDP train run: its unit with 2 of 16 experts
+FSDPF_STEPS = 6  # jamba's bf16 FSDP train run; rwkv6, whisper and internvl2 take 2
+
+
+def fsdp_families_ranks(cards: int, smi: str) -> dict:
+    """The ``fsdp_families:`` phase: ZeRO-3 for rwkv6, jamba, whisper and the
+    VLM, ranks each this script with ``--fsdp-families-rank``
+    (:func:`fsdp_families_rank`).  On one card two ranks over gloo with CUDA
+    tensors, mesh (1, 2, 1): a check, not the launcher's path.  On a host of
+    4 or more cards four ranks over NCCL, one a card: the checks at
+    (1, 4, 1) and (1, 2, 2), then the bf16 runs at (1, 4, 1).  Returns rank
+    0's kernel launches per path."""
+    world, backend = (4, "nccl") if cards >= 4 else (2, "gloo")
+    launched = spawn_ranks("--fsdp-families-rank", world, backend, FSDPF_RANK_TIMEOUT_S,
+                           "fsdp_families")
+    log(f"  {smi}")
+    return launched
+
+
+def fsdp_families_cases(world: int) -> list:
+    """(config, mesh shape, serve, train) of the fp32 checks: rwkv6-1.6b and
+    internvl2-1b cut to FSDPF_REF_LAYERS layers and whisper-small to as many
+    encoder and decoder layers (1500 frames), served and trained.  jamba:
+    on 4 cards (NCCL, a card a rank) its whole unit with FSDPF_REF_EXPERTS
+    experts (10.9 B) served and its :func:`jamba_two_layers` cut (2.9 B: one
+    fp32 AdamW reference takes 46 GB) trained, at (1, 4, 1) and (1, 2, 2).
+    On one card the two gloo ranks hold what autograd keeps of the gathered
+    weights twice and move every gather through the host, so jamba is cut
+    to one Mamba layer with its dense MLP (1.6 B), trained at (1, 2, 1)
+    (its serving with ``fsdp``, MoE routing over the DP group included, is
+    held on 4 cards)."""
+    from repro_torch import configs
+
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    rwkv = configs.get_config("rwkv6-1.6b").replace(num_layers=FSDPF_REF_LAYERS, **fp32)
+    whisper = configs.get_config(WHISPER_ARCH).replace(
+        num_layers=FSDPF_REF_LAYERS, encoder_layers=FSDPF_REF_LAYERS, **fp32)
+    vlm = configs.get_config(VLM_ARCH).replace(num_layers=FSDPF_REF_LAYERS, **fp32)
+    jamba = configs.get_config(HYBRID_ARCH)
+    moe = dataclasses.replace(jamba.moe, num_experts=FSDPF_REF_EXPERTS)
+    jamba = jamba.replace(num_layers=len(jamba.block_pattern), moe=moe, **fp32)
+    if world == 2:
+        one = jamba.replace(num_layers=1, block_pattern=("mamba",), moe=None)
+        return [(c, (1, 2, 1), True, True) for c in (rwkv, whisper, vlm)] + [
+            (one, (1, 2, 1), False, True)]
+    out = []
+    for shape in ((1, world, 1), (1, 2, world // 2)):
+        out += [(c, shape, True, True) for c in (rwkv, whisper, vlm)]
+        out += [(jamba, shape, True, False), (jamba_two_layers(jamba), shape, False, True)]
+    return out
+
+
+def fsdpf_path(cfg, shape, what: str) -> str:
+    """The name of an ``fsdp_families:`` path in the launches."""
+    cut = f"{cfg.num_layers}-layer" + (f", {cfg.moe.num_experts}-expert" if cfg.moe else
+                                       ", no MoE" if cfg.family == "hybrid" else "")
+    return f"fsdp_families {cfg.name} fp32 {cut} {what} check, mesh {shape}"
+
+
+def fsdp_serve_full(mesh, rank: int, world: int, cfg, new: int = FSDPF_SERVE_NEW) -> dict:
+    """``cfg`` in bf16 with ``fsdp`` on ``mesh`` (one rank a card), batch
+    SERVE_BATCH x PROMPT_LEN + ``new`` through ``ServeEngine.generate``:
+    each rank holds its blocks and gathers every layer whole for each pass.
+    Prefill ms, decode ms/token, tok/s and peak memory on every rank (while
+    drawing and while serving), the kernels' launches against the path's,
+    the DP group's calls and bytes of one prefill and of one decode step
+    (against the whole model's bytes: each pass gathers every leaf once,
+    the tied table twice when the logits are read), and the rank's cache
+    against ``cache_specs``'.  Returns the launches."""
+    from repro_torch.models import get_api
+    from repro_torch.models.registry import model_class
+    from repro_torch.serve.engine import ServeEngine
+
+    dev = mesh.device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api = get_api(cfg, dev, mesh=mesh, fsdp=True)
+    t0 = time.perf_counter()
+    model = api.init(seed=0)
+    torch.cuda.synchronize()
+    held = sum(p.numel() for p in model.parameters())
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    whole = model_class(cfg)(cfg, torch.device("meta"))
+    whole_b = sum(p.numel() * p.element_size() for p in whole.parameters())
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int64)
+    inputs = {"tokens": tokens}
+    s_max = PROMPT_LEN + new
+    if rank == 0:
+        log(f"{cfg.name}: {cfg.num_layers} layers, {cfg.moe.num_experts} experts, "
+            f"{str(cfg.pdtype)[6:]}, fsdp: {held / 1e9:.3f} B parameters a rank of the whole "
+            f"model's {sum(p.numel() for p in whole.parameters()) / 1e9:.3f} B "
+            f"({whole_b / 1e9:.2f} GB), initialised in {time.perf_counter() - t0:.1f} s (peak "
+            f"{init_peak:.2f} GiB while drawing); batch {SERVE_BATCH} x {PROMPT_LEN} + {new}")
+    del whole
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(api, model, batch=SERVE_BATCH, s_max=s_max, mesh=mesh)
+    eng.generate(dict(inputs, tokens=tokens[:, :64]), max_new_tokens=2)  # warm-up
+    torch.distributed.barrier()
+    tp_zero_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(inputs, max_new_tokens=new)
+    total_s = time.perf_counter() - t0
+    launches = {k: n for k, n in tp_launch_counts().items() if not k.endswith("_bwd")}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t = eng.timing
+    prefill_ms, decode_ms = t["prefill_s"] * 1e3, t["decode_s"] * 1e3 / t["decode_steps"]
+    local = {k: torch.from_numpy(v).to(dev) for k, v in eng.local_inputs(inputs).items()}
+    comm = {}
+    with torch.inference_mode():
+        cache = api.init_cache(SERVE_BATCH, s_max)
+        api.dp.comm = {}
+        logits, cache = api.prefill(model, local, cache, last_only=True)
+        comm["prefill"], api.dp.comm = api.dp.comm.get(api.dp.name, {}), {}
+        logits, cache = api.decode(model, logits[:, -1].argmax(-1)[:, None], cache)
+        comm["decode step"] = api.dp.comm.get(api.dp.name, {})
+    del cache
+    peaks = [torch.zeros((), device=dev) for _ in range(world)]
+    torch.distributed.all_gather(peaks, torch.tensor(peak, device=dev))
+    want = {k: v for k, v in expected_launches(cfg, new=new).items() if k in launches}
+    held_b, implied_b, _, by_kind = cache_bytes(api, mesh, SERVE_BATCH, s_max)
+    if rank == 0:
+        log(f"generated {out.shape}: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} "
+            f"ms/token, {SERVE_BATCH * new / total_s:.1f} tok/s over {total_s:.3f} s; launches "
+            f"{launches} (the path's {want}); peak device memory per rank "
+            f"{[round(p.item(), 2) for p in peaks]} GiB; cache {held_b:,} B a rank, cache_specs "
+            f"gives {implied_b:,} B ({held_b / implied_b:.2f}x; by leaf: "
+            f"{cache_multiples(by_kind)}); the DP group's collectives (calls, bytes) of one "
+            f"prefill {comm['prefill']} and of one decode step {comm['decode step']} (the whole "
+            f"model is {whole_b / 1e9:.2f} GB)")
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want} implied by the path")
+    if out.shape != (SERVE_BATCH, new) or out.min() < 0 or out.max() >= cfg.vocab_size \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"generated ids out of range or logits not finite: {out.shape}")
+    if held_b != implied_b:
+        raise AssertionError(f"the rank's cache {held_b} B != cache_specs' {implied_b} B")
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fsdp_families_rank(rank: int, world: int, backend: str, workdir: str) -> int:
+    """One rank of :func:`fsdp_families_ranks`: each fp32 check serves
+    FSDPF_CHECK_NEW tokens (:func:`serve_tp_check` with ``fsdp``) and takes
+    one flat FSDP step (:func:`fsdp_check`); then on 4 cards, in bf16 at full
+    width at (1, 4, 1): jamba's whole unit (8 layers, all 16 experts) served
+    with ``fsdp`` (:func:`fsdp_serve_full`), its unit with
+    FSDPF_TRAIN_EXPERTS experts trained FSDPF_STEPS flat FSDP steps (batch
+    4 x 1024), then two flat FSDP steps each of rwkv6-1.6b, whisper-small
+    and internvl2-1b (:func:`fsdp_train`).  Rank 0 writes the launches of
+    each path."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one_card = backend == "gloo"
+    cases = fsdp_families_cases(world)
+    init = dict(device="cuda:0" if one_card else f"cuda:{rank}",
+                init_method=f"file://{workdir}/store", world_size=world, rank=rank,
+                **({"backend": "gloo"} if one_card else {}))
+    meshes = {}
+    for _, shape, _, _ in cases:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("pod", "data", "model"), **init)
+    try:
+        what = ("2 ranks on one card over gloo (a check, not the launcher's path)" if one_card
+                else f"{world} ranks over NCCL, one a card")
+        if rank == 0:
+            log(f"meshes (pod, data, model) = {sorted(meshes)}, {what}")
+        launched = {}
+        for cfg, shape, serve_it, train_it in cases:
+            if serve_it:
+                launched[fsdpf_path(cfg, shape, "serve")] = serve_tp_check(
+                    meshes[shape], rank, world, cfg, True, sequential=one_card,
+                    new=FSDPF_CHECK_NEW)
+            if train_it:
+                launched[fsdpf_path(cfg, shape, "train")] = fsdp_check(
+                    meshes[shape], rank, world, one_card, cfg)
+            torch.cuda.empty_cache()
+        if not one_card:
+            mesh = meshes[(1, world, 1)]
+            jamba = configs.get_config(HYBRID_ARCH)
+            jamba = jamba.replace(num_layers=len(jamba.block_pattern))
+            launched[f"fsdp_families {jamba.name} ({jamba.num_layers} layers, "
+                     f"{jamba.moe.num_experts} experts) bf16 serve, mesh {mesh.shape}"] = \
+                fsdp_serve_full(mesh, rank, world, jamba)
+            two = jamba.replace(moe=dataclasses.replace(jamba.moe,
+                                                        num_experts=FSDPF_TRAIN_EXPERTS))
+            launched[f"fsdp_families {two.name} ({two.num_layers} layers, "
+                     f"{two.moe.num_experts} experts) bf16 train, mesh {mesh.shape}"] = \
+                fsdp_train(mesh, rank, world, two, FSDPF_STEPS, 1)
+            for arch in ("rwkv6-1.6b", WHISPER_ARCH, VLM_ARCH):
+                cfg = configs.get_config(arch)
+                launched[f"fsdp_families {cfg.name} bf16 train, mesh {mesh.shape}"] = \
+                    fsdp_train(mesh, rank, world, cfg, 2, 1)
+                torch.cuda.empty_cache()
+        if rank == 0:
+            with open(os.path.join(workdir, "launches.json"), "w") as f:
+                json.dump(launched, f)
+        return 0
+    finally:
+        shutdown()
+
+
 def check_rank_shapes(gen) -> dict:
     """The kernels at the shapes a rank of the model axis gives them on the
     tp_families paths, each against its plain version at the existing
@@ -3857,10 +4222,12 @@ def phase(name) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("dist", "ranks", "tp", "fsdp", "serve_tp", "tp_families"),
+    ap.add_argument("--only", choices=("dist", "ranks", "tp", "fsdp", "serve_tp", "tp_families",
+                                       "fsdp_families"),
                     help="the device and build phases, then only the dist phase, its "
                          "multi-rank check, the tp phase, the fsdp phase, the serve_tp "
-                         "phase or the tp_families phase (with its kernels' rank shapes)")
+                         "phase, the tp_families phase (with its kernels' rank shapes) or "
+                         "the fsdp_families phase (with the selective-scan kernels)")
     ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)  # a rank of dist_ranks
     ap.add_argument("--dist-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
@@ -3868,6 +4235,7 @@ def main(argv=None) -> int:
     ap.add_argument("--fsdp-rank", type=int, help=argparse.SUPPRESS)  # a rank of fsdp_ranks
     ap.add_argument("--serve-tp-rank", type=int, help=argparse.SUPPRESS)  # of serve_tp_ranks
     ap.add_argument("--tp-families-rank", type=int, help=argparse.SUPPRESS)  # of tp_families_ranks
+    ap.add_argument("--fsdp-families-rank", type=int, help=argparse.SUPPRESS)  # of fsdp_families
     ap.add_argument("--rank-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--rank-backend", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3888,6 +4256,9 @@ def main(argv=None) -> int:
     if args.tp_families_rank is not None:
         return tp_families_rank(args.tp_families_rank, args.rank_world, args.rank_backend,
                                 args.dist_dir)
+    if args.fsdp_families_rank is not None:
+        return fsdp_families_rank(args.fsdp_families_rank, args.rank_world, args.rank_backend,
+                                  args.dist_dir)
     from repro_torch import configs
     from repro_torch.kernels import build
 
@@ -3910,8 +4281,16 @@ def main(argv=None) -> int:
 
     gemma, rwkv = (configs.get_config(a) for a in ARCHS)
     if args.only:
-        phase(args.only if args.only in ("tp", "fsdp", "serve_tp", "tp_families") else "dist")
-        if args.only == "tp_families":
+        phase(args.only if args.only in ("tp", "fsdp", "serve_tp", "tp_families",
+                                         "fsdp_families") else "dist")
+        if args.only == "fsdp_families":
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            log(json.dumps({"selective_scan": check_selective_scan(
+                gen, configs.get_config(HYBRID_ARCH))}))
+            del gen
+            torch.cuda.empty_cache()
+            fsdp_families_ranks(torch.cuda.device_count(), smi)
+        elif args.only == "tp_families":
             gen = torch.Generator(device=DEVICE).manual_seed(0)
             log(json.dumps({"rank_shapes": check_rank_shapes(gen)}))
             del gen
@@ -3946,7 +4325,7 @@ def main(argv=None) -> int:
         f"in time_ms's window")
     kernels = [check_flash(gen), check_rmsnorm(gen, gemma.d_model), *check_wkv6(gen, rwkv),
                check_flash_bwd(gen), check_rmsnorm_bwd(gen, gemma.d_model),
-               check_wkv6_bwd(gen, rwkv)]
+               check_wkv6_bwd(gen, rwkv), *check_selective_scan(gen, jamba)]
     rank_shapes = check_rank_shapes(gen)
     for k in kernels:
         k["launch_floor_ms"] = floor_ms
@@ -3959,9 +4338,11 @@ def main(argv=None) -> int:
             (moe_reference_config(deepseek),
              "cut to 2 layers (first_dense 1) and 16 experts (top-8 kept),", False),
             (hybrid_reference_config(jamba),
-             "cut to one unit (8 layers) and 3 experts (top-2 kept),", False),
-            (whisper, "at full depth (12 encoder + 12 decoder layers, 1500 frames),", True),
-            (internvl2, "at full depth (24 layers, 256 patches),", True)):
+             "cut to 2 layers (its attention layer and a Mamba layer with MoE) and 3 experts "
+             "(top-2 kept),", False),
+            (whisper.replace(num_layers=REF_LAYERS, encoder_layers=REF_LAYERS),
+             "cut to 2 encoder + 2 decoder layers (1500 frames),", True),
+            (internvl2, "2-layer (256 patches)", False)):
         check_reference(cfg, cut, full_depth)
         torch.cuda.empty_cache()
         release_host_memory()
@@ -3970,9 +4351,11 @@ def main(argv=None) -> int:
                      (rwkv.replace(num_layers=2), "2-layer"),
                      (gemma2.replace(num_layers=FSDP_REF_LAYERS), "2-layer (one local and one "
                                                                   "global layer)"),
-                     (whisper, "at full depth (12 encoder + 12 decoder layers)"),
-                     (internvl2, "at full depth (24 layers)"),
-                     (deepseek_train, moe_cut(deepseek_train)), (grok_train, moe_cut(grok_train))):
+                     (whisper.replace(num_layers=REF_LAYERS, encoder_layers=REF_LAYERS),
+                      "cut to 2 encoder + 2 decoder layers"),
+                     (internvl2.replace(num_layers=REF_LAYERS), "2-layer"),
+                     (one_moe_layer(deepseek_train), moe_cut(one_moe_layer(deepseek_train))),
+                     (grok_train, moe_cut(grok_train))):
         check_train_reference(cfg, cut)
         torch.cuda.empty_cache()
         release_host_memory()
@@ -4009,6 +4392,9 @@ def main(argv=None) -> int:
     phase("tp_families")
     torch.cuda.empty_cache()
     launched.update(tp_families_ranks(torch.cuda.device_count(), smi))
+    phase("fsdp_families")
+    torch.cuda.empty_cache()
+    launched.update(fsdp_families_ranks(torch.cuda.device_count(), smi))
     # each kernel's launches in the run of the path that drives it; the
     # forward kernels run in serving and training alike
     paths = {f"serve {gemma.name}": runs[gemma.name], f"serve {rwkv.name}": runs[rwkv.name],
@@ -4024,10 +4410,19 @@ def main(argv=None) -> int:
     driven_by = {"flash_attention": f"serve {gemma.name}", "rmsnorm": f"serve {gemma.name}",
                  "wkv6": f"serve {rwkv.name}", "wkv6_step": f"serve {rwkv.name}",
                  "flash_attention_bwd": f"train {gemma.name}",
-                 "rmsnorm_bwd": f"train {gemma.name}", "wkv6_bwd": f"train {rwkv.name}"}
+                 "rmsnorm_bwd": f"train {gemma.name}", "wkv6_bwd": f"train {rwkv.name}",
+                 "selective_scan": f"serve {jamba.name} ({jamba.num_layers} layers, "
+                                   f"{jamba.moe.num_experts} experts)",
+                 "selective_scan_bwd": next(
+                     fsdpf_path(c, shape, "train") for c, shape, _, train_it in
+                     fsdp_families_cases(4 if torch.cuda.device_count() >= 4 else 2)
+                     if c.family == "hybrid" and train_it)}
     for k in kernels:
-        k["launches"] = paths[driven_by[k["name"]]][k["name"]]
+        k["launches"] = paths[driven_by[k["name"]]].get(k["name"], 0)
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if n.get(k["name"])}
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']} was not launched on its path "
+                                 f"{driven_by[k['name']]!r}")
     phase(None)
     print(smi)
     print(json.dumps({"kernels": kernels}))

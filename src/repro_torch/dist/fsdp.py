@@ -26,12 +26,18 @@ layer's tensor, which keeps the block's ``tp_dim`` for the model axis's
 collectives (``dist.tensor_parallel``).
 
 :func:`gathered` swaps a module's blocks for their gathered tensors for the
-length of a ``with`` block: the decoder gathers each layer, the embedding
-and the final norm just before their use (``models.transformer``), and the
-fused loss gathers the tied table again.  The gathered tensors that the
-layer's backward needs are kept by autograd until then (not gathered again),
-so between the forward and the backward a rank holds the whole model's
-weights once; the blocks, the moments and the gradients stay cut.
+length of a ``with`` block.  Every family gathers each module just before
+its use: the decoder each layer (dense, MoE, rwkv or Mamba), the embedding
+and the final norm (``models.transformer``); whisper each encoder and
+decoder layer, its two LayerNorms and its ``tok`` and ``pos`` tables
+(``models.whisper``); the VLM its projector and its LM's table for the
+text (``models.vlm``); and the fused loss the tied table again.  A
+gathered tensor keeps its leaf's dtype, so an fp32 leaf (Mamba's
+``A_log``, rwkv's ``u``) is gathered and its gradient reduced in fp32.  The
+gathered tensors that the layer's backward needs are kept by autograd until
+then (not gathered again), so between the forward and the backward a rank
+holds the whole model's weights once; the blocks, the moments and the
+gradients stay cut.
 
 Each collective counts its call and bytes (an all-gather's output, a
 reduce-scatter's input, a broadcast's or a reduce's buffer) under the DP
@@ -41,7 +47,7 @@ group's name in ``axis.comm``, which the train step hands in as its
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -155,21 +161,23 @@ def gather(p: torch.Tensor, axis: DPAxis) -> torch.Tensor:
 _NULL = contextlib.nullcontext()
 
 
-def gathered(module: torch.nn.Module):
-    """A context in which ``module``'s parameters (its submodules' too) are
-    gathered whole (:func:`gather`); a no-op context for a module built
-    without ``fsdp``."""
+def gathered(module: torch.nn.Module, names: Optional[Sequence[str]] = None):
+    """A context in which ``module``'s parameters (its submodules' too), or
+    only its own parameters ``names`` (whisper's ``tok`` and ``pos``, held
+    by the root beside its layers), are gathered whole (:func:`gather`); a
+    no-op context for a module built without ``fsdp``."""
     axis = getattr(module, "fsdp", None)
-    return _NULL if axis is None else _swapped(module, axis)
+    return _NULL if axis is None else _swapped(module, axis, names)
 
 
 @contextlib.contextmanager
-def _swapped(module: torch.nn.Module, axis: DPAxis):
+def _swapped(module: torch.nn.Module, axis: DPAxis, names: Optional[Sequence[str]]):
     swaps: List[Tuple[torch.nn.Module, str, torch.nn.Parameter]] = []
     try:
-        for mod in module.modules():
+        for mod in module.modules() if names is None else (module,):
             for name, p in list(mod._parameters.items()):
-                if p is None or not hasattr(p, "fsdp_shape"):
+                if p is None or not hasattr(p, "fsdp_shape") or (names is not None
+                                                                  and name not in names):
                     continue
                 full = gather(p, axis)
                 del mod._parameters[name]

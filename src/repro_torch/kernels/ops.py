@@ -15,6 +15,7 @@ import torch
 
 from .flash_attention import flash_attention as _flash
 from .rmsnorm import rmsnorm as _rmsnorm
+from .selective_scan import selective_scan as _selective_scan
 from .wkv6 import wkv6 as _wkv6
 
 
@@ -57,3 +58,16 @@ def wkv6(
     y, s_final = _wkv6(*(a.transpose(1, 2) for a in (r, k, v, log_w)), u, s0, s_out=s_out,
                        out_dtype=out_dtype)
     return y.transpose(1, 2), s_final
+
+
+def selective_scan(
+    dt: torch.Tensor,  # (B, S, d_in) fp32
+    dtx: torch.Tensor,  # (B, S, d_in) fp32
+    Bm: torch.Tensor,  # (B, S, N) fp32
+    Cm: torch.Tensor,  # (B, S, N) fp32
+    A: torch.Tensor,  # (d_in, N) fp32
+    h0: torch.Tensor,  # (B, d_in, N) fp32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba mixer's selective scan in the model's layout; returns (y
+    (B, S, d_in), h_S (B, d_in, N)), fp32."""
+    return _selective_scan(dt, dtx, Bm, Cm, A, h0)

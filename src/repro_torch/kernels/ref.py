@@ -629,3 +629,104 @@ def wkv6_backward_chunked_reference(
 
     return (tokens(dr, r.dtype), tokens(dk, k.dtype), tokens(dv, v.dtype),
             tokens(dlog_w, torch.float32), du, ds0)
+
+
+# ---------------------------------------------------------------------------
+# the selective scan (Mamba-1): JAX's chunked doubling scan and its gradient
+# ---------------------------------------------------------------------------
+
+SCAN_CHUNK = 64  # tokens a chunk of the selective scan: JAX's apply_lm(scan_chunk_size=64)
+
+
+def scan_chunk(decay: torch.Tensor, inp: torch.Tensor, h0: torch.Tensor):
+    """h_t = decay_t * h_{t-1} + inp_t within a chunk (axis 1): a log-step
+    doubling (Hillis-Steele) scan with JAX's ``associative_scan`` combine
+    ``(a1, b1)o(a2, b2) = (a1 a2, a2 b1 + b2)``; no decay-ratio divisions.
+
+    decay/inp: (B, Q, ...); h0: (B, ...).  Returns (states (B, Q, ...), h_Q).
+    """
+    a, b = decay, inp
+    Q, step = a.shape[1], 1
+    while step < Q:  # element t takes in the prefix that ends at t - step
+        b = torch.cat([b[:, :step], a[:, step:] * b[:, :-step] + b[:, step:]], dim=1)
+        a = torch.cat([a[:, :step], a[:, :-step] * a[:, step:]], dim=1)
+        step *= 2
+    states = a * h0[:, None] + b
+    return states, states[:, -1]
+
+
+def chunked_scan(aux, h0: torch.Tensor, chunk_fn, chunk: int):
+    """Run ``chunk_fn(h, aux_chunk) -> (h_next, y_chunk (B, Q, ...))`` over the
+    chunks of the (B, S, ...) tensors ``aux`` in order, threading the state,
+    so the (B, S, ...) state tensor is never formed whole.  The chunk is
+    JAX's: ``chunk`` if it divides S, else S when S < chunk, else
+    gcd(S, chunk).  Returns (y (B, S, ...), final state)."""
+    S = aux[0].shape[1]
+    if S % chunk:
+        chunk = S if S < chunk else math.gcd(S, chunk)
+    h, ys = h0, []
+    for start in range(0, S, chunk):
+        h, y = chunk_fn(h, tuple(t[:, start:start + chunk] for t in aux))
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def selective_scan_reference(dt, dtx, Bm, Cm, A, h0):
+    """The selective scan of ``mamba_block``, in fp32: per channel d and
+    state n, h_t = exp(dt_t A) h_{t-1} + dtx_t B_t and y_t = h_t . C_t, in
+    chunks of ``SCAN_CHUNK`` tokens (JAX's rule when it does not divide S).
+
+    dt, dtx: (B, S, d_in); Bm, Cm: (B, S, N); A: (d_in, N); h0: (B, d_in, N).
+    Returns (y (B, S, d_in), h_S)."""
+    def chunk_fn(h, ac):
+        dt_c, dtx_c, b_c, c_c = ac  # (B,Q,d_in), (B,Q,d_in), (B,Q,N), (B,Q,N)
+        decay = torch.exp(dt_c[..., None] * A)  # (B, Q, d_in, N)
+        binp = dtx_c[..., None] * b_c[:, :, None, :]
+        states, h2 = scan_chunk(decay, binp, h)
+        return h2, torch.einsum("bqdn,bqn->bqd", states, c_c)
+
+    return chunked_scan((dt, dtx, Bm, Cm), h0, chunk_fn, SCAN_CHUNK)
+
+
+def selective_scan_backward_reference(dt, dtx, Bm, Cm, A, h0, dy, dh=None):
+    """The gradients of :func:`selective_scan_reference`'s (y, h_S) given dy
+    (B, S, d_in) and dh (B, d_in, N; None for zero): (ddt, ddtx (B, S,
+    d_in), dB, dC (B, S, N), dA (d_in, N), dh0 (B, d_in, N)), fp32.  A plain
+    reverse sweep: the state before every 64-token chunk is kept, each chunk
+    is run forward again from it and walked back token by token with
+    G_t = C_t dy_t + a_{t+1} G_{t+1} (G = dh after the last token),
+    da_t = G_t h_{t-1}, ddt_t = sum_n da_t a_t A, dA = sum_{b,t} da_t a_t
+    dt_t, ddtx_t = sum_n G_t B_t, dB_t = sum_d G_t dtx_t, dC_t = sum_d dy_t
+    h_t and dh0 = a_0 G_0."""
+    dt, dtx, Bm, Cm, A = (t.float() for t in (dt, dtx, Bm, Cm, A))
+    dy = dy.float()
+    B, S, D = dt.shape
+
+    def step(h, t):
+        return torch.exp(dt[:, t, :, None] * A) * h + dtx[:, t, :, None] * Bm[:, t, None, :]
+
+    starts, h = [], h0.float()
+    for t in range(S):  # the state before each chunk
+        if t % SCAN_CHUNK == 0:
+            starts.append(h)
+        h = step(h, t)
+    ddt, ddtx = torch.zeros_like(dt), torch.zeros_like(dtx)
+    dB, dC, dA = torch.zeros_like(Bm), torch.zeros_like(Cm), torch.zeros_like(A)
+    carry = torch.zeros_like(starts[0]) if dh is None else dh.float()
+    for c in reversed(range(len(starts))):
+        t0 = c * SCAN_CHUNK
+        hs = [starts[c]]
+        for t in range(t0, min(t0 + SCAN_CHUNK, S)):
+            hs.append(step(hs[-1], t))
+        for i in reversed(range(len(hs) - 1)):
+            t = t0 + i
+            a = torch.exp(dt[:, t, :, None] * A)
+            g = Cm[:, t, None, :] * dy[:, t, :, None] + carry
+            da = g * hs[i] * a
+            ddt[:, t] = (da * A).sum(-1)
+            dA += (da * dt[:, t, :, None]).sum(0)
+            ddtx[:, t] = (g * Bm[:, t, None, :]).sum(-1)
+            dB[:, t] = (g * dtx[:, t, :, None]).sum(1)
+            dC[:, t] = (dy[:, t, :, None] * hs[i + 1]).sum(1)
+            carry = a * g
+    return ddt, ddtx, dB, dC, dA, carry

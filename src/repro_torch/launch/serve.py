@@ -26,6 +26,10 @@ jamba's Mamba mixers channel-parallel, whisper's attentions and
 cross-attentions and the VLM's projector and LM as the attention models':
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
       -m repro_torch.launch.serve --arch rwkv6-1.6b --model 4 --batch 4 --prompt-len 1024
+``--fsdp`` takes every family too (rwkv6, jamba, whisper and the VLM
+gather each module's blocks just before its use):
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch jamba-1.5-large-398b --smoke --device cpu --fsdp
 """
 from __future__ import annotations
 

@@ -54,17 +54,20 @@ Every family trains with its own loss (``ModelAPI.loss``): the dense ones
 (deepseek-v3-671b with MLA, grok-1-314b), whisper-small on ``frames`` of
 ``encoder_seq`` frames (``--seq`` at most its ``max_target_positions``, 448)
 and internvl2-1b on ``patches`` before ``--seq`` tokens; the synthetic data
-draws the frames and patches.  jamba-1.5-large-398b does not train yet and
-raises ``NotImplementedError`` (ROADMAP B.10).  At full width one card
-holds whisper-small and internvl2-1b whole; the MoE models only cut
+draws the frames and patches; jamba-1.5-large-398b's hybrid through the
+selective-scan kernel and its backward (``kernels/selective_scan.py``),
+with 0.01 x the MoE auxiliary loss.  At full width one card holds
+whisper-small and internvl2-1b whole; the MoE models and jamba only cut
 (``chip_smoke.py`` cuts them), qwen2.5-14b over ``--model 4`` and
 gemma2-9b with ``--fsdp`` over 4 cards.  ``--model`` takes every family
-that trains (rwkv6 head-parallel, whisper and internvl2 as the attention
-families):
+(rwkv6 head-parallel, jamba's Mamba mixers channel-parallel, whisper and
+internvl2 as the attention families):
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --arch rwkv6-1.6b --model 4 --hierarchical --zero1 --steps 6 --batch 4 --seq 1024
-``--fsdp`` takes the dense and MoE families (rwkv6, whisper and the VLM
-raise, A.9), and with ``--hierarchical`` one pod (ROADMAP C.9).
+``--fsdp`` takes every family (each gathers its modules' blocks just
+before their use), and with ``--hierarchical`` one pod (ROADMAP C.9):
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch whisper-small --smoke --device cpu --fsdp --steps 4
 """
 from __future__ import annotations
 

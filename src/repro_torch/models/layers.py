@@ -19,7 +19,7 @@ Conventions
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -215,6 +215,12 @@ class Embed(nn.Module):
         embed_init(self.tok.data, gen)
         if not self.cfg.tie_embeddings:
             dense_init(self.out.data, gen)
+
+    def unembed_names(self) -> Tuple[str, ...]:
+        """The table the unembedding reads (``tok`` tied, else ``out``):
+        what ZeRO-3 gathers for the logits and the loss (``fsdp.gathered``);
+        a lookup reads ``tok`` alone."""
+        return ("tok",) if self.cfg.tie_embeddings else ("out",)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

@@ -16,15 +16,15 @@ their local shapes and fills them with its slices of the very weights
 that ``init(seed)`` gives at ``model`` 1, drawn one module at a time on
 the device, so no rank ever holds the whole model.  With ``fsdp=True``
 (ZeRO-3, ``dist.fsdp``) the rank keeps only its block of each of those
-slices over the mesh's DP axes, and the decoder gathers each layer just
-before it runs (the dense and MoE families; rwkv6, jamba, whisper and
-the VLM raise).
+slices over the mesh's DP axes, and every family gathers each module's
+blocks just before it runs (the decoder's layers, whisper's encoder and
+decoder layers and tables, the VLM's projector and table).
 Such a model trains (``loss``) and serves: ``init_cache(batch, s_max)``
 gives the rank's cache (:func:`init_cache`), and ``prefill`` and
 ``decode`` run on the rank's rows of the batch, the MoE layers routing the
 whole batch over the DP group where it cuts the batch (``models.moe``).
-Every family serves and trains over the model and the DP axes (jamba's
-hybrid serves only: its training waits for ROADMAP B.10).
+Every family serves and trains over the model and the DP axes, with or
+without ZeRO-3.
 """
 from __future__ import annotations
 
@@ -198,10 +198,6 @@ def init_local(model: nn.Module, seed: int, device) -> nn.Module:
     return model
 
 
-# the families whose decoder gathers its layers under ZeRO-3 (``dist.fsdp``)
-FSDP_FAMILIES = ("dense", "moe")
-
-
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device, mesh=None) -> Dict[str, Any]:
     """The zero-filled serving cache of ``cfg``'s family for a batch of
     ``batch`` rows and ``s_max`` slots (the VLM's vision prefix takes
@@ -233,11 +229,6 @@ def get_api(cfg: ModelConfig, device="cuda", mesh=None, fsdp: bool = False) -> M
     if fsdp:
         if mesh is None:
             raise ValueError("fsdp cuts the parameters over a mesh's DP axes: pass mesh=")
-        if cfg.family not in FSDP_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: ZeRO-3 (fsdp) for the {cfg.family} family is not ported to "
-                "repro_torch yet: the decoder-only dense and MoE families gather their "
-                "layers (ROADMAP A.9)")
         dp = DPAxis.of(mesh)
 
     def init(seed: int = 0):

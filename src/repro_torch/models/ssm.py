@@ -1,8 +1,13 @@
 """Selective state-space (Mamba-1 / S6) block, used by jamba's hybrid stack
 (PyTorch twin of ``repro.models.ssm``).
 
-The recurrence  h_t = a_t ⊙ h_{t-1} + b_t  (diagonal, data-dependent) runs in
-two levels, as in JAX:
+The recurrence  h_t = a_t ⊙ h_{t-1} + b_t  (diagonal, data-dependent) runs
+through :func:`repro_torch.kernels.ops.selective_scan`: on the card the
+hand-written selective-scan kernel (``kernels/csrc/selective_scan.cu``),
+in prefill, in every decode step (S = 1, from and into the cache's fp32
+state) and in training, whose backward is a kernel too
+(``selective_scan_bwd.cu``); on the CPU the plain version, JAX's scan in
+two levels (``kernels/ref.py``):
 
 * :func:`scan_chunk`: an exact scan *within* a chunk, a log-step doubling
   (Hillis–Steele) scan with JAX's ``associative_scan`` combine
@@ -12,8 +17,8 @@ two levels, as in JAX:
   decays and inputs and reads out its outputs, so the (B, S, d_in, N) state
   tensor is never formed whole.
 
-The scan is plain torch on every device: the JAX package computes it in XLA
-and has no Pallas kernel for it.
+The JAX package computes the scan in XLA and has no Pallas kernel for it:
+the kernel is the port's own.
 
 State: ``(conv_buf (B, d_conv-1, d_in) in the compute dtype, ssm_state
 (B, d_in, N) fp32)``, updated in place when given.  Parameter names, shapes
@@ -42,66 +47,30 @@ mixer from gathered weights.
 """
 from __future__ import annotations
 
-import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..dist import tensor_parallel as tp
+from ..kernels import ops, ref
 from .layers import _param, dense_init
 
-CHUNK = 64  # tokens a chunk of the selective scan: JAX's apply_lm(scan_chunk_size=64)
-
-
-def scan_chunk(decay: torch.Tensor, inp: torch.Tensor, h0: torch.Tensor):
-    """h_t = decay_t * h_{t-1} + inp_t within a chunk (axis 1).
-
-    decay/inp: (B, Q, ...); h0: (B, ...).  Returns (states (B, Q, ...), h_Q).
-    """
-    a, b = decay, inp
-    Q, step = a.shape[1], 1
-    while step < Q:  # element t takes in the prefix that ends at t - step
-        b = torch.cat([b[:, :step], a[:, step:] * b[:, :-step] + b[:, step:]], dim=1)
-        a = torch.cat([a[:, :step], a[:, :-step] * a[:, step:]], dim=1)
-        step *= 2
-    states = a * h0[:, None] + b
-    return states, states[:, -1]
-
-
-def chunked_scan(aux: Sequence[torch.Tensor], h0: torch.Tensor, chunk_fn: Callable,
-                 chunk: int):
-    """Run ``chunk_fn(h, aux_chunk) -> (h_next, y_chunk (B, Q, ...))`` over the
-    chunks of the (B, S, ...) tensors ``aux`` in order, threading the state.
-    The chunk is JAX's: ``chunk`` if it divides S, else S when S < chunk,
-    else gcd(S, chunk).  Returns (y (B, S, ...), final state)."""
-    S = aux[0].shape[1]
-    if S % chunk:
-        chunk = S if S < chunk else math.gcd(S, chunk)
-    h, ys = h0, []
-    for start in range(0, S, chunk):
-        h, y = chunk_fn(h, tuple(t[:, start:start + chunk] for t in aux))
-        ys.append(y)
-    return torch.cat(ys, dim=1), h
+CHUNK = ref.SCAN_CHUNK  # tokens a chunk of the plain scan: JAX's apply_lm(scan_chunk_size=64)
+scan_chunk, chunked_scan = ref.scan_chunk, ref.chunked_scan  # the plain scan's two levels
 
 
 def selective_scan(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                    A: torch.Tensor, h0: torch.Tensor):
     """The selective scan of ``mamba_block``, in fp32: per channel d and
-    state n, h_t = exp(dt_t A) h_{t-1} + dtx_t B_t and y_t = h_t · C_t,
-    in chunks of ``CHUNK`` tokens (JAX's rule when it does not divide S).
+    state n, h_t = exp(dt_t A) h_{t-1} + dtx_t B_t and y_t = h_t · C_t
+    (``kernels.ops.selective_scan``: the kernel on the card, JAX's chunked
+    doubling scan on the CPU).
 
     dt, dtx: (B, S, d_in); Bm, Cm: (B, S, N); A: (d_in, N); h0: (B, d_in, N).
     Returns (y (B, S, d_in), h_S)."""
-    def chunk_fn(h, ac):
-        dt_c, dtx_c, b_c, c_c = ac  # (B,Q,d_in), (B,Q,d_in), (B,Q,N), (B,Q,N)
-        decay = torch.exp(dt_c[..., None] * A)  # (B, Q, d_in, N)
-        binp = dtx_c[..., None] * b_c[:, :, None, :]
-        states, h2 = scan_chunk(decay, binp, h)
-        return h2, torch.einsum("bqdn,bqn->bqd", states, c_c)
-
-    return chunked_scan((dt, dtx, Bm, Cm), h0, chunk_fn, CHUNK)
+    return ops.selective_scan(dt, dtx, Bm, Cm, A, h0)
 
 
 def mamba_dims(cfg):

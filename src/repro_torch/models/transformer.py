@@ -36,11 +36,15 @@ gives the rank's cache (its rows of the batch over the DP axes, and the
 kv heads its query heads read; where the DP axes cut the batch of an MoE
 model, ``"dp"``, the ``dist.fsdp.DPAxis`` whose ranks hold the other rows,
 over which the MoE layers route the whole batch), and the logits come
-whole to every rank (``Embed.unembed``).  Under ZeRO-3 (``dist.fsdp``) each parameter is the
-rank's block, and :class:`DecoderLM` gathers the embedding, each layer and
-the final norm just before their use (``fsdp.gathered``), and ``lm_loss``
-the tied table again for the fused loss; in serving no gathered weight
-outlives its use.
+whole to every rank (``Embed.unembed``).  Under ZeRO-3 (``dist.fsdp``)
+each parameter is the rank's block, and :class:`DecoderLM` gathers the
+embedding, each layer and the final norm just before their use
+(``fsdp.gathered``), and ``lm_loss`` the tied table again for the fused
+loss; in serving no gathered weight outlives its use.  This holds for
+every block kind alike (GQA, MLA, MoE, RWKV-6, Mamba): a block computes
+from its gathered tensors exactly what it computes from whole ones, the
+fp32 leaves (rwkv's ``w0`` and ``u``, Mamba's ``A_log`` and ``D``, the
+router) gathered and reduced back in fp32.
 """
 from __future__ import annotations
 
@@ -269,7 +273,7 @@ class DecoderLM(nn.Module):
         if inputs_embeds is not None:
             x = inputs_embeds
         else:
-            with fsdp.gathered(self.embed):
+            with fsdp.gathered(self.embed, ("tok",)):
                 x = self.embed.embed(tokens)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
@@ -287,7 +291,7 @@ class DecoderLM(nn.Module):
         if not return_hidden:
             if last_only:
                 x = x[:, -1:, :]
-            with fsdp.gathered(self.embed):
+            with fsdp.gathered(self.embed, self.embed.unembed_names()):
                 x = self.embed.unembed(x)
         return (x, aux_total, new_cache) if return_aux else (x, new_cache)
 
@@ -307,7 +311,8 @@ def lm_loss(model: DecoderLM, batch) -> torch.Tensor:
     final norm, plus 0.01 x the MoE auxiliary loss for an MoE config, as
     JAX's ``lm_loss``."""
     h, aux, _ = model(batch["tokens"], mode="train", return_hidden=True, return_aux=True)
-    with fsdp.gathered(model.embed):  # ZeRO-3: the (tied) table again, for the loss
+    # ZeRO-3: the (tied) table again, for the loss
+    with fsdp.gathered(model.embed, model.embed.unembed_names()):
         loss = cross_entropy_fused(h, model.embed, batch["targets"], batch.get("mask"))
     if model.cfg.moe is not None:
         loss = loss + 0.01 * aux

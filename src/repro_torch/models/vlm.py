@@ -11,13 +11,17 @@ decode.
 
 On a rank of a ``model`` axis the projector is a Megatron pair (``w1``
 column-parallel, ``w2`` row-parallel, the elementwise GELU on the rank's
-columns between them) and the LM shards as any ``DecoderLM``.
+columns between them) and the LM shards as any ``DecoderLM``.  Under
+ZeRO-3 (``dist.fsdp``) the projector's blocks are gathered just before it
+runs, and the LM's table for the text's embedding and again for the fused
+loss; the LM gathers its own layers.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..dist import fsdp
 from ..dist import tensor_parallel as tp
 from .layers import _param, cross_entropy_fused, dense_init, gelu_tanh_stepwise
 from .transformer import DecoderLM
@@ -64,14 +68,15 @@ def _project(proj: Projector, patches: torch.Tensor, cfg) -> torch.Tensor:
     computes its columns of ``w1`` and rows of ``w2``, then the all-reduce
     (or, where the axis does not divide ``d``, the whole projector)."""
     axis = tp.axis_of(proj)
-    w1, w2 = proj.w1, proj.w2
-    local = axis is not None and tp.sliced(w1, -1) and tp.sliced(w2, 0)
-    x = patches.to(cfg.cdtype)
-    if local:
-        x = tp.copy_to(x, axis)
-    elif axis is not None:
-        w1, w2 = tp.whole(w1, axis), tp.whole(w2, axis)
-    y = gelu_tanh_stepwise(x @ w1.to(cfg.cdtype)) @ w2.to(cfg.cdtype)
+    with fsdp.gathered(proj):  # ZeRO-3: the projector whole, just now
+        w1, w2 = proj.w1, proj.w2
+        local = axis is not None and tp.sliced(w1, -1) and tp.sliced(w2, 0)
+        x = patches.to(cfg.cdtype)
+        if local:
+            x = tp.copy_to(x, axis)
+        elif axis is not None:
+            w1, w2 = tp.whole(w1, axis), tp.whole(w2, axis)
+        y = gelu_tanh_stepwise(x @ w1.to(cfg.cdtype)) @ w2.to(cfg.cdtype)
     return tp.reduce_from(y, axis) if local else y
 
 
@@ -84,7 +89,9 @@ def apply_vlm(model: VLM, tokens, patches, cache=None, mode: str = "train",
     if mode == "decode":
         return model.lm(tokens, cache=cache, mode=mode)
     vis = _project(model.proj, patches, model.cfg)
-    x = torch.cat([vis, model.lm.embed.embed(tokens)], dim=1)
+    with fsdp.gathered(model.lm.embed, ("tok",)):
+        text = model.lm.embed.embed(tokens)
+    x = torch.cat([vis, text], dim=1)
     return model.lm(None, cache=cache, mode=mode, last_only=last_only,
                     return_hidden=return_hidden, inputs_embeds=x)
 
@@ -95,5 +102,7 @@ def vlm_loss(model: VLM, batch) -> torch.Tensor:
     unsupervised), as JAX's ``vlm_loss``."""
     h, _ = apply_vlm(model, batch["tokens"], batch["patches"], return_hidden=True)
     nv = batch["patches"].shape[1]
-    return cross_entropy_fused(h[:, nv:, :], model.lm.embed, batch["targets"],
-                               batch.get("mask"))
+    # ZeRO-3: the (tied) table again, for the loss
+    with fsdp.gathered(model.lm.embed, model.lm.embed.unembed_names()):
+        return cross_entropy_fused(h[:, nv:, :], model.lm.embed, batch["targets"],
+                                   batch.get("mask"))

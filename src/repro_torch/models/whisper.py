@@ -35,6 +35,14 @@ table gathered whole (51865 divides neither 2 nor 4).  The rank's cache
 holds the kv heads its query heads read and the whole ``enc``: every
 frame feeds its heads' cross K/V (``cache_specs`` cuts ``enc`` over its
 frames).
+
+Under ZeRO-3 (``dist.fsdp``) each parameter is the rank's block, and
+every module's blocks are gathered whole just before its use
+(``fsdp.gathered``), as ``DecoderLM`` does: each encoder layer, then
+``enc_ln``; ``tok`` and ``pos`` for the lookups, each decoder layer with
+its cross-attention, ``dec_ln``, then ``tok`` again for the logits or the
+fused loss.  In serving no gathered weight outlives its use; the rank's
+cache, ``enc`` included, holds its rows of the batch.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist import fsdp
 from ..dist import tensor_parallel as tp
 from .attention import CrossAttention, GQAAttention
 from .layers import MLP, Embed, Norm, _param, cross_entropy_fused, embed_init
@@ -153,8 +162,10 @@ def encode(model: Whisper, frames: torch.Tensor) -> torch.Tensor:
     x = frames.to(cfg.cdtype) + _sinusoid(frames.shape[1], cfg.d_model,
                                           frames.device).to(cfg.cdtype)
     for layer in model.enc_layers:
-        x = layer(x)
-    return model.enc_ln(x)
+        with fsdp.gathered(layer):  # ZeRO-3: this layer's weights whole, just now
+            x = layer(x)
+    with fsdp.gathered(model.enc_ln):
+        return model.enc_ln(x)
 
 
 def decode(model: Whisper, tokens: torch.Tensor, enc: torch.Tensor,
@@ -174,24 +185,28 @@ def decode(model: Whisper, tokens: torch.Tensor, enc: torch.Tensor,
     cfg = model.cfg
     S = tokens.shape[1]
     pos = cache["pos"] if mode == "decode" else None
-    x = F.embedding(tokens, model.tok)
-    pe = model.pos[pos:pos + 1] if pos is not None else model.pos[:S]
     axis = tp.axis_of(model)
-    if tp.sliced(model.tok, -1):  # the looked-up rows' pieces, gathered
-        x = tp.gather_whole(x, -1, axis)
-    if tp.sliced(model.pos, -1):
-        pe = tp.gather_whole(pe, -1, axis)
-    x = x.to(cfg.cdtype) + pe.to(cfg.cdtype)[None]
+    with fsdp.gathered(model, ("tok", "pos")):
+        x = F.embedding(tokens, model.tok)
+        pe = model.pos[pos:pos + 1] if pos is not None else model.pos[:S]
+        if tp.sliced(model.tok, -1):  # the looked-up rows' pieces, gathered
+            x = tp.gather_whole(x, -1, axis)
+        if tp.sliced(model.pos, -1):
+            pe = tp.gather_whole(pe, -1, axis)
+        x = x.to(cfg.cdtype) + pe.to(cfg.cdtype)[None]
     for i, layer in enumerate(model.dec_layers):
-        x = layer(x, enc, cache["layers"][i] if cache is not None else None, pos)
-    x = model.dec_ln(x)
+        with fsdp.gathered(layer):
+            x = layer(x, enc, cache["layers"][i] if cache is not None else None, pos)
+    with fsdp.gathered(model.dec_ln):
+        x = model.dec_ln(x)
     new_cache = None
     if cache is not None:
         new_cache = dict(cache, pos=cache["pos"] + (1 if mode == "decode" else S))
     if not return_hidden:
         if last_only:
             x = x[:, -1:, :]
-        x = model.unembed(x)
+        with fsdp.gathered(model, ("tok",)):  # the tied table again, for the logits
+            x = model.unembed(x)
     return x, new_cache
 
 
@@ -216,4 +231,5 @@ def whisper_loss(model: Whisper, batch) -> torch.Tensor:
     the decoder's hidden state, as JAX's ``whisper_loss``."""
     enc = encode(model, batch["frames"])
     h, _ = decode(model, batch["tokens"], enc, return_hidden=True)
-    return cross_entropy_fused(h, model, batch["targets"], batch.get("mask"))
+    with fsdp.gathered(model, ("tok",)):  # ZeRO-3: the tied table again, for the loss
+        return cross_entropy_fused(h, model, batch["targets"], batch.get("mask"))

@@ -5,10 +5,9 @@ One step is: the loss of the model's family (``models.registry.loss_fn``:
 gradients, summed over ``grad_accum`` microbatches as ``_accum_grads`` does
 in JAX, then one AdamW update of the model's parameters in place.  On the
 card the model's forward runs the flash attention and RMSNorm kernels (the
-attention families, whisper and the VLM) or the WKV6 kernel (rwkv6), and
-autograd runs their backward kernels.  jamba's hybrid does not train yet:
-its plain selective scan through autograd keeps hundreds of GB at full
-width, and waits for a scan kernel with its backward (ROADMAP B.10).
+attention families, whisper and the VLM), the WKV6 kernel (rwkv6) or, in
+jamba's Mamba layers, the selective-scan kernel, and autograd runs their
+backward kernels.  Every family trains.
 
 :func:`train_step` is the single-device step; of :class:`TrainHparams` it
 honours ``grad_accum`` only, and the distributed flags raise there.
@@ -70,9 +69,10 @@ pod 1; across pods it raises (JAX's fails there: ROADMAP C.9).  On 4
 cards:
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --arch gemma2-9b --fsdp --batch 8 --seq 1024
-Every family that trains takes a ``model`` axis (rwkv6 head-parallel,
-whisper and the VLM as the attention families); ``fsdp`` takes the dense
-and MoE families only (ROADMAP A.9).
+Every family takes a ``model`` axis (rwkv6 head-parallel, jamba's Mamba
+mixers channel-parallel, whisper and the VLM as the attention families)
+and ``fsdp`` (each family gathers its modules' blocks just before their
+use: ``models.transformer``, ``models.whisper``, ``models.vlm``).
 """
 from __future__ import annotations
 
@@ -116,17 +116,8 @@ def _check_hparams(hp: TrainHparams, mesh: bool = False) -> None:
         raise ValueError(f"grad_accum must be >= 1, not {hp.grad_accum}")
 
 
-def _check_trains(cfg) -> None:
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: training the hybrid family is not ported to repro_torch yet: "
-            "it waits for a selective-scan kernel and its backward (ROADMAP B.10)")
-
-
 def make_train_state(api, seed: int = 0) -> dict:
-    """{"model": random weights from ``api.init(seed)``, "opt": AdamW state}.
-    Every family trains but jamba's hybrid (ROADMAP B.10)."""
-    _check_trains(api.cfg)
+    """{"model": random weights from ``api.init(seed)``, "opt": AdamW state}."""
     model = api.init(seed)
     return {"model": model, "opt": adamw_init(model)}
 
@@ -229,7 +220,6 @@ class MeshStep:
                 "the hierarchical step with fsdp across pods: JAX's reference fails there "
                 "(its moments are cut over data x pod, its gradients over data alone; "
                 "ROADMAP C.9)")
-        _check_trains(cfg)
         self.model = sizes.get("model", 1)
         self.axis, self.fsdp = api.axis, api.dp
         if (self.axis.size if self.axis is not None else 1) != self.model:

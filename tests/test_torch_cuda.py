@@ -11,7 +11,9 @@ another order than the plain version) and 2e-2 in bfloat16 (both sides
 compute in fp32 from the same bf16 inputs and round once); WKV6's backward
 the forward's 2e-4 and 2e-2, relative to each gradient's largest entry
 (dlog_w's to the larger of its own and r ⊙ dr's, as
-``tests/test_torch_wkv6_bwd.py`` explains).
+``tests/test_torch_wkv6_bwd.py`` explains).  The selective scan: y within
+1e-5 of max|y| and each gradient within 1e-4 of its max, as
+``tests/test_torch_ssm.py`` holds the plain versions.
 """
 import pytest
 
@@ -622,13 +624,109 @@ def test_rwkv6_gradient_on_the_card_matches_the_cpu(gen):
                                    rtol=1e-3)
 
 
+def _scan_args(gen, B, S, D, N, decay="model", h0=False):
+    """(dt, dtx, B, C, A, h0) on the card, as ``chip_smoke.scan_inputs``."""
+    if decay == "near 0":
+        dt = 5.0 + 5.0 * torch.rand((B, S, D), generator=gen, device="cuda")
+    elif decay == "near 1":
+        dt = 1e-5 + 9e-5 * torch.rand((B, S, D), generator=gen, device="cuda")
+    else:
+        dt = torch.nn.functional.softplus(_randn(gen, (B, S, D), torch.float32))
+    dtx = dt * _randn(gen, (B, S, D), torch.float32)
+    bm, cm = _randn(gen, (B, S, N), torch.float32), _randn(gen, (B, S, N), torch.float32)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda").expand(D, N).contiguous()
+    h = _randn(gen, (B, D, N), torch.float32) if h0 else torch.zeros((B, D, N), device="cuda")
+    return dt, dtx, bm, cm, A, h
+
+
+def _rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("B,S,D,N,decay,h0", [
+    (4, 1024, 16384, 16, "model", False),  # jamba's prefill and training
+    (4, 1024, 4096, 16, "model", False),  # a TP-4 rank's channels
+    (4, 1, 16384, 16, "model", True),  # a decode step from the cache's state
+    (2, 100, 4096, 16, "model", True),
+    (2, 127, 4096, 16, "model", True),
+    (4, 1024, 4096, 16, "near 0", True),
+    (4, 1024, 4096, 16, "near 1", True),
+    (2, 100, 256, 4, "model", True),  # the smoke config's N and a d_in of one block
+    (1, 130, 24, 8, "model", True),  # channels that do not fill a block
+])
+def test_selective_scan_kernels_match_plain(gen, B, S, D, N, decay, h0):
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
+
+    args = _scan_args(gen, B, S, D, N, decay, h0)
+    before = (selective_scan.launches, selective_scan_bwd.launches)
+    y, h = selective_scan(*args)
+    dy = _randn(gen, (B, S, D), torch.float32)
+    dh = _randn(gen, (B, D, N), torch.float32) if h0 else None
+    got = selective_scan_bwd(*args, dy, dh)
+    torch.cuda.synchronize()
+    # the backward made its own saved states: one more forward launch
+    assert (selective_scan.launches, selective_scan_bwd.launches) == (before[0] + 2,
+                                                                      before[1] + 1)
+    want_y, want_h = ref.selective_scan_reference(*args)
+    top = want_y.abs().max().item()
+    assert (y - want_y).abs().max().item() <= 1e-5 * top
+    assert (h - want_h).abs().max().item() <= 1e-5 * top
+    want = ref.selective_scan_backward_reference(*args, dy, dh)
+    for name, g, w in zip(("ddt", "ddtx", "dB", "dC", "dA", "dh0"), got, want):
+        assert _rel_err(g, w) <= 1e-4, name
+
+
+def test_selective_scan_bwd_is_deterministic(gen):
+    from repro_torch.kernels.selective_scan import selective_scan_bwd
+
+    args = _scan_args(gen, 4, 1024, 4096, 16)
+    dy = _randn(gen, (4, 1024, 4096), torch.float32)
+    first, second = selective_scan_bwd(*args, dy), selective_scan_bwd(*args, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_selective_scan_autograd_runs_both_kernels(gen):
+    """Through the ``autograd.Function``: one forward launch keeping the
+    chunks' states and one backward call, the gradients the plain
+    backward's; without a gradient the forward alone."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
+
+    args = _scan_args(gen, 2, 200, 512, 16, h0=True)
+    ins = [a.clone().requires_grad_() for a in args]
+    before = (selective_scan.launches, selective_scan_bwd.launches)
+    y, h = selective_scan(*ins)
+    grads = torch.autograd.grad(y.sum() + h.sum(), ins)
+    assert (selective_scan.launches, selective_scan_bwd.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    want = ref.selective_scan_backward_reference(*args, torch.ones_like(y), torch.ones_like(h))
+    for g, w in zip(grads, want):
+        assert _rel_err(g, w) <= 1e-4
+    with torch.no_grad():
+        selective_scan(*ins)
+    assert selective_scan_bwd.launches == before[1] + 1
+
+
+def test_selective_scan_raises_on_what_the_kernel_does_not_take(gen):
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
+
+    args = _scan_args(gen, 2, 8, 64, 16)
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan(args[0].double(), *args[1:])
+    odd = _scan_args(gen, 2, 8, 64, 5)  # N = 5: no instantiation
+    with pytest.raises(ValueError, match="N in"):
+        selective_scan(*odd)
+    with pytest.raises(ValueError, match="N in"):
+        selective_scan_bwd(*odd, torch.zeros_like(odd[0]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_block_on_the_card_matches_the_cpu(gen, dtype):
-    """One narrow Mamba block (plain torch on both devices: the JAX package
-    has no Pallas kernel for the scan): a 100-token prefill through a zero
-    state (chunks of 4), then 3 decode steps, on the card against the CPU,
-    the same weights, inputs and state.  fp32: 1e-4 (sums over d_in in
-    another order; TF32 off); bf16: 2e-2 of the largest entry."""
+    """One narrow Mamba block (the selective-scan kernel on the card, its
+    plain version on the CPU): a 100-token prefill through a zero state,
+    then 3 decode steps, on the card against the CPU, the same weights,
+    inputs and state; each call launches the kernel once.  fp32: 1e-4 (sums
+    over d_in in another order; TF32 off); bf16: 2e-2 of the largest
+    entry."""
     from repro_torch.models import smoke_config
     from repro_torch.models.ssm import Mamba, mamba_state_shape
 
@@ -641,14 +739,18 @@ def test_mamba_block_on_the_card_matches_the_cpu(gen, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels.selective_scan import selective_scan
+
     try:
         out = {}
         for dev, mod in mods.items():
             s1, s2 = mamba_state_shape(cfg, 2)
             state = (torch.zeros(s1, dtype=dtype, device=dev), torch.zeros(s2, device=dev))
+            before = selective_scan.launches
             with torch.no_grad():
                 ys = [mod(x[:, :100].to(dev), state=state)]
                 ys += [mod(x[:, t:t + 1].to(dev), state=state) for t in range(100, 103)]
+            assert selective_scan.launches - before == (4 if dev == "cuda" else 0)
             out[dev] = [y.cpu() for y in ys] + [s.cpu() for s in state]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow_tf32
@@ -698,7 +800,7 @@ def test_encoder_decoder_and_vlm_serve_on_the_card_as_on_the_cpu(gen, arch):
 
 
 @pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b", "deepseek-v3-671b",
-                                  "grok-1-314b"])
+                                  "grok-1-314b", "jamba-1.5-large-398b"])
 def test_new_families_train_a_bf16_step_on_the_card(gen, arch):
     """One bf16 ``train_step`` of the smoke config on the card against the
     same step on the CPU (plain versions), the same weights and batch: the

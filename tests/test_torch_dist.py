@@ -164,17 +164,13 @@ def test_cache_specs_match_jax(arch, shape, axes, seq_shard):
             assert tuple(port["layers"][i][j].shape) == shapes[key][1:], (key, i, j)
 
 
-# a model axis above 1 trains every family but jamba's hybrid
-# (tests/test_torch_tp.py, tests/test_torch_tp_families.py), whose training
-# waits for a scan kernel (B.10); the hierarchical step with fsdp across
+# a model axis above 1 trains every family (tests/test_torch_tp.py,
+# tests/test_torch_tp_families.py); the hierarchical step with fsdp across
 # pods fails in JAX (C.9)
 @pytest.mark.parametrize("shape,axes,hp,arch,item", [
-    ((2, 2, 2), ("pod", "data", "model"), TrainHparams(hierarchical=True, zero1=True),
-     "jamba-1.5-large-398b", "B.10"),
-    ((4, 2), ("data", "model"), TrainHparams(zero1=True), "jamba-1.5-large-398b", "B.10"),
     ((2, 2, 1), ("pod", "data", "model"), TrainHparams(hierarchical=True, fsdp=True),
      "olmo-1b", "C.9"),
-], ids=["model-2-hierarchical", "model-2-flat", "fsdp"])
+], ids=["fsdp"])
 def test_model_axis_and_fsdp_raise(shape, axes, hp, arch, item):
     cfg = smoke_config(arch)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP {re.escape(item)}\b"):

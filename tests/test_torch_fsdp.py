@@ -26,7 +26,10 @@
 * The step's ``comm`` counts ZeRO-3's collectives under the DP group's
   name, their bytes equal to what the leaves imply.
 * The hierarchical step with ``fsdp`` across pods raises naming ROADMAP
-  C.9; whisper and the VLM refuse ``fsdp`` naming A.9.
+  C.9.
+
+rwkv6, jamba, whisper and internvl2 under ``fsdp`` are in
+``tests/test_torch_fsdp_families.py``, through this file's helpers.
 """
 import os
 
@@ -40,6 +43,7 @@ from repro.dist import sharding as jsharding  # noqa: E402
 from repro_torch.dist.sharding import dp_index, moment_index  # noqa: E402
 from repro_torch.launch.mesh import mesh_layout  # noqa: E402
 from repro_torch.models import get_api, smoke_config  # noqa: E402
+from repro_torch.models.convert import stacked_shapes  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.trainstep import TrainHparams, make_train_step  # noqa: E402
 from tests.test_torch_dist import OPT  # noqa: E402
@@ -118,7 +122,13 @@ def _load(runs, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_fsdp_step_matches_jax(runs, name):
-    arch, (shape, axes), hier, ga, jax_name = CASES[name]
+    check_fsdp_step(runs, name, CASES[name])
+
+
+def check_fsdp_step(runs, name, case):
+    """The steps of ``case`` (a ``CASES`` entry: arch, mesh, hierarchical,
+    grad_accum, JAX case) on every rank against JAX's (module docstring)."""
+    arch, (shape, axes), hier, ga, jax_name = case
     ranks = _load(runs, name)
     ref = np.load(os.path.join(runs, f"{jax_name}.jax.npz"))
     assert sorted(ref["device_ids"]) == list(range(4))
@@ -178,9 +188,15 @@ def test_fsdp_step_matches_jax(runs, name):
 
 @pytest.mark.parametrize("name", ["gemma2-flat-141", "gemma2-flat-122", "olmo-flat-141-ga2"])
 def test_rank_holds_only_its_blocks(runs, name):
-    arch, (shape, axes), *_ = CASES[name]
+    check_blocks(runs, name, CASES[name])
+
+
+def check_blocks(runs, name, case):
+    """Each rank of ``case`` holds the blocks ``param_specs(fsdp=True)``
+    gives of every parameter and moment, and no more."""
+    arch, (shape, axes), *_, jax_name = case
     cfg = smoke_config(arch)
-    ref = np.load(os.path.join(runs, f"{name}.jax.npz"))
+    ref = np.load(os.path.join(runs, f"{jax_name}.jax.npz"))
     jspecs = jsharding.param_specs(
         {k[len("params/"):]: jax.ShapeDtypeStruct(ref[k].shape, np.float32)
          for k in ref.files if k.startswith("params/")}, _StubMesh(shape, axes), cfg, fsdp=True)
@@ -218,27 +234,42 @@ def test_comm_counts_fsdp_collectives_under_the_dp_group(runs):
     loss, the whole leaves' gradients and the cut leaves' squares are
     all-reduced."""
     for name in ("gemma2-flat-141", "olmo-flat-141-ga2"):
-        arch, (shape, _), _, ga, _ = CASES[name]
-        cfg = smoke_config(arch)
-        ref = np.load(os.path.join(runs, f"{name}.jax.npz"))
-        calls = nbytes = 0
-        n_cut = 0
-        for key in (k[len("params/"):] for k in ref.files if k.startswith("params/")):
-            whole = ref[f"params/{key}"].shape
-            size = int(np.prod(whole)) * 4
-            d = jsharding.zero1_dim(key, whole, 1, 4, cfg.moe is not None)
-            if d is None:
-                calls, nbytes = calls + 1, nbytes + size
-                continue
-            n_cut += 1
-            uses = 2 if key == "embed/tok" and cfg.tie_embeddings else 1
-            pieces = whole[0] if key.split("/")[0] in ("units", "pro") else 1  # one a layer
-            calls += 2 * uses * ga * pieces
-            nbytes += 2 * uses * ga * size
-        calls, nbytes = calls + 2, nbytes + 4 + 4 * n_cut  # the loss, the squares
-        for res in _load(runs, name):
-            assert tuple(res["comm/pod+data"]) == (calls, nbytes), name
-            assert [k for k in res.files if k.startswith("comm/")] == ["comm/pod+data"]
+        check_comm(runs, name, CASES[name])
+
+
+def tied_table_uses(cfg, key: str) -> int:
+    """How often one pass gathers leaf ``key``: twice for the tied table
+    (the decoder's ``embed/tok``, the VLM's ``lm/embed/tok``, whisper's
+    ``tok``: the embedding and the logits or the loss), else once."""
+    return 2 if cfg.tie_embeddings and key in ("embed/tok", "lm/embed/tok", "tok") else 1
+
+
+def check_comm(runs, name, case):
+    """The DP group's calls and bytes of the last step of ``case`` (a flat
+    step at (1, 4, 1)) against those the leaves imply: one gather and one
+    gradient reduction a use, a layer and a microbatch."""
+    arch, (shape, _), _, ga, jax_name = case
+    cfg = smoke_config(arch)
+    leaves, _ = stacked_shapes(cfg)
+    ref = np.load(os.path.join(runs, f"{jax_name}.jax.npz"))
+    calls = nbytes = 0
+    n_cut = 0
+    for key in (k[len("params/"):] for k in ref.files if k.startswith("params/")):
+        whole = ref[f"params/{key}"].shape
+        size = int(np.prod(whole)) * 4
+        d = jsharding.zero1_dim(key, whole, 1, 4, cfg.moe is not None)
+        if d is None:
+            calls, nbytes = calls + 1, nbytes + size
+            continue
+        n_cut += 1
+        uses = tied_table_uses(cfg, key)
+        pieces = len(leaves[key]) if isinstance(leaves[key], tuple) else 1  # one a layer
+        calls += 2 * uses * ga * pieces
+        nbytes += 2 * uses * ga * size
+    calls, nbytes = calls + 2, nbytes + 4 + 4 * n_cut  # the loss, the squares
+    for res in _load(runs, name):
+        assert tuple(res["comm/pod+data"]) == (calls, nbytes), name
+        assert [k for k in res.files if k.startswith("comm/")] == ["comm/pod+data"]
 
 
 def test_hierarchical_fsdp_across_pods_raises_c9():
@@ -247,8 +278,3 @@ def test_hierarchical_fsdp_across_pods_raises_c9():
         make_train_step(get_api(cfg, device="cpu"), cfg, OptConfig(), mesh_layout(*M221),
                         TrainHparams(hierarchical=True, fsdp=True), {"tokens": (8, 16)})
 
-
-@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
-def test_fsdp_families_without_layer_gathers_raise(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        get_api(smoke_config(arch), device="cpu", mesh=mesh_layout(*M141), fsdp=True)

@@ -81,7 +81,9 @@ def _load(runs, name):
     return [np.load(os.path.join(runs["dir"], f"{name}.rank{r}.npz")) for r in range(4)]
 
 
-def _restored_equals_file(ranks, path, mesh_shape, fsdp):
+def restored_equals_file(ranks, path, mesh_shape, fsdp, arch=GEMMA2):
+    """Every rank's restored state equals the checkpoint at ``path``: the
+    parameters and moments whole, and under ``fsdp`` the rank's blocks."""
     with np.load(path) as f:
         keys = [k[len("params/"):] for k in f.files if k.startswith("params/")]
         assert keys and keys == [k[len("params/"):] for k in ranks[0].files
@@ -94,7 +96,7 @@ def _restored_equals_file(ranks, path, mesh_shape, fsdp):
                 whole = f[f"params/{key}"]
                 np.testing.assert_array_equal(res[f"params/{key}"], whole)
                 if fsdp:
-                    index = _index(key, whole.shape, res["coords"], mesh_shape, GEMMA2, block)
+                    index = _index(key, whole.shape, res["coords"], mesh_shape, arch, block)
                     assert tuple(res[f"local/{key}"]) == whole[index].shape, key
                 for g in ("m", "v"):
                     np.testing.assert_array_equal(res[f"full_{g}/{key}"], f[f"opt/{g}/{key}"])
@@ -105,8 +107,8 @@ def _restored_equals_file(ranks, path, mesh_shape, fsdp):
 
 def test_fsdp_checkpoint_restores_across_meshes(runs):
     path = os.path.join(runs["port"], "step_1.npz")
-    _restored_equals_file(_load(runs, "w221-restored"), path, M221[0], fsdp=True)
-    _restored_equals_file(_load(runs, "w114-restored"), path, M114[0], fsdp=False)
+    restored_equals_file(_load(runs, "w221-restored"), path, M221[0], fsdp=True)
+    restored_equals_file(_load(runs, "w114-restored"), path, M114[0], fsdp=False)
     # and the restored run goes on: at (2, 2, 1) as the uninterrupted one
     w141, w221 = _load(runs, "w141")[0], _load(runs, "w221-resume")
     w114 = _load(runs, "w114-resume")
@@ -144,7 +146,7 @@ def test_fsdp_checkpoint_restores_into_train_step(runs):
 
 
 def test_jax_fsdp_checkpoint_restores_in_the_port(runs):
-    _restored_equals_file(_load(runs, "w141-jax"), os.path.join(runs["jax"], "step_0.npz"),
+    restored_equals_file(_load(runs, "w141-jax"), os.path.join(runs["jax"], "step_0.npz"),
                           M141[0], fsdp=True)
 
 

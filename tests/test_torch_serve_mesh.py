@@ -29,9 +29,9 @@
 * ``comm_profile()`` at every mesh equals the single-device engine's; a
   decode step's ``comm["model"]`` bytes stay below one unembedding
   table's: the logits move, not the table.
-* whisper, internvl2, rwkv6 and jamba raise under ``fsdp`` (their model
-  axis is held against JAX's in
-  ``tests/test_torch_serve_mesh_tp_families.py``).
+* rwkv6, jamba, whisper and internvl2 under ``fsdp`` are held against
+  JAX's in ``tests/test_torch_serve_mesh_fsdp_families.py``, their model
+  axis in ``tests/test_torch_serve_mesh_tp_families.py``.
 * The serve CLI under ``torch.distributed.run`` with ``--model 2`` and with
   ``--fsdp`` prints the single-device CLI's tokens.
 """
@@ -245,13 +245,6 @@ def test_comm_profile_and_decode_traffic(runs):
                 assert 0 < nbytes < table, (name, nbytes, table)
             else:
                 assert calls == 0, name
-
-
-@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b", "rwkv6-1.6b",
-                                  "jamba-1.5-large-398b"])
-def test_fsdp_still_raises_for_whisper_and_the_vlm(arch):
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        get_api(smoke_config(arch), device="cpu", mesh=mesh_layout(*M141), fsdp=True)
 
 
 def _cli(argv, ranks=None):

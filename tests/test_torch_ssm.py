@@ -6,7 +6,14 @@ each branch of the chunk rule, ``Mamba.forward`` against ``mamba_block``
 without a state, through a zero state, and as a prefill followed by
 teacher-forced decode steps, the new ``(conv_buf, ssm_state)`` (a prompt of
 2 tokens keeps one row of the old conv buffer), ``mamba_state_shape``, and
-the block at a bf16 param and compute dtype.  Weights come from JAX's
+the block at a bf16 param and compute dtype.  The selective scan's plain
+versions, which the CPU runs in place of its kernels: the forward
+(``ref.selective_scan_reference``) against JAX's chunked scan at S = 1,
+100, 127 and 1024 with decays near 0 and near 1 (within 1e-5 of max|y|),
+the backward (``ref.selective_scan_backward_reference``) against torch
+autograd through the plain forward, and the block's gradients through the
+wrapper's ``autograd.Function`` against ``jax.grad`` of ``mamba_block``
+(within 1e-4 of each gradient's max).  Weights come from JAX's
 ``init_mamba``; inputs are drawn with numpy from a fixed seed and handed to
 both stacks.  fp32 tolerances: 1e-5 for the scan (the two scans multiply
 the same decays in another tree order), 1e-4 for the block (sums over d_in
@@ -23,6 +30,7 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.models import smoke_config as jsmoke  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import smoke_config, ssm  # noqa: E402
 
 ARCH = "jamba-1.5-large-398b"
@@ -230,3 +238,146 @@ def test_bf16_mamba_block_matches_jax():
     assert state[1].dtype == torch.float32
     jh = np.asarray(jh)
     assert np.abs(state[1].numpy() - jh).max() <= 2 * BF16_STEP * np.abs(jh).max()
+
+
+# ---------------------------------------------------------------------------
+# the selective scan's plain versions (the kernels' contracts on the CPU)
+# ---------------------------------------------------------------------------
+
+SCAN_REL = 1e-5  # y against JAX's, relative to max|y| (fp32 sums in another order)
+SCAN_BWD_REL = 1e-4  # each fp32 gradient relative to its max (chip_smoke.py holds the kernels so)
+
+
+def _scan_inputs(S, regime, B=2, D=8, N=4, seed=0):
+    """(dt, dtx, B, C, A, h0) as numpy fp32: dt softplus-sized, or 5-10
+    ("near 0": exp(dt A) < 7e-3) or 1e-5-1e-4 ("near 1"); A = -(1 .. N)
+    scaled per channel."""
+    rng = np.random.default_rng(seed)
+    if regime == "near 0":
+        dt = rng.uniform(5.0, 10.0, (B, S, D))
+    elif regime == "near 1":
+        dt = rng.uniform(1e-5, 1e-4, (B, S, D))
+    else:
+        dt = np.log1p(np.exp(rng.normal(size=(B, S, D))))
+    dtx = dt * rng.normal(size=(B, S, D))
+    bm, cm = rng.normal(size=(B, S, N)), rng.normal(size=(B, S, N))
+    A = -np.arange(1, N + 1) * rng.uniform(0.5, 1.5, (D, N))
+    h0 = rng.normal(size=(B, D, N))
+    return tuple(a.astype(np.float32) for a in (dt, dtx, bm, cm, A, h0))
+
+
+def _jax_scan(dt, dtx, bm, cm, A, h0):
+    """JAX's selective scan as ``mamba_block`` runs it: ``chunked_scan`` in
+    chunks of 64 with the mamba chunk function."""
+    def jchunk(h, ac):
+        dt_c, dtx_c, b_c, c_c = ac
+        states, h2 = jssm.scan_chunk(jnp.exp(dt_c[..., None] * A),
+                                     dtx_c[..., None] * b_c[:, :, None, :], h)
+        return h2, jnp.einsum("bqdn,bqn->bqd", states, c_c)
+
+    return jssm.chunked_scan(tuple(jnp.asarray(a) for a in (dt, dtx, bm, cm)), jnp.asarray(h0),
+                             jchunk, 64)
+
+
+@pytest.mark.parametrize("regime", ["model", "near 0", "near 1"])
+@pytest.mark.parametrize("S", [1, 100, 127, 1024])
+def test_plain_selective_scan_matches_jax(S, regime):
+    """``ref.selective_scan_reference``, the kernel's plain version, against
+    JAX's chunked scan: y and h_S within SCAN_REL of max|y|."""
+    args = _scan_inputs(S, regime)
+    want, want_h = _jax_scan(*args)
+    got, h = ref.selective_scan_reference(*(torch.from_numpy(a) for a in args))
+    top = np.abs(np.asarray(want)).max()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=SCAN_REL * top, rtol=0)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=SCAN_REL * top, rtol=0)
+
+
+def _close_rel(got, want, rel, what=""):
+    want = np.asarray(want, dtype=np.float32)
+    top = max(np.abs(want).max(), 1e-30)
+    np.testing.assert_allclose(np.asarray(got, dtype=np.float32), want, atol=rel * top, rtol=0,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("regime", ["model", "near 0", "near 1"])
+@pytest.mark.parametrize("S", [1, 100, 127, 130])
+def test_plain_scan_backward_matches_autograd(S, regime):
+    """``ref.selective_scan_backward_reference`` (a reverse sweep over
+    64-token chunks, each run forward again from its first state) against
+    torch autograd through the plain forward (JAX's doubling scan), with
+    gradients of y and of h_S: every gradient within SCAN_BWD_REL of its
+    max."""
+    args = [torch.from_numpy(a).requires_grad_() for a in _scan_inputs(S, regime, seed=S)]
+    y, h = ref.selective_scan_reference(*args)
+    rng = np.random.default_rng(1)
+    dy = torch.from_numpy(rng.normal(size=y.shape).astype(np.float32))
+    dh = torch.from_numpy(rng.normal(size=h.shape).astype(np.float32))
+    want = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), args)
+    got = ref.selective_scan_backward_reference(*(a.detach() for a in args), dy, dh)
+    for name, g, w in zip(("ddt", "ddtx", "dB", "dC", "dA", "dh0"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        _close_rel(g.numpy(), w.numpy(), SCAN_BWD_REL, name)
+
+
+def test_selective_scan_autograd_function_on_the_cpu():
+    """The wrapper on CPU tensors: without a gradient it is the plain
+    forward; with one it runs the ``torch.autograd.Function`` through the
+    plain versions, whose gradients equal the plain backward's bit for bit
+    (with and without a gradient of h_S), and launches no kernel."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
+
+    args = [torch.from_numpy(a) for a in _scan_inputs(100, "model")]
+    before = (selective_scan.launches, selective_scan_bwd.launches)
+    y0, h0 = selective_scan(*args)
+    want_y, want_h = ref.selective_scan_reference(*args)
+    assert torch.equal(y0, want_y) and torch.equal(h0, want_h)
+    dy = torch.ones_like(y0)
+    for with_dh in (False, True):
+        ins = [a.clone().requires_grad_() for a in args]
+        y, h = selective_scan(*ins)
+        assert torch.equal(y, want_y)
+        loss = (y * dy).sum() + ((h * 2.0).sum() if with_dh else 0.0)
+        got = torch.autograd.grad(loss, ins)
+        want = ref.selective_scan_backward_reference(
+            *args, dy, torch.full_like(h0, 2.0) if with_dh else None)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert (selective_scan.launches, selective_scan_bwd.launches) == before
+
+
+def test_selective_scan_wrapper_refuses_what_it_does_not_take():
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    dt, dtx, bm, cm, A, h0 = (torch.from_numpy(a) for a in _scan_inputs(8, "model"))
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan(dt.double(), dtx, bm, cm, A, h0)
+    with pytest.raises(ValueError, match="h0"):
+        selective_scan(dt, dtx, bm, cm, A, h0[:, :4])
+    with pytest.raises(ValueError, match="B and C"):
+        selective_scan(dt, dtx, bm[:, :, :2], cm, A, h0)
+
+
+@pytest.mark.parametrize("S", [16, 100])
+def test_mamba_block_gradients_match_jax(S):
+    """``jax.grad`` of JAX's ``mamba_block`` against torch autograd through
+    the port's block (the scan's ``autograd.Function`` on its plain
+    backward): the gradient of every parameter and of x, for a fixed
+    random cotangent of y, within 1e-4 of each gradient's max (sums over
+    d_in in another order)."""
+    jcfg, jparams, cfg, mod = _pair()
+    x = _x(cfg, 2, S, seed=3)
+    w = np.random.default_rng(4).normal(size=(2, S, cfg.d_model)).astype(np.float32)
+
+    def jloss(p, xx):
+        y, _ = jssm.mamba_block(p, xx, jcfg)
+        return jnp.sum(y * w)
+
+    jg, jgx = jax.grad(jloss, argnums=(0, 1))(jparams, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    loss = (mod(xt) * torch.from_numpy(w)).sum()
+    names, params = zip(*mod.named_parameters())
+    grads = torch.autograd.grad(loss, list(params) + [xt])
+    want = ckpt_flatten(jg)
+    for name, g in zip(names, grads[:-1]):
+        _close_rel(g.numpy(), want[name], 1e-4, name)
+    _close_rel(grads[-1].numpy(), jgx, 1e-4, "x")

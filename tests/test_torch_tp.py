@@ -212,8 +212,9 @@ def test_comm_counts_the_model_axis(runs):
 def test_fsdp_still_raises():
     """ZeRO-3 composes with the model axis (the hierarchical step at
     (1, 2, 2) is held against JAX's in tests/test_torch_fsdp.py); it still
-    raises for the hierarchical step across pods (ROADMAP C.9) and for a
-    family whose layers it does not gather (A.9)."""
+    raises for the hierarchical step across pods (ROADMAP C.9), and the
+    step refuses an api built without the blocks.  Every family builds
+    them (tests/test_torch_fsdp_families.py)."""
     cfg = smoke_config(QWEN)
     with pytest.raises(NotImplementedError, match=r"ROADMAP C\.9"):
         make_train_step(get_api(cfg, device="cpu"), cfg, OptConfig(), mesh_layout((2, 1, 2), AXES),
@@ -221,6 +222,3 @@ def test_fsdp_still_raises():
     with pytest.raises(ValueError, match=r"fsdp=True"):  # the api must hold the blocks
         make_train_step(get_api(cfg, device="cpu"), cfg, OptConfig(), mesh_layout((1, 4, 1), AXES),
                         TrainHparams(hierarchical=True, fsdp=True), {"tokens": (8, 16)})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        get_api(smoke_config("whisper-small"), device="cpu", mesh=mesh_layout((1, 4, 1), AXES),
-                fsdp=True)

@@ -1,5 +1,5 @@
-"""The port's distributed train steps of rwkv6, whisper and internvl2 at a
-``model`` axis above 1 against JAX's, on the CPU.
+"""The port's distributed train steps of rwkv6, jamba, whisper and internvl2
+at a ``model`` axis above 1 against JAX's, on the CPU.
 
 * One step of the flat step at (pod, data, model) = (1, 1, 4) and (1, 2, 2)
   and of the hierarchical step at (1, 2, 2), with ZeRO-1, on 4 gloo ranks
@@ -14,11 +14,15 @@
   column/row-parallel, its ``tok`` and ``pos`` looked up in pieces;
   internvl2's projector is a Megatron pair and its LM falls back to
   gathered attention weights where the axis does not divide its heads.
+  jamba (its Mamba mixers channel-parallel, the selective scan's plain
+  backward on the rank's channels, its GQA layer and experts over the
+  axis) takes the flat step at (1, 1, 4) and the hierarchical at (1, 2, 2),
+  both routing as JAX's step at that mesh does.
 * Each rank holds exactly its ``param_pspec`` slices (``check_slices``).
 * The step's ``comm`` counts the model axis's traffic, the hierarchical
   step's the ``pod`` axis's too.
-* jamba's train step at ``model`` > 1 raises naming ROADMAP B.10 (its
-  serving at ``model`` > 1 is in ``tests/test_torch_serve_mesh_tp_families.py``).
+* jamba's serving at ``model`` > 1 is in
+  ``tests/test_torch_serve_mesh_tp_families.py``.
 * The train CLI under ``torch.distributed.run`` with ``--model 2`` trains
   rwkv6 through the hierarchical step.
 """
@@ -33,20 +37,22 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
-from repro_torch.launch.mesh import mesh_layout  # noqa: E402
-from repro_torch.models import get_api, smoke_config  # noqa: E402
-from repro_torch.train.optimizer import OptConfig  # noqa: E402
-from repro_torch.train.trainstep import TrainHparams, make_train_step  # noqa: E402
 from tests.test_torch_tp import check_slices, check_step, run_steps  # noqa: E402
 from tests.torch_dist_ranks import REPO  # noqa: E402
 
 AXES = ("pod", "data", "model")
 M114, M122 = [(1, 1, 4), AXES], [(1, 2, 2), AXES]
 ARCHS = {"rwkv": "rwkv6-1.6b", "whisper": "whisper-small", "internvl2": "internvl2-1b"}
+JAMBA = "jamba-1.5-large-398b"
 # name -> (arch, mesh, hierarchical, compress, grad_accum), as tests/test_torch_tp.py's
 CASES = {f"{short}-{kind}-{''.join(map(str, m[0]))}": (arch, m, kind == "hier", False, 1)
          for short, arch in ARCHS.items()
          for kind, m in (("flat", M114), ("flat", M122), ("hier", M122))}
+# jamba: the flat step at data 1, where the port's per-rank routing is JAX's
+# global routing, and the hierarchical step, which routes each rank's tokens
+# apart in both
+CASES.update({"jamba-flat-114": (JAMBA, M114, False, False, 1),
+              "jamba-hier-122": (JAMBA, M122, True, False, 1)})
 
 
 @pytest.fixture(scope="module")
@@ -70,13 +76,6 @@ def test_comm_counts_the_model_axis(runs):
         calls, nbytes = res["comm/model"]
         assert calls > 0 and nbytes > 0, name
         assert ("comm/pod" in res.files) == hier, name
-
-
-def test_jamba_train_step_at_model_axis_raises():
-    cfg = smoke_config("jamba-1.5-large-398b")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP B\.10\b"):
-        make_train_step(get_api(cfg, device="cpu"), cfg, OptConfig(), mesh_layout(*M122),
-                        TrainHparams(hierarchical=True, zero1=True), {"tokens": (8, 16)})
 
 
 def test_train_cli_model_axis_under_torchrun():

@@ -1,10 +1,13 @@
-"""Training the encoder-decoder, the VLM and the MoE families on the port,
-against the JAX package on the CPU: one ``train_step`` of the fp32 smoke
-configs of whisper-small, internvl2-1b, deepseek-v3-671b (MLA, 1 dense + 4
-MoE layers) and grok-1-314b (4 MoE layers) against JAX's
+"""Training the encoder-decoder, the VLM, the MoE and the hybrid families on
+the port, against the JAX package on the CPU: one ``train_step`` of the
+fp32 smoke configs of whisper-small, internvl2-1b, deepseek-v3-671b (MLA, 1
+dense + 4 MoE layers), grok-1-314b (4 MoE layers) and jamba-1.5-large-398b
+(one unit: 1 GQA + 7 Mamba layers, MoE on every other, its loss with 0.01 x
+the auxiliary loss; the selective scan's plain forward and backward, which
+the CPU runs in place of the kernels) against JAX's
 ``_accum_grads(api.loss, ...)`` and ``adamw_update``, at ``grad_accum`` 1 and
-2; ``batch_to_torch``'s dtypes; the train command line on whisper-small and
-internvl2-1b, with a resume; and jamba's refusal.
+2; ``batch_to_torch``'s dtypes; the train command line on whisper-small,
+internvl2-1b and jamba, with a resume for the first two.
 
 Weights go from JAX into the port through the weight bridge, and the batch
 is one numpy batch of ``SyntheticData`` (frames or patches included) handed
@@ -38,7 +41,8 @@ from repro_torch.train import data, optimizer  # noqa: E402
 from repro_torch.train.trainstep import (  # noqa: E402
     TrainHparams, _accum_grads, batch_to_torch, make_train_state, train_step)
 
-ARCHS = ["whisper-small", "internvl2-1b", "deepseek-v3-671b", "grok-1-314b"]
+ARCHS = ["whisper-small", "internvl2-1b", "deepseek-v3-671b", "grok-1-314b",
+         "jamba-1.5-large-398b"]
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
@@ -135,16 +139,6 @@ def test_every_family_has_its_loss():
         assert get_api(smoke_config(arch), device="cpu").loss is fn, arch
 
 
-def test_jamba_does_not_train_yet():
-    """Its plain selective scan through autograd would keep hundreds of GB at
-    full width: the state refuses it by name (ROADMAP B.10)."""
-    with pytest.raises(NotImplementedError, match="jamba.*B.10"):
-        make_train_state(get_api(smoke_config("jamba-1.5-large-398b"), device="cpu"))
-    with pytest.raises(NotImplementedError, match="B.10"):
-        train_cli.main(["--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu",
-                        "--steps", "1", "--batch", "2", "--seq", "16"])
-
-
 def _step_lines(lines):
     out = []
     for line in lines:
@@ -154,7 +148,7 @@ def _step_lines(lines):
     return out
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b", "jamba-1.5-large-398b"])
 def test_train_cli_trains(arch, capsys):
     train_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
                     "--log-every", "1", "--batch", "2", "--seq", "16"])
