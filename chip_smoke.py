@@ -1133,19 +1133,25 @@ def scan_inputs(gen, B: int, S: int, D: int, N: int, decay: str = "model",
     return dt, dtx, Bm, Cm, A, h
 
 
+SCAN_STATE_TOKENS = 64  # tokens between the saved states a bound counts: JAX's chunk
+
+
 def scan_bytes(B: int, S: int, D: int, N: int, backward: bool) -> tuple:
     """(bytes, fp32 operations) of the scan, each input read once and each
     output written once.  Forward: dt and dtx read and y written (B, S, D),
     B and C read, A read, h0 read and h_S written; an exp and three
     operations per token and state.  Backward: dt, dtx and dy read, ddt and
     ddtx written, B and C read, dB and dC written, A read and dA written,
-    the forward's saved states (B, S / 64, D, N) read and dh0 written (no
-    gradient of h_S, as the model's call); the chunk run again (4) and the
-    reverse step (12) per token and state."""
+    the saved states (B, S / 64, D, N) read and dh0 written (no gradient of
+    h_S, as the model's call); the chunk run again (4) and the reverse step
+    (12) per token and state.  The states are counted at JAX's chunk of
+    ``SCAN_STATE_TOKENS``, whatever the kernels keep, so that the bound does
+    not move with their design."""
     bsd, bsn, dn, bdn = B * S * D, B * S * N, D * N, B * D * N
     if not backward:
         return 4 * (3 * bsd + 2 * bsn + dn + 2 * bdn), 4.0 * bsd * N
-    return 4 * (5 * bsd + 4 * bsn + 2 * dn + B * -(-S // 64) * D * N + bdn), 16.0 * bsd * N
+    states = B * -(-S // SCAN_STATE_TOKENS) * D * N
+    return 4 * (5 * bsd + 4 * bsn + 2 * dn + states + bdn), 16.0 * bsd * N
 
 
 def check_selective_scan(gen, cfg) -> list:
@@ -1153,26 +1159,35 @@ def check_selective_scan(gen, cfg) -> list:
     versions (``ref.selective_scan_reference``, JAX's chunked doubling scan,
     and ``ref.selective_scan_backward_reference``) on the card: at jamba's
     prefill and training shape (B 4, S 1024, d_in 16384, N 16), a TP-4
-    rank's (d_in 4096), a decode step (S 1, from a random state), S 100 and
-    127 (JAX's chunk rule gives chunks of 4 and 1 to the plain version) and
-    with decays near 0 and near 1.  y within SCAN_TOL of max|y|, each
-    gradient within SCAN_BWD_TOL of its max; two backward calls bit-identical;
-    each timed at the two training shapes (median of 30, CUDA events)
-    beside its bound and the plain version.  Returns the two kernels'
+    rank's (d_in 4096), an FSDP rank's one row (B 1), a decode step (S 1,
+    from a random state), S 100, 127, 64 and 65 (JAX's chunk rule gives
+    chunks of 4, 1, 64 and 5 to the plain version), with decays near 0 and
+    near 1, and at S 15 and 16, where the forward goes from 4 states a
+    thread to 8.  y within SCAN_TOL of max|y|, each gradient within
+    SCAN_BWD_TOL of its max; two backward calls bit-identical at jamba's
+    shape and at the TP-4 rank's; each timed at
+    the three training shapes and the forward at the decode step (median of
+    30, CUDA events) beside its bound and the plain version.  Returns the two kernels'
     entries (jamba's prefill shape)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.selective_scan import _launch, selective_scan, selective_scan_bwd
+    from repro_torch.kernels.selective_scan import (_launch, fwd_states, selective_scan,
+                                                    selective_scan_bwd)
 
     mc = cfg.mamba
     D, N = mc.expand * cfg.d_model, mc.d_state
     cases = [  # (what, B, S, d_in, decay, random h0)
         ("jamba's prefill and training", TRAIN_BATCH, TRAIN_SEQ, D, "model", False),
         ("a TP-4 rank's", TRAIN_BATCH, TRAIN_SEQ, D // 4, "model", False),
+        ("an FSDP rank's row", 1, TRAIN_SEQ, D, "model", False),
         ("a decode step", SERVE_BATCH, 1, D, "model", True),
         ("S 100", 2, 100, D // 4, "model", True),
         ("S 127", 2, 127, D // 4, "model", True),
+        ("S 64", 2, 64, D // 4, "model", True),
+        ("S 65", 2, 65, D // 4, "model", True),
         ("decays near 0", TRAIN_BATCH, TRAIN_SEQ, D // 4, "near 0", True),
         ("decays near 1", TRAIN_BATCH, TRAIN_SEQ, D // 4, "near 1", True),
+        ("S 15", 2, 15, D // 4, "model", True),
+        ("S 16", 2, 16, D // 4, "model", True),
     ]
     timed = {}
     for what, B, S, d_in, decay, h0 in cases:
@@ -1190,35 +1205,40 @@ def check_selective_scan(gen, cfg) -> list:
                   for a, b in zip(got, want)]
         ok = y_err <= SCAN_TOL and max(g_errs) <= SCAN_BWD_TOL
         log(f"  selective_scan {what} (B={B}, S={S}, d_in={d_in}, N={N}, decays {decay}, "
-            f"h0 {'random' if h0 else 'zero'}): y and h_S at {y_err:.3g} of max|y| (tol "
+            f"h0 {'random' if h0 else 'zero'}; forward states a thread "
+            f"{fwd_states(S, N)}): y and h_S at {y_err:.3g} of max|y| (tol "
             f"{SCAN_TOL}); backward " + " ".join(
                 f"{n}={e:.3g}" for n, e in zip(("ddt", "ddtx", "dB", "dC", "dA", "dh0"), g_errs))
             + f" of each max|g| (tol {SCAN_BWD_TOL}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"selective_scan {what}: the kernels disagree with their plain "
                                  f"versions: y {y_err}, gradients {g_errs}")
-        if S == TRAIN_SEQ and decay == "model":
+        if (S == TRAIN_SEQ and decay == "model") or S == 1:
             timed[what] = (args, dy, (y - y_p).abs().max().item(),
                            max((a - b).abs().max().item() for a, b in zip(got, want)))
         del y, h, y_p, h_p, got, want
         torch.cuda.empty_cache()
-    args, dy, _, _ = timed["jamba's prefill and training"]
-    first, second = selective_scan_bwd(*args, dy), selective_scan_bwd(*args, dy)
-    sync()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("selective_scan_bwd: two calls on the same inputs differ")
-    log("  selective_scan_bwd at jamba's training shape: two calls give bit-identical ddt, ddtx, "
-        "dB, dC, dA and dh0")
-    del first, second
+    for what in ("jamba's prefill and training", "a TP-4 rank's"):
+        args, dy, _, _ = timed[what]
+        first, second = (selective_scan_bwd(*args, dy) for _ in range(2))
+        sync()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"selective_scan_bwd at {what} shape: two calls on the same "
+                                 "inputs differ")
+        log(f"  selective_scan_bwd at {what} shape: two calls give bit-identical ddt, ddtx, "
+            "dB, dC, dA and dh0")
+        del first, second
     out = {}
     for what, (args, dy, y_err, g_err) in timed.items():
         B, S, d_in = args[0].shape
-        hs = _launch(*args, keep=True)[2]  # the states the training forward keeps
+        hs = _launch(*args, keep=True)[2] if S > 1 else None  # the training forward's states
         for name, fn, plain, err, backward, reps in (
                 ("selective_scan", lambda: selective_scan(*args),
                  lambda: ref.selective_scan_reference(*args), y_err, False, 5),
                 ("selective_scan_bwd", lambda: selective_scan_bwd(*args, dy, hs=hs),
                  lambda: ref.selective_scan_backward_reference(*args, dy), g_err, True, 3)):
+            if backward and S == 1:
+                continue  # a decode step takes no gradient
             nbytes, flops = scan_bytes(B, S, d_in, N, backward)
             bound_ms, bound_by = bound(nbytes, flops, torch.float32)
             t = dict(max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain, reps=reps),
@@ -1231,10 +1251,13 @@ def check_selective_scan(gen, cfg) -> list:
         del hs
         torch.cuda.empty_cache()
     main = "jamba's prefill and training"
+    more = {"at_tp4_rank": "a TP-4 rank's", "at_fsdp_row": "an FSDP rank's row",
+            "at_decode_step": "a decode step"}
     return [dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
                  replaces="none: the JAX package computes the scan in XLA "
                           "(src/repro/models/ssm.py:148), no Pallas kernel",
-                 **out[name][main], at_tp4_rank=out[name]["a TP-4 rank's"])
+                 **out[name][main],
+                 **{key: out[name][what] for key, what in more.items() if what in out[name]})
             for name in ("selective_scan", "selective_scan_bwd")]
 
 

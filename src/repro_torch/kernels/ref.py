@@ -730,3 +730,85 @@ def selective_scan_backward_reference(dt, dtx, Bm, Cm, A, h0, dy, dh=None):
             dC[:, t] = (dy[:, t, :, None] * hs[i + 1]).sum(1)
             carry = a * g
     return ddt, ddtx, dB, dC, dA, carry
+
+
+# ---------------------------------------------------------------------------
+# the selective-scan kernels' chunked algebra, mirrored on the CPU
+# ---------------------------------------------------------------------------
+
+KERNEL_CHUNK = 64  # tokens between the states the kernels keep (selective_scan.CHUNK)
+KERNEL_SUB = 16  # tokens whose a_t and h_t the backward kernel holds in registers
+
+
+def _scan_steps(dt, dtx, Bm, A):
+    """a_t = exp(dt_t A) and dtx_t B_t as functions of t, each (B, d_in, N)."""
+    return (lambda t: torch.exp(dt[:, t, :, None] * A),
+            lambda t: dtx[:, t, :, None] * Bm[:, t, None, :])
+
+
+def selective_scan_chunked_reference(dt, dtx, Bm, Cm, A, h0, *, chunk: int = KERNEL_CHUNK):
+    """The forward kernel's algebra (``csrc/selective_scan.cu``) token by
+    token in fp32.  Returns (y (B, S, d_in), h_S, hs (B, ceil(S / chunk),
+    d_in, N): the state before every chunk-th token)."""
+    dt, dtx, Bm, Cm, A = (t.float() for t in (dt, dtx, Bm, Cm, A))
+    B, S, D = dt.shape
+    decay, inp = _scan_steps(dt, dtx, Bm, A)
+    y = torch.empty_like(dt)
+    hs = torch.empty((B, -(-S // chunk), D, A.shape[1]))
+    h = h0.float()
+    for t in range(S):
+        if t % chunk == 0:
+            hs[:, t // chunk] = h
+        h = decay(t) * h + inp(t)
+        y[:, t] = (h * Cm[:, t, None, :]).sum(-1)
+    return y, h, hs
+
+
+def selective_scan_backward_chunked_reference(dt, dtx, Bm, Cm, A, h0, dy, dh=None, *,
+                                              chunk: int = KERNEL_CHUNK, sub: int = KERNEL_SUB,
+                                              hs: Optional[torch.Tensor] = None):
+    """The backward kernel's algebra (``csrc/selective_scan_bwd.cu``) in
+    fp32, for :func:`selective_scan_backward_reference`'s gradients: the
+    chunks in reverse, each run forward from its saved state in ``hs`` (the
+    forward's, made here when None) to the first state of each ``sub``-token
+    sub-chunk, then each sub-chunk, last first, run again from its first
+    state keeping a_t and h_t, and walked back from the carry (dh, or zero):
+    G_t = C_t dy_t + carry, da = G_t h_{t-1} a_t, carry = a_t G_t.  dA is
+    summed per row and then over the rows in order; dh0 is the last carry."""
+    if chunk % sub:
+        raise ValueError(f"a chunk of {chunk} tokens is not whole sub-chunks of {sub}")
+    dt, dtx, Bm, Cm, A, dy = (t.float() for t in (dt, dtx, Bm, Cm, A, dy))
+    B, S, D = dt.shape
+    decay, inp = _scan_steps(dt, dtx, Bm, A)
+    if hs is None:
+        hs = selective_scan_chunked_reference(dt, dtx, Bm, Cm, A, h0, chunk=chunk)[2]
+    carry = torch.zeros_like(hs[:, 0]) if dh is None else dh.float()
+    ddt, ddtx = torch.empty_like(dt), torch.empty_like(dtx)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    da_rows = torch.zeros_like(hs[:, 0])
+    for c0 in range((S - 1) // chunk * chunk, -1, -chunk):
+        firsts, h = [hs[:, c0 // chunk]], hs[:, c0 // chunk]
+        for u0 in range(c0 + sub, min(c0 + chunk, S), sub):
+            for t in range(u0 - sub, u0):
+                h = decay(t) * h + inp(t)
+            firsts.append(h)
+        for u0, first in reversed(list(zip(range(c0, S, sub), firsts))):
+            ts = range(u0, min(u0 + sub, S))
+            a_s, h_s = [], [first]
+            for t in ts:
+                a_s.append(decay(t))
+                h_s.append(a_s[-1] * h_s[-1] + inp(t))
+            for i in reversed(range(len(ts))):
+                t = ts[i]
+                g = Cm[:, t, None, :] * dy[:, t, :, None] + carry
+                da = g * h_s[i] * a_s[i]
+                ddt[:, t] = (da * A).sum(-1)
+                ddtx[:, t] = (g * Bm[:, t, None, :]).sum(-1)
+                da_rows = da_rows + da * dt[:, t, :, None]
+                dB[:, t] = (g * dtx[:, t, :, None]).sum(1)
+                dC[:, t] = (dy[:, t, :, None] * h_s[i + 1]).sum(1)
+                carry = a_s[i] * g
+    dA = torch.zeros_like(A)
+    for b in range(B):
+        dA = dA + da_rows[b]
+    return ddt, ddtx, dB, dC, dA, carry

@@ -14,16 +14,26 @@ returning y (B, S, d_in) and h_S (B, d_in, N).  A prefill (S = 1024 at
 jamba's serving and training shapes) and a decode step (S = 1, from the
 cache's state) take the same kernel.  :func:`selective_scan` is
 differentiable: when a gradient is wanted it runs the forward kernel inside
-a ``torch.autograd.Function`` that also keeps the state before every 64th
-token (B, S / 64, d_in, N), and the backward kernel starts each chunk from
-it.  Without one (serving) the call is the forward kernel alone.
+a ``torch.autograd.Function`` that also keeps the state before every
+``CHUNK``-th token (B, ceil(S / CHUNK), d_in, N), and the backward kernel
+starts each chunk from it.  Without one (serving) the call is the forward
+kernel alone.
 
-On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
-it runs the plain version (:func:`repro_torch.kernels.ref.selective_scan_reference`,
-:func:`~repro_torch.kernels.ref.selective_scan_backward_reference`).
-``selective_scan.launches`` counts forward launches (one a call on the
-card); ``selective_scan_bwd.launches`` counts backward calls (two launches
-each: the reverse sweep and the ordered sum of its parts).
+The forward kernel's one choice is the states a thread holds
+(:func:`fwd_states`); the backward's is fixed (4).  Both kernels copy their
+rows to shared memory in 16-byte pieces, so the wrapper hands them
+contiguous tensors at 16-byte aligned addresses (:func:`_aligned` copies a
+view that starts elsewhere).
+
+On a CUDA tensor each wrapper launches its kernels or raises; on a CPU
+tensor it runs the plain version (:func:`repro_torch.kernels.ref.selective_scan_reference`,
+:func:`~repro_torch.kernels.ref.selective_scan_backward_reference`);
+:func:`~repro_torch.kernels.ref.selective_scan_chunked_reference` and
+:func:`~repro_torch.kernels.ref.selective_scan_backward_chunked_reference`
+mirror the kernels' algebra on the CPU for the tests.
+``selective_scan.launches`` counts forward calls on the card (one launch
+each); ``selective_scan_bwd.launches`` counts backward calls (two launches
+each, the sweep and the ordered sum of its parts).
 """
 from __future__ import annotations
 
@@ -37,15 +47,15 @@ from . import ref
 from .build import load_library
 
 STATE_DIMS = (4, 8, 16)  # N, the kernels' template instantiations
-CHUNK = 64  # tokens between the states the forward keeps for the backward
-_SMS = 132  # the H100's streaming multiprocessors: the backward's blocks fill two waves
+CHUNK = 64  # tokens between the states the forward keeps for the backward (JAX's chunk)
+SUB = 16  # tokens the forward stages at a time
 
 
 @functools.lru_cache(maxsize=None)
 def _bind() -> ctypes.CDLL:
     lib = load_library("selective_scan")
     fn = lib.selective_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.selective_scan_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_error_string.restype = ctypes.c_char_p
@@ -56,7 +66,7 @@ def _bind() -> ctypes.CDLL:
 def _bind_bwd() -> ctypes.CDLL:
     lib = load_library("selective_scan_bwd")
     fn = lib.selective_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.selective_scan_bwd_channels.argtypes = [ctypes.c_int]
     lib.selective_scan_bwd_channels.restype = ctypes.c_int
@@ -87,14 +97,33 @@ def _check(dt, dtx, Bm, Cm, A, h0) -> None:
         raise TypeError("selective_scan takes float32 dt, dtx, B, C, A and h0")
 
 
+def fwd_states(S: int, N: int) -> int:
+    """The states a thread of the forward kernel holds: 8 (N / 8 lanes a
+    channel; 4 at N 4, and for fewer tokens than a stage, as a decode
+    step's, whose one token wants the threads)."""
+    return min(N, 8) if S >= SUB else 4
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address, copied if it is not:
+    the kernels stage its rows with 16-byte ``cp.async``."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _launch(dt, dtx, Bm, Cm, A, h0, keep: bool):
-    """(y, h_S, the states before every CHUNK-th token or None): one launch
-    of the forward kernel."""
+    """(y, h_S, the states before every CHUNK-th token or None): the forward
+    kernel."""
     B, S, D = dt.shape
     N = A.shape[1]
     if N not in STATE_DIMS:
         raise ValueError(f"selective_scan kernel takes N in {STATE_DIMS}, not {N}")
-    dt, dtx, Bm, Cm, A, h0 = (t.contiguous() for t in (dt, dtx, Bm, Cm, A, h0))
+    dt, dtx, Bm, Cm = (_aligned(t) for t in (dt, dtx, Bm, Cm))
+    A, h0 = A.contiguous(), h0.contiguous()
     y = torch.empty_like(dt)
     h_out = torch.empty_like(h0)
     hs = (torch.empty((B, -(-S // CHUNK), D, N), dtype=torch.float32, device=dt.device)
@@ -103,7 +132,7 @@ def _launch(dt, dtx, Bm, Cm, A, h0, keep: bool):
     err = lib.selective_scan_fwd(
         dt.data_ptr(), dtx.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(),
         h0.data_ptr(), y.data_ptr(), h_out.data_ptr(), hs.data_ptr() if keep else None,
-        B, S, D, N, CHUNK, torch.cuda.current_stream(dt.device).cuda_stream)
+        B, S, D, N, CHUNK, fwd_states(S, N), _stream(dt))
     if err:
         msg = lib.selective_scan_error_string(err).decode()
         raise RuntimeError(f"selective_scan kernel launch failed: {msg} ({err})")
@@ -159,16 +188,6 @@ def selective_scan(
 selective_scan.launches = 0
 
 
-def bwd_plan(B: int, D: int, N: int) -> Tuple[int, int]:
-    """(groups, passes) of the backward kernel: the blocks of a row and the
-    groups of ``256 / N`` channels each block walks in turn, the most passes
-    that still give two blocks an SM."""
-    groups, passes = -(-D // (256 // N)), 1
-    while groups % 2 == 0 and (groups // 2) * B >= 2 * _SMS:
-        groups, passes = groups // 2, passes * 2
-    return groups, passes
-
-
 def selective_scan_bwd(
     dt: torch.Tensor,  # (B, S, d_in) fp32
     dtx: torch.Tensor,  # (B, S, d_in) fp32
@@ -179,15 +198,14 @@ def selective_scan_bwd(
     dy: torch.Tensor,  # (B, S, d_in): the gradient of y
     dh: Optional[torch.Tensor] = None,  # (B, d_in, N): the gradient of h_S, None for zeros
     *,
-    hs: Optional[torch.Tensor] = None,  # the forward's states before every 64th token
+    hs: Optional[torch.Tensor] = None,  # the forward's states before every CHUNK-th token
 ) -> Tuple[torch.Tensor, ...]:
     """(ddt, ddtx (B, S, d_in), dB, dC (B, S, N), dA (d_in, N), dh0 (B,
     d_in, N)), fp32.  On the card ``hs`` comes from the forward in
     :func:`selective_scan` (without it a forward launch makes it first);
-    two launches (the reverse sweep over the chunks, then the ordered sums
-    of its per-block parts of dB, dC and dA), counted as one in
-    ``selective_scan_bwd.launches``.  No atomics: two calls give
-    bit-identical gradients."""
+    the sweep and the ordered sums of its per-block parts of dB, dC and dA,
+    counted as one in ``selective_scan_bwd.launches``.  No atomics: two
+    calls give bit-identical gradients."""
     _check(dt, dtx, Bm, Cm, A, h0)
     B, S, D = dt.shape
     N = A.shape[1]
@@ -205,12 +223,13 @@ def selective_scan_bwd(
         hs = _launch(dt, dtx, Bm, Cm, A, h0, keep=True)[2]
     if hs.shape != (B, -(-S // CHUNK), D, N):
         raise ValueError(f"expected hs ({B},{-(-S // CHUNK)},{D},{N}); got {tuple(hs.shape)}")
-    dt, dtx, Bm, Cm, A, hs = (t.contiguous() for t in (dt, dtx, Bm, Cm, A, hs))
-    dy = dy.float().contiguous()  # autograd may hand in any layout, even a broadcast
+    dt, dtx, Bm, Cm, hs = (_aligned(t) for t in (dt, dtx, Bm, Cm, hs))
+    A = A.contiguous()
+    dy = _aligned(dy.float())  # autograd may hand in any layout, even a broadcast
     if dh is not None:
         dh = dh.float().contiguous()
     lib = _bind_bwd()
-    groups, passes = bwd_plan(B, D, N)
+    groups = -(-D // lib.selective_scan_bwd_channels(N))
     ddt, ddtx = torch.empty_like(dt), torch.empty_like(dtx)
     dB, dC, dA = torch.empty_like(Bm), torch.empty_like(Cm), torch.empty_like(A)
     dh0 = torch.empty((B, D, N), dtype=torch.float32, device=dt.device)
@@ -221,8 +240,8 @@ def selective_scan_bwd(
         dt.data_ptr(), dtx.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(),
         hs.data_ptr(), dy.data_ptr(), dh.data_ptr() if dh is not None else None,
         ddt.data_ptr(), ddtx.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-        dh0.data_ptr(), da_part.data_ptr(), dbc_part.data_ptr(), B, S, D, N, groups, passes,
-        torch.cuda.current_stream(dt.device).cuda_stream)
+        dh0.data_ptr(), da_part.data_ptr(), dbc_part.data_ptr(), B, S, D, N, CHUNK,
+        _stream(dt))
     if err:
         msg = lib.selective_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: {msg} ({err})")

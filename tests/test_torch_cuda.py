@@ -653,8 +653,52 @@ def _rel_err(got, want):
     (4, 1024, 4096, 16, "near 1", True),
     (2, 100, 256, 4, "model", True),  # the smoke config's N and a d_in of one block
     (1, 130, 24, 8, "model", True),  # channels that do not fill a block
+    (1, 1024, 16384, 16, "model", False),  # an FSDP rank's one row
+    (2, 64, 4096, 16, "model", True),  # one whole chunk of the kernels' and of JAX's
+    (2, 65, 4096, 16, "model", True),  # one token past it
 ])
 def test_selective_scan_kernels_match_plain(gen, B, S, D, N, decay, h0):
+    _check_scan_kernels(gen, B, S, D, N, decay, h0)
+
+
+@pytest.mark.parametrize("S", [15, 16])
+def test_selective_scan_kernels_match_plain_at_plan_boundaries(gen, S):
+    """The forward's one choice, the states a thread holds: 4 below a stage
+    of tokens (S 15), 8 from one (S 16)."""
+    from repro_torch.kernels.selective_scan import SUB, fwd_states
+
+    assert fwd_states(S, 16) == (8 if S >= SUB else 4)
+    _check_scan_kernels(gen, 2, S, 4096, 16, "model", True)
+
+
+def test_selective_scan_kernels_take_unaligned_views(gen):
+    """B and C sliced out of one projection at an offset that is not 16
+    bytes (as ``models/ssm.py`` slices them after dt's columns, here 3 of
+    them): a decode step's (1, 1) rows are contiguous views at that offset,
+    which the wrapper copies before the kernels stage them in 16-byte
+    pieces."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
+
+    D, N = 4096, 16
+    dt, dtx, _, _, A, h0 = _scan_args(gen, 1, 1, D, N, h0=True)
+    proj = _randn(gen, (1, 1, 3 + 2 * N), torch.float32)
+    bm, cm = proj[..., 3:3 + N], proj[..., 3 + N:]
+    assert bm.is_contiguous() and bm.data_ptr() % 16 != 0
+    args = (dt, dtx, bm, cm, A, h0)
+    y, h = selective_scan(*args)
+    dy = _randn(gen, (1, 1, D), torch.float32)
+    got = selective_scan_bwd(*args, dy)
+    torch.cuda.synchronize()
+    want_y, want_h = ref.selective_scan_reference(*args)
+    top = want_y.abs().max().item()
+    assert (y - want_y).abs().max().item() <= 1e-5 * top
+    assert (h - want_h).abs().max().item() <= 1e-5 * top
+    want = ref.selective_scan_backward_reference(*args, dy)
+    for name, g, w in zip(("ddt", "ddtx", "dB", "dC", "dA", "dh0"), got, want):
+        assert _rel_err(g, w) <= 1e-4, name
+
+
+def _check_scan_kernels(gen, B, S, D, N, decay, h0):
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_bwd
 
     args = _scan_args(gen, B, S, D, N, decay, h0)
@@ -677,6 +721,7 @@ def test_selective_scan_kernels_match_plain(gen, B, S, D, N, decay, h0):
 
 
 def test_selective_scan_bwd_is_deterministic(gen):
+    """Two calls at a TP-4 rank's 4096 channels give the same bits."""
     from repro_torch.kernels.selective_scan import selective_scan_bwd
 
     args = _scan_args(gen, 4, 1024, 4096, 16)
